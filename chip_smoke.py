@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Card check of the PyTorch port: builds its CUDA kernels, holds each against
+its plain PyTorch version, and drives the RxR CMA act step at full width.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
+
+1. device: the card's name, and its power limit from nvidia-smi;
+2. build: every kernel of vlnce_torch/csrc, one nvcc process each, at once;
+3. B1 gru_sequence and B2 fused_resize_normalize: kernel against plain
+   version at the act shapes (and the other modes), with times of the
+   kernel, the plain version, a one-call PyTorch yardstick and the bound;
+4. main path: the RxR CMA config (rxr_cma_en.yaml) at full width,
+   CMAPolicy.from_config on the card with seeded weights, then
+   make_fused_act_step for 8 act steps at B=32 in bf16 on seeded
+   observations in the env's format; the kernels' launch counters must rise
+   by 2 + 2 per step; then the same 8 steps in f32 with the kernels and with
+   the plain versions swapped in must agree;
+5. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+
+Any failed check raises, so the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+B = 32  # the act batch (bench.py)
+STEPS = 8
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms, CUDA events around `iters` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_device():
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(smi)
+    return name
+
+
+def phase_build():
+    from vlnce_torch.ops import _build
+
+    t0 = time.perf_counter()
+    seconds = _build.build(_build.KERNELS)
+    print(f"build: {time.perf_counter() - t0:.1f} s wall, per kernel {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    for name in _build.KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# B1: masked GRU sequence
+# ---------------------------------------------------------------------------
+
+
+def phase_gru(dev):
+    from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_plain
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+
+    def inputs(T, Bn, H, D, reset_at=None):
+        xi = torch.randn(T, Bn, 3 * H, generator=g)
+        masks = torch.ones(T, Bn, 1)
+        if reset_at is not None:
+            masks[reset_at, ::2] = 0.0
+        h0 = torch.randn(Bn, H, generator=g)
+        w_hh = torch.randn(3 * H, H, generator=g) * H**-0.5
+        b_hh = torch.randn(3 * H, generator=g) * 0.1
+        w_ih = torch.randn(3 * H, D, generator=g) * D**-0.5
+        b_ih = torch.randn(3 * H, generator=g) * 0.1
+        x = torch.randn(Bn, D, generator=g)
+        return [t.to(dev) for t in (xi, masks, h0, w_hh, b_hh, w_ih, b_ih, x)]
+
+    errs = {}
+    for label, (T, Bn, reset, atol) in {"act T=1 B=32 H=512": (1, B, 0, 1e-5),
+                                        "T=16 B=4 H=512 reset+h0": (16, 4, 7, 1e-4)}.items():
+        xi, masks, h0, w_hh, b_hh, *_ = inputs(T, Bn, 512, 416, reset)
+        out = gru_sequence(xi, masks, h0, w_hh, b_hh)
+        ref = gru_sequence_plain(xi, masks, h0, w_hh, b_hh)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        print(f"B1 {label}: max_abs_err {err:.3e} (atol {atol:g})")
+        assert err <= atol, f"B1 kernel disagrees with its plain version at {label}: {err}"
+        errs[label] = err
+
+    # the act step: two launches (state_encoder over D=416, second over D=512)
+    layers = [inputs(1, B, 512, D, 0) for D in (416, 512)]
+
+    def kernel():
+        for xi, masks, h0, w_hh, b_hh, *_ in layers:
+            gru_sequence(xi, masks, h0, w_hh, b_hh)
+
+    def plain():
+        for xi, masks, h0, w_hh, b_hh, *_ in layers:
+            gru_sequence_plain(xi, masks, h0, w_hh, b_hh)
+
+    def projection_and_kernel():
+        for _, masks, h0, w_hh, b_hh, w_ih, b_ih, x in layers:
+            gru_sequence(torch.nn.functional.linear(x, w_ih, b_ih)[None], masks, h0, w_hh, b_hh)
+
+    def library():  # yardstick only: the port never calls torch.gru_cell
+        for _, masks, h0, w_hh, b_hh, w_ih, b_ih, x in layers:
+            torch.gru_cell(x, h0 * masks[0], w_ih, w_hh, b_ih, b_hh)
+
+    ms = cuda_ms(kernel, iters=200)
+    plain_ms = cuda_ms(plain, iters=200)
+    proj_ms = cuda_ms(projection_and_kernel, iters=200)
+    lib_ms = cuda_ms(library, iters=200)
+    moved = sum(nbytes(xi, masks, h0, w_hh, b_hh) + nbytes(h0) for xi, masks, h0, w_hh, b_hh, *_ in layers)
+    flops = sum(2 * 3 * 512 * 512 * B + 12 * 512 * B for _ in layers)
+    b_ms, b_by = bound_ms(moved, flops)
+    print(f"B1 act step (2 launches, L2-warm): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"projection+kernel {proj_ms:.4f} ms, torch.gru_cell {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {
+        "name": "gru_sequence", "route": "cuda", "source": "vlnce_torch/csrc/gru_sequence.cu",
+        "replaces": "vlnce_tpu/ops/pallas_rnn.py:55", "max_abs_err": max(errs.values()),
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+    }
+
+
+# ---------------------------------------------------------------------------
+# B2: fused bilinear resize + normalize
+# ---------------------------------------------------------------------------
+
+
+def _resize_err(out, ref, out_dtype, scale_values):
+    """Max |kernel - plain| after checking the stated tolerance: u8 within 1
+    on at most 0.01% of values (summation order can flip a .5 tie), bf16
+    within one bf16 ulp, f32 1e-5 on [0, 1]-scaled values and 1e-3 on raw
+    [0, 255] values."""
+    diff = (out.float() - ref.float()).abs()
+    if out_dtype == torch.uint8:
+        assert float(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-4, "u8 resize mismatch"
+    elif out_dtype == torch.bfloat16:
+        assert bool((diff <= ref.float().abs() * 2.0**-7 + 1e-6).all()), "bf16 resize beyond one ulp"
+    else:
+        assert float(diff.max()) <= (1e-5 if scale_values else 1e-3), "f32 resize mismatch"
+    return float(diff.max())
+
+
+def phase_resize(dev):
+    import torch.nn.functional as F
+
+    from vlnce_torch.ops.preprocess import fused_resize_normalize, fused_resize_normalize_plain
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    rgb = torch.randint(0, 256, (B, 480, 640, 3), generator=g, dtype=torch.uint8).to(dev)
+    depth = torch.rand(B, 480, 640, 1, generator=g).to(dev)
+    act_calls = [  # what ResizeShortestEdge(256) runs on an RxR act step
+        (rgb, dict(normalize=False, out_dtype=torch.uint8, scale_values=False)),
+        (depth, dict(normalize=False, out_dtype=torch.float32, scale_values=False)),
+    ]
+    modes = {
+        "act rgb u8 480x640->256x341": act_calls[0],
+        "act depth f32 480x640->256x341": act_calls[1],
+        "identity u8->f32 224x224": (rgb[:, :224, :224].contiguous(), dict(normalize=False, out_dtype=torch.float32)),
+        "normalize u8->bf16": (rgb, dict(normalize=True, out_dtype=torch.bfloat16)),
+        "depth f32->bf16": (depth, dict(normalize=False, out_dtype=torch.bfloat16)),
+    }
+    act_err = 0.0
+    for label, (x, kw) in modes.items():
+        hw = (x.shape[1], x.shape[2]) if "identity" in label else (256, 341)
+        out = fused_resize_normalize(x, hw, **kw)
+        ref = fused_resize_normalize_plain(x, hw, **kw)
+        torch.cuda.synchronize()
+        err = _resize_err(out, ref, kw["out_dtype"], kw.get("scale_values", True))
+        print(f"B2 {label}: max_abs_err {err:.3e}")
+        if label.startswith("act"):
+            act_err = max(act_err, err)
+
+    floats = [x.permute(0, 3, 1, 2).float() for x, _ in act_calls]  # yardstick input, prepared untimed
+
+    def kernel():
+        for x, kw in act_calls:
+            fused_resize_normalize(x, (256, 341), **kw)
+
+    def plain():
+        for x, kw in act_calls:
+            fused_resize_normalize_plain(x, (256, 341), **kw)
+
+    def library():  # yardstick only: the port never calls F.interpolate
+        for xf in floats:
+            F.interpolate(xf, size=(256, 341), mode="bilinear", align_corners=False, antialias=False)
+
+    ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain, iters=5)
+    lib_ms = cuda_ms(library)
+    moved = sum(nbytes(x) + x.shape[0] * 256 * 341 * x.shape[3] * kw["out_dtype"].itemsize for x, kw in act_calls)
+    flops = sum(11 * x.shape[0] * 256 * 341 * x.shape[3] for x, _ in act_calls)
+    b_ms, b_by = bound_ms(moved, flops)
+    print(f"B2 act step (rgb + depth): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"F.interpolate on f32 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB)")
+    return {
+        "name": "fused_resize_normalize", "route": "cuda", "source": "vlnce_torch/csrc/resize_normalize.cu",
+        "replaces": "vlnce_tpu/ops/pallas_preprocess.py:66", "max_abs_err": act_err,
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+    }
+
+
+# ---------------------------------------------------------------------------
+# main path: the RxR CMA act step
+# ---------------------------------------------------------------------------
+
+
+EXP = "vlnce_torch/config/experiments/rxr_baselines/rxr_cma_en.yaml"
+
+
+def build_act_step(dev, dtype: str):
+    """The RxR CMA config at full width on `dev` in compute dtype `dtype`, its
+    policy with seeded weights, and the fused act step."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
+    from vlnce_torch.models.cma_policy import CMAPolicy
+    from vlnce_torch.ops.obs_transforms import apply_obs_transforms_obs_space, get_active_obs_transforms
+    from vlnce_torch.trainers.base_trainer import make_fused_act_step
+
+    cfg = get_config(EXP, ["CUDA.DEVICE", str(dev), "CUDA.PRECISION.compute_dtype", dtype])
+    transforms = get_active_obs_transforms(cfg)
+    space = apply_obs_transforms_obs_space(observation_space_from_config(cfg.TASK_CONFIG), transforms)
+    policy = CMAPolicy.from_config(cfg, space, action_space_from_config(cfg.TASK_CONFIG))
+    return cfg, policy, make_fused_act_step(policy, transforms)
+
+
+def episode_observations(task_config, seed, steps=STEPS):
+    """`steps` lists of B per-env observation dicts in the env's format: u8
+    rgb and f32 depth frames, BERT-feature instructions [512, 768] zero past
+    a ragged length, constant over an episode."""
+    rng = np.random.RandomState(seed)
+    sim, rxr = task_config.SIMULATOR, task_config.TASK.RXR_INSTRUCTION_SENSOR
+    instr = np.zeros((B, rxr.max_text_len, rxr.feature_dim), np.float32)
+    for b in range(B):
+        n = rng.randint(16, rxr.max_text_len + 1)
+        instr[b, :n] = rng.randn(n, rxr.feature_dim)
+    batches = []
+    for _ in range(steps):
+        rgb = rng.randint(0, 256, (B, sim.RGB_SENSOR.HEIGHT, sim.RGB_SENSOR.WIDTH, 3), dtype=np.uint8)
+        depth = rng.rand(B, sim.DEPTH_SENSOR.HEIGHT, sim.DEPTH_SENSOR.WIDTH, 1).astype(np.float32)
+        batches.append([{"rgb": rgb[b], "depth": depth[b], "rxr_instruction": instr[b]} for b in range(B)])
+    return batches
+
+
+def _masks(step, dev):
+    m = torch.ones(B, 1, device=dev)
+    if step == 0:
+        m[:] = 0.0
+    if step == 4:
+        m[: B // 2] = 0.0
+    return m
+
+
+def _run(act_step, policy, batches, dev, deterministic, generator=None):
+    rnn = policy.initial_rnn_states(B)
+    prev = torch.zeros(B, 1, dtype=torch.long, device=dev)
+    logits, states, actions = [], [], []
+    for step, obs in enumerate(batches):
+        action, rnn, lg = act_step(obs, rnn, prev, _masks(step, dev), deterministic, generator)
+        prev = action
+        logits.append(lg)
+        states.append(rnn)
+        actions.append(action)
+    torch.cuda.synchronize()
+    return torch.stack(logits), torch.stack(states), torch.stack(actions)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Swap the plain PyTorch versions in where the act step calls the
+    kernels' wrappers, for the whole-path reference run."""
+    import vlnce_torch.models.rnn_state_encoder as rse
+    import vlnce_torch.ops.obs_transforms as ot
+    from vlnce_torch.ops.preprocess import fused_resize_normalize_plain
+    from vlnce_torch.ops.rnn import gru_sequence_plain
+
+    saved = rse.gru_sequence, ot.fused_resize_normalize
+    rse.gru_sequence, ot.fused_resize_normalize = gru_sequence_plain, fused_resize_normalize_plain
+    try:
+        yield
+    finally:
+        rse.gru_sequence, ot.fused_resize_normalize = saved
+
+
+def phase_main_path(dev):
+    from vlnce_torch.envs.batch import batch_obs
+    from vlnce_torch.ops.preprocess import fused_resize_normalize
+    from vlnce_torch.ops.rnn import gru_sequence
+
+    t0 = time.perf_counter()
+    cfg, policy, act_step = build_act_step(dev, "bfloat16")
+    print(f"main path: RxR CMA ({cfg.MODEL.RGB_ENCODER.cnn_type} rgb, GN-{cfg.MODEL.DEPTH_ENCODER.backbone} depth, "
+          f"H={cfg.MODEL.STATE_ENCODER.hidden_size}, {policy.num_params() / 1e6:.1f}M weights), "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    batches = [batch_obs(obs, dev) for obs in episode_observations(cfg.TASK_CONFIG, seed=3)]
+    torch.cuda.synchronize()
+    print(f"observations: {STEPS} steps x B={B} of rgb {tuple(batches[0]['rgb'].shape)} u8, depth "
+          f"{tuple(batches[0]['depth'].shape)} f32, rxr_instruction {tuple(batches[0]['rxr_instruction'].shape)} "
+          f"batched to the card in {time.perf_counter() - t0:.1f} s")
+
+    sampler = torch.Generator(device=dev).manual_seed(int(cfg.TASK_CONFIG.SEED))
+    gru_sequence.launches = 0
+    fused_resize_normalize.launches = 0
+    logits, states, actions = _run(act_step, policy, batches, dev, not cfg.EVAL.SAMPLE, sampler)
+    launches = {"gru_sequence": gru_sequence.launches, "fused_resize_normalize": fused_resize_normalize.launches}
+    print(f"main path launches over {STEPS} act steps: {json.dumps(launches)}")
+    assert launches == {"gru_sequence": 2 * STEPS, "fused_resize_normalize": 2 * STEPS}, launches
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(states).all()), "non-finite act outputs"
+    assert tuple(logits.shape) == (STEPS, B, 6) and tuple(states.shape) == (STEPS, B, 2, 512)
+    assert int(actions.min()) >= 0 and int(actions.max()) < 6, "action out of range"
+    print(f"bf16 act: {'sampled' if cfg.EVAL.SAMPLE else 'greedy'} actions in [0, 6), "
+          f"|logits| max {float(logits.abs().max()):.4f}, action counts {torch.bincount(actions.flatten(), minlength=6).tolist()}")
+
+    # act-step time in bf16, after the warm-up above
+    peak0 = torch.cuda.max_memory_allocated()
+    rnn, prev, masks = states[-1], actions[-1], torch.ones(B, 1, device=dev)
+    step_ms = cuda_ms(lambda: act_step(batches[-1], rnn, prev, masks, True), iters=20, warmup=2)
+    print(f"bf16 act step: {step_ms:.3f} ms/step, {B / step_ms * 1e3:.1f} env-steps/s (CUDA events, 20 steps at B={B}); "
+          f"peak memory {max(peak0, torch.cuda.max_memory_allocated()) / 2**30:.2f} GiB")
+
+    # f32 with the kernels against f32 with the plain versions, TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, policy32, act32 = build_act_step(dev, "float32")
+    policy32.load_state_dict(policy.state_dict(), strict=True)
+    k_logits, k_states, k_actions = _run(act32, policy32, batches, dev, True)
+    with plain_versions():
+        p_logits, p_states, p_actions = _run(act32, policy32, batches, dev, True)
+    # the seeded head's logits are small (|logit| ~ 5e-3), so they are held
+    # relative to their own scale; the RNN states are of order 1
+    scale_l = float(p_logits.abs().max())
+    err_l = float((k_logits - p_logits).abs().max())
+    err_s = float((k_states - p_states).abs().max())
+    same = bool(torch.equal(k_actions, p_actions))
+    print(f"f32 act, kernels vs plain versions: greedy actions equal {same}, max |logits diff| {err_l:.3e} "
+          f"(<= 1e-4 x max |logit| {scale_l:.3e}), max |state diff| {err_s:.3e} (atol 1e-3)")
+    assert same and err_l <= 1e-4 * scale_l and err_s <= 1e-3, "f32 act step with kernels disagrees with the plain versions"
+    f32_ms = cuda_ms(lambda: act32(batches[-1], rnn, prev, masks, True), iters=5, warmup=1)
+    print(f"f32 act step (TF32 off): {f32_ms:.3f} ms/step")
+    return launches, step_ms
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    import vlnce_torch  # noqa: F401  (fails where the repository is absent)
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = phase_device()
+    phase_build()
+    kernels = [phase_gru(dev), phase_resize(dev)]
+    launches, _ = phase_main_path(dev)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Where the time of the port's RxR CMA act step goes, on one CUDA card.
+
+    python3 scripts/profile_torch_act.py
+
+Builds the act step that chip_smoke.py drives (the RxR CMA policy of
+rxr_cma_en.yaml at full width in bf16, seeded weights, B=32, the same seeded
+observations), then reports:
+
+- the whole step's time with CUDA events, and its device busy time from
+  torch.profiler (the sum of its kernels' times); their difference is time the
+  device waits for the host to launch work (the idle share);
+- per layer, its device busy time: the obs transforms (resize kernel +
+  crops), the instruction biLSTM, the depth and RGB encoders, and the rest
+  (GRUs, attention, heads, the action draw) as the step minus those;
+- device time by kernel family and by kernel name over PROFILED_STEPS steps.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import B, build_act_step, cuda_ms, episode_observations  # noqa: E402
+
+PROFILED_STEPS = 10
+FAMILIES = (  # first match wins
+    ("gru_sequence (B1)", ("gru_sequence",)),
+    ("resize_normalize (B2)", ("resize_normalize",)),
+    ("cuDNN LSTM", ("RNN", "LSTM", "lstm", "rnn")),
+    ("group_norm", ("group_norm", "GroupNorm", "RowwiseMoments", "ComputeFused", "Moments")),
+    ("convolution", ("conv", "Conv", "xmma", "implicit", "sm90_", "cutlass", "cudnn", "nchw", "nhwc")),
+    ("gemm", ("gemm", "Gemm", "gemv", "cublas")),
+    ("pooling", ("pool",)),
+    ("elementwise/other", ("",)),
+)
+
+
+def device_ms(fn, steps):
+    """Device busy ms per call of fn (the sum of its kernels' times under
+    torch.profiler, over `steps` calls) and that time by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = collections.Counter()
+    for ev in prof.key_averages():
+        if ev.self_device_time_total > 0:
+            kernels[ev.key] += ev.self_device_time_total / 1e3 / steps
+    return sum(kernels.values()), kernels
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_act: no CUDA card visible", file=sys.stderr)
+        return 1
+
+    from vlnce_torch.envs.batch import batch_obs
+    from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms
+
+    dev = torch.device("cuda", 0)
+    cfg, policy, act_step = build_act_step(dev, "bfloat16")
+    transforms = get_active_obs_transforms(cfg)
+    obs = batch_obs(episode_observations(cfg.TASK_CONFIG, seed=3, steps=1)[0], dev)
+    rnn = policy.initial_rnn_states(B)
+    prev = torch.zeros(B, 1, dtype=torch.long, device=dev)
+    masks = torch.ones(B, 1, device=dev)
+
+    name = torch.cuda.get_device_name(0)
+    print(f"device: {name}; B={B}, bf16 encoders, {policy.num_params() / 1e6:.1f}M weights")
+    net = policy.net
+    with torch.no_grad():
+        batch = apply_obs_transforms_batch(obs, transforms)
+        step = lambda: act_step(obs, rnn, prev, masks, True)  # noqa: E731
+        total = cuda_ms(step, iters=10, warmup=2)
+        busy, kernels = device_ms(step, PROFILED_STEPS)
+        layers = {
+            "obs transforms": device_ms(lambda: apply_obs_transforms_batch(obs, transforms), PROFILED_STEPS)[0],
+            "instruction biLSTM": device_ms(lambda: net.instruction_encoder(batch), PROFILED_STEPS)[0],
+            "depth encoder (GN-ResNet50)": device_ms(lambda: net.depth_encoder(batch), PROFILED_STEPS)[0],
+            "rgb encoder (ResNet50)": device_ms(lambda: net.rgb_encoder(batch), PROFILED_STEPS)[0],
+        }
+    layers["rest (GRUs, attention, heads, draw)"] = busy - sum(layers.values())
+    print(f"act step: {total:.3f} ms/step, {B / total * 1e3:.1f} env-steps/s (CUDA events); device busy "
+          f"{busy:.3f} ms/step (profiler), idle share {max(0.0, 1 - busy / total):.1%}")
+    print("device busy by layer:")
+    for k, v in layers.items():
+        print(f"  {k:38s} {v:8.3f} ms  {v / busy:6.1%}")
+    families = collections.Counter()
+    for k, v in kernels.items():
+        fam = next(f for f, keys in FAMILIES if any(s in k for s in keys))
+        families[fam] += v
+    print("device busy by kernel family:")
+    for fam, v in families.most_common():
+        print(f"  {fam:38s} {v:8.3f} ms  {v / busy:6.1%}")
+    print("top kernels (ms/step):")
+    for k, v in kernels.most_common(12):
+        print(f"  {v:8.3f}  {k[:110]}")
+    print(json.dumps({"device": name, "batch": B, "act_ms": total, "device_busy_ms": busy,
+                      "layers_busy_ms": layers, "families_ms": dict(families)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,83 @@
+"""Masked GRU (kernel B1) of the PyTorch port against the JAX package.
+
+On CPU tensors the port's `gru_sequence` runs its plain PyTorch version; the
+JAX side runs the Pallas kernel in interpret mode, as tests/test_pallas_rnn.py
+does. Tolerance: atol 1e-5 in f32, the same as that file (the two differ only
+in summation order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vlnce_tpu.models.rnn_state_encoder import RNNStateEncoder as JaxRNNStateEncoder
+from vlnce_tpu.ops.pallas_rnn import gru_sequence as jax_gru_sequence
+from vlnce_torch.models.rnn_state_encoder import RNNStateEncoder
+from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_plain
+
+ATOL = 1e-5
+
+
+def _inputs(seed, T, B, H, h0_scale=1.0):
+    rng = np.random.RandomState(seed)
+    xi = rng.randn(T, B, 3 * H).astype(np.float32)
+    w_hh = (rng.randn(3 * H, H) * 0.05).astype(np.float32)
+    b_hh = (rng.randn(3 * H) * 0.05).astype(np.float32)
+    h0 = (rng.randn(B, H) * h0_scale).astype(np.float32)
+    masks = np.ones((T, B, 1), np.float32)
+    return xi, masks, h0, w_hh, b_hh
+
+
+@pytest.mark.parametrize(
+    "case", ["reset_mid_sequence", "nonzero_h0", "single_step"],
+)
+def test_plain_gru_sequence_matches_pallas(case):
+    T, B, H = {"reset_mid_sequence": (7, 4, 128), "nonzero_h0": (3, 2, 128), "single_step": (1, 5, 64)}[case]
+    xi, masks, h0, w_hh, b_hh = _inputs(len(case), T, B, H)
+    if case == "reset_mid_sequence":
+        masks[3] = 0.0
+        masks[5, 1] = 0.0
+    if case == "single_step":
+        masks[0, ::2] = 0.0
+    ref = jax_gru_sequence(*(jnp.asarray(a) for a in (xi, masks, h0, w_hh, b_hh)), interpret=True)
+    out = gru_sequence(*(torch.from_numpy(a) for a in (xi, masks, h0, w_hh, b_hh)))
+    assert out.dtype == torch.float32 and tuple(out.shape) == (T, B, H)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    if case == "nonzero_h0":
+        zero = gru_sequence_plain(*(torch.from_numpy(a) for a in (xi, masks, np.zeros_like(h0), w_hh, b_hh)))
+        assert float((out[0] - zero[0]).abs().max()) > 1e-3  # step 0 consumed h0
+
+
+def _encoders(D, H, seed=0):
+    jax_enc = JaxRNNStateEncoder(input_size=D, hidden_size=H, rnn_type="GRU")
+    params = jax_enc.init(jax.random.PRNGKey(seed), jnp.zeros((1, D)), jax_enc.initial_state(1), jnp.ones((1, 1)))["params"]
+    rng = np.random.RandomState(seed)
+    params = {"cell": {k: np.array(v) + (0.1 * rng.randn(*v.shape)).astype(np.float32) if "bias" in k else np.array(v)
+                       for k, v in params["cell"].items()}}
+    enc = RNNStateEncoder(D, H, "GRU")
+    enc.load_state_dict({f"rnn.{k}_l0": torch.from_numpy(v) for k, v in params["cell"].items()}, strict=True)
+    return jax_enc, params, enc
+
+
+@pytest.mark.parametrize("mode", ["single_step", "sequence"])
+def test_rnn_state_encoder_gru_matches_jax(mode):
+    D, H, B, T = 24, 32, 4, 6
+    jax_enc, params, enc = _encoders(D, H)
+    rng = np.random.RandomState(1)
+    states = rng.randn(B, 1, H).astype(np.float32)
+    if mode == "single_step":
+        x = rng.randn(B, D).astype(np.float32)
+        masks = np.array([[1.0], [0.0], [1.0], [0.0]], np.float32)
+    else:
+        x = rng.randn(T, B, D).astype(np.float32)
+        masks = np.ones((T, B, 1), np.float32)
+        masks[2, 1:3] = 0.0
+    ref_out, ref_states = jax_enc.apply({"params": params}, jnp.asarray(x), jnp.asarray(states), jnp.asarray(masks))
+    with torch.no_grad():
+        out, new_states = enc(torch.from_numpy(x), torch.from_numpy(states), torch.from_numpy(masks))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=ATOL)
+    np.testing.assert_allclose(new_states.numpy(), np.asarray(ref_states), atol=ATOL)
+

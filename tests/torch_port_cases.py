@@ -1,0 +1,125 @@
+"""Shared cases for the PyTorch port's parity tests: the RxR CMA policy at a
+small size, built in both packages with the same weights.
+
+The JAX policy is initialized, then its norm statistics, biases and head are
+perturbed from a numpy seed so that no parameter keeps a trivial value; the
+port gets those weights through `state_dict_from_jax_params`.
+"""
+
+import numpy as np
+import torch
+from gymnasium import spaces as gym_spaces
+
+import jax
+
+from vlnce_tpu.config import get_config as jax_get_config
+from vlnce_tpu.models.cma_policy import CMAPolicy as JaxCMAPolicy
+from vlnce_tpu.ops.obs_transforms import (
+    apply_obs_transforms_obs_space as jax_apply_space,
+    get_active_obs_transforms as jax_get_transforms,
+)
+from vlnce_torch.config import get_config
+from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
+from vlnce_torch.models.cma_policy import CMAPolicy
+from vlnce_torch.models.convert import state_dict_from_jax_params
+from vlnce_torch.ops.obs_transforms import apply_obs_transforms_obs_space, get_active_obs_transforms
+
+JAX_RXR_CMA = "vlnce_tpu/config/experiments/rxr_baselines/rxr_cma_en.yaml"
+RXR_CMA = "vlnce_torch/config/experiments/rxr_baselines/rxr_cma_en.yaml"
+
+# RxR CMA at small depth and width: ResNet18 for both encoders, H=64, 32-d
+# instruction features of 16 tokens, 48x64 frames -> ResizeShortestEdge(32)
+# -> 32x42 -> 32x32 crops
+SMALL_OPTS = [
+    "MODEL.RGB_ENCODER.cnn_type", "TorchVisionResNet18",
+    "MODEL.DEPTH_ENCODER.backbone", "resnet18",
+    "MODEL.STATE_ENCODER.hidden_size", 64,
+    "MODEL.INSTRUCTION_ENCODER.hidden_size", 32,
+    "RL.POLICY.OBS_TRANSFORMS.RESIZE_SHORTEST_EDGE.SIZE", 32,
+    "RL.POLICY.OBS_TRANSFORMS.CENTER_CROPPER_PER_SENSOR.SENSOR_CROPS", [["rgb", [32, 32]], ["depth", [32, 32]]],
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.HEIGHT", 48,
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.WIDTH", 64,
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT", 48,
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH", 64,
+    "TASK_CONFIG.TASK.RXR_INSTRUCTION_SENSOR.feature_dim", 32,
+    "TASK_CONFIG.TASK.RXR_INSTRUCTION_SENSOR.max_text_len", 16,
+]
+
+
+def configs(extra=()):
+    """(jax config, port config), both f32, the port on the CPU."""
+    jcfg = jax_get_config(JAX_RXR_CMA, SMALL_OPTS + ["TPU.PRECISION.compute_dtype", "float32", *extra])
+    cfg = get_config(RXR_CMA, SMALL_OPTS + ["CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32", *extra])
+    return jcfg, cfg
+
+
+def jax_observation_space(task_config):
+    """The environment's observation space in gymnasium terms."""
+    space = observation_space_from_config(task_config)
+    return gym_spaces.Dict({
+        k: gym_spaces.Box(low=s.low.min(), high=s.high.max(), shape=s.shape, dtype=s.dtype)
+        for k, s in space.spaces.items()
+    })
+
+
+def _perturb(params, rng):
+    """Replace trivially initialized leaves (unit scales, zero biases and
+    stats) with seeded random values, and scale the head to unit gain."""
+    def walk(node, path):
+        out = {}
+        for k, v in node.items():
+            p = f"{path}/{k}"
+            if isinstance(v, dict):
+                out[k] = walk(v, p)
+                continue
+            v = np.array(v)
+            if k in ("scale", "weight") and v.ndim == 1:
+                v = rng.normal(1.0, 0.2, v.shape)
+            elif k in ("bias", "bias_ih", "bias_hh", "running_mean"):
+                v = rng.normal(0.0, 0.1, v.shape)
+            elif k == "running_var":
+                v = rng.uniform(0.5, 2.0, v.shape)
+            elif p == "/action_distribution/kernel":
+                v = v * 100.0
+            out[k] = v.astype(np.float32)
+        return out
+
+    return walk(params, "")
+
+
+def build_pair(seed=0, extra=()):
+    """JAX policy + transforms + params, and the port's policy + transforms
+    carrying the same weights."""
+    jcfg, cfg = configs(extra)
+    jax_transforms = jax_get_transforms(jcfg)
+    jax_space = jax_apply_space(jax_observation_space(jcfg.TASK_CONFIG), jax_transforms)
+    jax_policy = JaxCMAPolicy.from_config(jcfg, jax_space, gym_spaces.Discrete(len(jcfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS)))
+    params = jax_policy.init_params(jax.random.PRNGKey(seed), batch_size=1)
+    params = _perturb(jax.tree_util.tree_map(np.asarray, params), np.random.RandomState(seed))
+    jax_policy.params = params
+
+    transforms = get_active_obs_transforms(cfg)
+    space = apply_obs_transforms_obs_space(observation_space_from_config(cfg.TASK_CONFIG), transforms)
+    policy = CMAPolicy.from_config(cfg, space, action_space_from_config(cfg.TASK_CONFIG))
+    policy.load_state_dict(state_dict_from_jax_params(params), strict=True)
+    return (jax_policy, jax_transforms, params), (policy, transforms), cfg
+
+
+def observations(rng, B, task_config):
+    """Seeded observations in the env's format: u8 rgb, f32 depth in [0, 1],
+    BERT-like instruction features zero past ragged lengths."""
+    sim, task = task_config.SIMULATOR, task_config.TASK
+    T, F = task.RXR_INSTRUCTION_SENSOR.max_text_len, task.RXR_INSTRUCTION_SENSOR.feature_dim
+    instr = np.zeros((B, T, F), np.float32)
+    for b in range(B):
+        n = rng.randint(1, T + 1)
+        instr[b, :n] = rng.randn(n, F)
+    return {
+        "rgb": rng.randint(0, 256, (B, sim.RGB_SENSOR.HEIGHT, sim.RGB_SENSOR.WIDTH, 3)).astype(np.uint8),
+        "depth": rng.rand(B, sim.DEPTH_SENSOR.HEIGHT, sim.DEPTH_SENSOR.WIDTH, 1).astype(np.float32),
+        "rxr_instruction": instr,
+    }
+
+
+def to_torch(obs):
+    return {k: torch.from_numpy(v) for k, v in obs.items()}

@@ -1,0 +1,53 @@
+"""Host -> device observation batching.
+
+Port of vlnce_tpu/envs/batch.py (the reference habitat batch_obs used at
+base_il_trainer.py:25,284): per-env numpy observations are stacked on the
+host into one contiguous array per sensor and copied to the device once per
+sensor, from pinned memory when the device is CUDA so the copy is
+asynchronous. The env axis can be zero-padded to a fixed size, so paused
+envs keep their slot.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+
+def stack_obs(observations: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """List of per-env obs dicts -> dict of [N, ...] numpy arrays."""
+    keys = observations[0].keys()
+    return {k: np.stack([np.asarray(o[k]) for o in observations], axis=0) for k in keys}
+
+
+def batch_obs(
+    observations: List[Dict[str, np.ndarray]],
+    device,
+    pad_to: Optional[int] = None,
+) -> Dict[str, torch.Tensor]:
+    """Stack and move obs to `device`; optionally zero-pad the env axis to a
+    fixed size."""
+    stacked = stack_obs(observations)
+    n = len(observations)
+    if pad_to is not None and pad_to > n:
+        for k, v in stacked.items():
+            pad = np.zeros((pad_to - n,) + v.shape[1:], v.dtype)
+            stacked[k] = np.concatenate([v, pad], axis=0)
+    return to_device(stacked, device)
+
+
+def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """numpy arrays -> tensors on `device` (through pinned memory for CUDA)."""
+    device = torch.device(device)
+    out = {}
+    for k, v in arrays.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        out[k] = t
+    return out
+

@@ -1,0 +1,74 @@
+"""Observation and action spaces, without gymnasium.
+
+The port describes observations with the few parts of gymnasium's `Box`,
+`Dict` and `Discrete` that the models and transforms read (shape, dtype,
+bounds, `.spaces`, `.n`), so it runs where gymnasium is not installed.
+`observation_space_from_config` builds the space the environment reports for
+a task config: the cameras of `SIMULATOR.AGENT_0.SENSORS`, and the
+instruction and progress sensors of `TASK.SENSORS`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict as TDict, Tuple
+
+import numpy as np
+
+
+class Box:
+    def __init__(self, low, high, shape: Tuple[int, ...], dtype):
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = np.dtype(dtype)
+        self.low = np.full(self.shape, low, self.dtype)
+        self.high = np.full(self.shape, high, self.dtype)
+
+    def __repr__(self) -> str:
+        return f"Box({self.shape}, {self.dtype})"
+
+
+class Dict:
+    def __init__(self, spaces: TDict[str, Box]):
+        self.spaces = dict(spaces)
+
+    def __getitem__(self, key: str) -> Box:
+        return self.spaces[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.spaces
+
+    def __repr__(self) -> str:
+        return f"Dict({self.spaces})"
+
+
+class Discrete:
+    def __init__(self, n: int):
+        self.n = int(n)
+
+
+def observation_space_from_config(task_config) -> Dict:
+    """The space of the observations the environment returns for this task
+    config (the JAX package's `Env.observation_space` and its sensors)."""
+    sim = task_config.SIMULATOR
+    out = {}
+    for name in sim.AGENT_0.SENSORS:
+        cam = getattr(sim, name, None)
+        if cam is None:
+            continue
+        if "DEPTH" in name:
+            out[cam.UUID] = Box(0.0, 1.0, (cam.HEIGHT, cam.WIDTH, 1), np.float32)
+        else:
+            out[cam.UUID] = Box(0, 255, (cam.HEIGHT, cam.WIDTH, 3), np.uint8)
+    task = task_config.TASK
+    if "RXR_INSTRUCTION_SENSOR" in task.SENSORS:
+        s = task.RXR_INSTRUCTION_SENSOR
+        f32 = np.finfo(np.float32)
+        out["rxr_instruction"] = Box(f32.min, f32.max, (s.max_text_len, s.feature_dim), np.float32)
+    if "INSTRUCTION_SENSOR" in task.SENSORS:
+        out[task.INSTRUCTION_SENSOR_UUID] = Box(0, np.iinfo(np.int32).max, (200,), np.int32)
+    if "VLN_ORACLE_PROGRESS_SENSOR" in task.SENSORS:
+        out["progress"] = Box(0.0, 1.0, (1,), np.float32)
+    return Dict(out)
+
+
+def action_space_from_config(task_config) -> Discrete:
+    return Discrete(len(task_config.TASK.POSSIBLE_ACTIONS))
