@@ -9,8 +9,13 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
 1. device: the card's name, and its power limit from nvidia-smi;
 2. build: every kernel of vlnce_torch/csrc, one nvcc process each, at once;
 3. B1 gru_sequence and B2 fused_resize_normalize: kernel against plain
-   version at the act shapes (and the other modes), with times of the
-   kernel, the plain version, a one-call PyTorch yardstick and the bound;
+   version at the act shapes and at edge shapes (strided h0, ragged batches,
+   every type pair, rows that are no multiple of 16 bytes), then times at
+   the act shapes: the device time of the kernel, the plain version and a
+   one-call PyTorch yardstick, each as a CUDA graph of repeated calls
+   replayed between two events (`graph_ms`), beside the bound and the eager
+   Python-loop time of the wrapper (`cuda_ms`); for B1 also two empty
+   launches (the floor) and the sequence shape T=16, B=4;
 4. main path: the RxR CMA config (rxr_cma_en.yaml) at full width,
    CMAPolicy.from_config on the card with seeded weights, then
    make_fused_act_step for 8 act steps at B=32 in bf16 on seeded
@@ -25,7 +30,9 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,7 +47,9 @@ STEPS = 8
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, CUDA events around `iters` calls."""
+    """Eager time of fn() in ms: CUDA events around a Python loop of `iters`
+    calls. Where fn's kernels are shorter than the host's work to launch
+    them, this reads the host's launch rate, not the device."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -51,6 +60,29 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device time of fn() in ms: `reps` calls of fn captured in one CUDA
+    graph, the graph replayed `replays` times between two CUDA events. The
+    host launches only the replays, so its launch rate cannot enter. fn must
+    be capturable: launches on the current stream, allocates with torch
+    only, copies nothing from the host and never synchronises."""
+    fn()  # first call outside the capture: builds, uploads and caches
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -73,6 +105,12 @@ def phase_device():
     return name
 
 
+PTXAS = {  # what `nvcc -Xptxas -v` reports per kernel
+    "registers": r"Used (\d+) registers", "bytes of stack": r"(\d+) bytes stack frame",
+    "bytes of spill stores": r"(\d+) bytes spill stores", "bytes of spill loads": r"(\d+) bytes spill loads",
+}
+
+
 def phase_build():
     from vlnce_torch.ops import _build
 
@@ -80,9 +118,9 @@ def phase_build():
     seconds = _build.build(_build.KERNELS)
     print(f"build: {time.perf_counter() - t0:.1f} s wall, per kernel {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        log = _build.build_log(name)
+        worst = {what: max((int(n) for n in re.findall(pattern, log)), default=0) for what, pattern in PTXAS.items()}
+        print(f"  ptxas {name}: {log.count('Used ')} kernels, at most " + ", ".join(f"{n} {what}" for what, n in worst.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +129,7 @@ def phase_build():
 
 
 def phase_gru(dev):
+    from vlnce_torch.ops import _build
     from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_plain
 
     g = torch.Generator(device="cpu").manual_seed(1)
@@ -108,20 +147,33 @@ def phase_gru(dev):
         x = torch.randn(Bn, D, generator=g)
         return [t.to(dev) for t in (xi, masks, h0, w_hh, b_hh, w_ih, b_ih, x)]
 
-    errs = {}
-    for label, (T, Bn, reset, atol) in {"act T=1 B=32 H=512": (1, B, 0, 1e-5),
-                                        "T=16 B=4 H=512 reset+h0": (16, 4, 7, 1e-4)}.items():
-        xi, masks, h0, w_hh, b_hh, *_ = inputs(T, Bn, 512, 416, reset)
+    def strided(h0):
+        """h0 as `states[:, 0]` of a [B, 2, H] recurrent state: rows 2H apart."""
+        states = torch.stack([h0, torch.full_like(h0, float("nan"))], dim=1)
+        return states[:, 0]
+
+    # (T, B, H, step with resets, strided h0, atol): the act shape, the IL
+    # sequence shape, then edges (one row, batches that are no multiple of the
+    # kernel's 4-row tasks, narrow H where most lanes have no part of a row)
+    cases = [(1, B, 512, 0, True, 1e-5), (16, 4, 512, 7, True, 1e-4), (2, 1, 64, 1, False, 1e-4),
+             (16, 3, 128, 8, True, 1e-4), (2, 40, 512, 1, True, 1e-4), (1, 40, 64, None, True, 1e-5)]
+    errs = []
+    for T, Bn, H, reset, is_strided, atol in cases:
+        xi, masks, h0, w_hh, b_hh, *_ = inputs(T, Bn, H, 416, reset)
+        h0 = strided(h0) if is_strided else h0
         out = gru_sequence(xi, masks, h0, w_hh, b_hh)
         ref = gru_sequence_plain(xi, masks, h0, w_hh, b_hh)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        print(f"B1 {label}: max_abs_err {err:.3e} (atol {atol:g})")
-        assert err <= atol, f"B1 kernel disagrees with its plain version at {label}: {err}"
-        errs[label] = err
+        print(f"B1 T={T} B={Bn} H={H} reset at {reset}, h0 {'strided' if is_strided else 'contiguous'}: "
+              f"max_abs_err {err:.3e} (atol {atol:g})")
+        assert err <= atol, f"B1 kernel disagrees with its plain version at T={T} B={Bn} H={H}: {err}"
+        errs.append(err)
 
     # the act step: two launches (state_encoder over D=416, second over D=512)
     layers = [inputs(1, B, 512, D, 0) for D in (416, 512)]
+    for layer in layers:
+        layer[2] = strided(layer[2])
 
     def kernel():
         for xi, masks, h0, w_hh, b_hh, *_ in layers:
@@ -139,19 +191,35 @@ def phase_gru(dev):
         for _, masks, h0, w_hh, b_hh, w_ih, b_ih, x in layers:
             torch.gru_cell(x, h0 * masks[0], w_ih, w_hh, b_ih, b_hh)
 
-    ms = cuda_ms(kernel, iters=200)
-    plain_ms = cuda_ms(plain, iters=200)
-    proj_ms = cuda_ms(projection_and_kernel, iters=200)
-    lib_ms = cuda_ms(library, iters=200)
+    ms, plain_ms, proj_ms, lib_ms = (graph_ms(f, reps=50) for f in (kernel, plain, projection_and_kernel, library))
+    eager_ms = cuda_ms(kernel, iters=200)
     moved = sum(nbytes(xi, masks, h0, w_hh, b_hh) + nbytes(h0) for xi, masks, h0, w_hh, b_hh, *_ in layers)
     flops = sum(2 * 3 * 512 * 512 * B + 12 * 512 * B for _ in layers)
     b_ms, b_by = bound_ms(moved, flops)
-    print(f"B1 act step (2 launches, L2-warm): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"projection+kernel {proj_ms:.4f} ms, torch.gru_cell {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"B1 act step (2 launches, L2-warm), device time by graph replay: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"projection+kernel {proj_ms:.4f} ms, torch.gru_cell {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+          f"eager loop of the wrapper {eager_ms:.4f} ms")
+
+    # the floor of any launch, and the sequence shape of an IL train step
+    empty = _build.load("gru_sequence").empty_launch
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def two_empty_launches():
+        for _ in layers:
+            _build.check("empty_launch", empty(torch.cuda.current_stream().cuda_stream))
+
+    floor_ms = graph_ms(two_empty_launches, reps=50)
+    seq = inputs(16, 4, 512, 416, 7)[:5]
+    seq[2] = strided(seq[2])
+    seq_ms = graph_ms(lambda: gru_sequence(*seq), reps=10)
+    seq_plain_ms = graph_ms(lambda: gru_sequence_plain(*seq), reps=10)
+    print(f"B1 floor: two empty launches {floor_ms:.4f} ms by the same replay; "
+          f"T=16 B=4 H=512, one launch: kernel {seq_ms:.4f} ms, plain {seq_plain_ms:.4f} ms")
     return {
         "name": "gru_sequence", "route": "cuda", "source": "vlnce_torch/csrc/gru_sequence.cu",
-        "replaces": "vlnce_tpu/ops/pallas_rnn.py:55", "max_abs_err": max(errs.values()),
+        "replaces": "vlnce_tpu/ops/pallas_rnn.py:55", "max_abs_err": errs[0],
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "eager_ms": eager_ms, "empty_launch_ms": floor_ms, "seq_T16_B4_ms": seq_ms,
     }
 
 
@@ -187,16 +255,26 @@ def phase_resize(dev):
         (rgb, dict(normalize=False, out_dtype=torch.uint8, scale_values=False)),
         (depth, dict(normalize=False, out_dtype=torch.float32, scale_values=False)),
     ]
-    modes = {
-        "act rgb u8 480x640->256x341": act_calls[0],
-        "act depth f32 480x640->256x341": act_calls[1],
-        "identity u8->f32 224x224": (rgb[:, :224, :224].contiguous(), dict(normalize=False, out_dtype=torch.float32)),
-        "normalize u8->bf16": (rgb, dict(normalize=True, out_dtype=torch.bfloat16)),
-        "depth f32->bf16": (depth, dict(normalize=False, out_dtype=torch.bfloat16)),
+    small = torch.randint(0, 256, (3, 37, 53, 4), generator=g, dtype=torch.uint8).to(dev)
+    ragged = torch.randint(0, 256, (4, 250, 333, 3), generator=g, dtype=torch.uint8).to(dev)  # rows of 999 bytes
+    odd = torch.rand(1, 45, 61, 3, generator=g).to(dev)  # rows of 732 bytes: not a multiple of 16
+    f32, bf16, u8 = torch.float32, torch.bfloat16, torch.uint8
+    modes = {  # label: (images, out_hw, arguments); every allowed type pair, C in {1, 3, 4}
+        "act rgb u8 480x640->256x341": (rgb, (256, 341), act_calls[0][1]),
+        "act depth f32 480x640->256x341": (depth, (256, 341), act_calls[1][1]),
+        "identity u8->f32 224x224": (rgb[:, :224, :224].contiguous(), (224, 224), dict(normalize=False, out_dtype=f32)),
+        "normalize u8->bf16": (rgb, (256, 341), dict(normalize=True, out_dtype=bf16)),
+        "depth f32->bf16": (depth, (256, 341), dict(normalize=False, out_dtype=bf16)),
+        "u8->u8 C=3 250x333->133x177, element loads": (ragged, (133, 177), dict(out_dtype=u8, scale_values=False)),
+        "upscale u8->bf16 C=4 37x53->64x75, element loads": (small, (64, 75), dict(out_dtype=bf16)),
+        "downscale u8->f32 C=4 37x53->9x11": (small, (9, 11), dict(out_dtype=f32)),
+        "B=1 f32->f32 C=3 45x61->32x42, element loads": (odd, (32, 42), dict(out_dtype=f32, scale_values=False)),
+        "B=1 f32->bf16 C=3 45x61->45x80": (odd, (45, 80), dict(out_dtype=bf16)),
+        "unaligned base f32 C=1": (depth.flatten()[1:1 + 2 * 480 * 640].reshape(2, 480, 640, 1), (256, 341),
+                                   dict(out_dtype=f32, scale_values=False)),
     }
     act_err = 0.0
-    for label, (x, kw) in modes.items():
-        hw = (x.shape[1], x.shape[2]) if "identity" in label else (256, 341)
+    for label, (x, hw, kw) in modes.items():
         out = fused_resize_normalize(x, hw, **kw)
         ref = fused_resize_normalize_plain(x, hw, **kw)
         torch.cuda.synchronize()
@@ -219,18 +297,20 @@ def phase_resize(dev):
         for xf in floats:
             F.interpolate(xf, size=(256, 341), mode="bilinear", align_corners=False, antialias=False)
 
-    ms = cuda_ms(kernel)
-    plain_ms = cuda_ms(plain, iters=5)
-    lib_ms = cuda_ms(library)
+    ms, lib_ms = graph_ms(kernel), graph_ms(library)
+    plain_ms = graph_ms(plain, reps=3, replays=3)
+    eager_ms = cuda_ms(kernel)
     moved = sum(nbytes(x) + x.shape[0] * 256 * 341 * x.shape[3] * kw["out_dtype"].itemsize for x, kw in act_calls)
     flops = sum(11 * x.shape[0] * 256 * 341 * x.shape[3] for x, _ in act_calls)
     b_ms, b_by = bound_ms(moved, flops)
-    print(f"B2 act step (rgb + depth): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"F.interpolate on f32 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB)")
+    print(f"B2 act step (rgb + depth), device time by graph replay: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"F.interpolate on f32 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB); "
+          f"eager loop of the wrapper {eager_ms:.4f} ms")
     return {
         "name": "fused_resize_normalize", "route": "cuda", "source": "vlnce_torch/csrc/resize_normalize.cu",
         "replaces": "vlnce_tpu/ops/pallas_preprocess.py:66", "max_abs_err": act_err,
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "eager_ms": eager_ms,
     }
 
 

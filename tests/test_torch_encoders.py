@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from vlnce_tpu.models.attention import scaled_dot_attn as jax_attn
@@ -19,6 +20,7 @@ from vlnce_tpu.models.encoders.visual_wrappers import (
     TorchVisionResNetEncoder as JaxRGBEncoder,
     VlnResnetDepthEncoder as JaxDepthEncoder,
 )
+from vlnce_torch.models import convert
 from vlnce_torch.models.attention import scaled_dot_attn
 from vlnce_torch.models.distributions import Categorical
 from vlnce_torch.models.encoders.instruction_encoder import InstructionEncoder
@@ -77,6 +79,43 @@ def test_bert_feature_bilstm_matches_jax(pair64, final_state_only):
         for b, n in enumerate(lengths):
             assert np.all(out[b, :, n:].numpy() == 0.0)
             assert np.all(np.abs(out[b, :, :n].numpy()).sum(0) > 0)
+
+
+@pytest.mark.parametrize("case", ["r2r_cma_bilstm_outputs", "r2r_seq2seq_lstm_final_state", "gru_final_state"])
+def test_token_embedding_path_matches_jax(case):
+    """The R2R path: token ids [B, T], zero-padded past ragged lengths,
+    through the embedding table and the masked RNN, on the JAX encoder's
+    weights carried across by the converter (atol 1e-5, f32)."""
+    bidirectional, final_state_only, rnn_type = {
+        "r2r_cma_bilstm_outputs": (True, False, "LSTM"),
+        "r2r_seq2seq_lstm_final_state": (False, True, "LSTM"),
+        "gru_final_state": (True, True, "GRU"),
+    }[case]
+    kw = dict(vocab_size=60, embedding_size=12, hidden_size=16, rnn_type=rnn_type,
+              final_state_only=final_state_only, bidirectional=bidirectional, sensor_uuid="instruction")
+    rng = np.random.RandomState(9)
+    B, T = 5, 11
+    tokens = np.zeros((B, T), np.int64)
+    for b, n in enumerate([T, 0, 1, 7, 4]):  # a full, an empty and a one-token instruction among them
+        tokens[b, :n] = rng.randint(1, kw["vocab_size"], n)
+
+    jax_enc = JaxInstructionEncoder(**kw)
+    params = jax_enc.init(jax.random.PRNGKey(2), {"instruction": jnp.asarray(tokens)})["params"]
+    params = jax.tree_util.tree_map(lambda v: np.asarray(v) + 0.05 * rng.randn(*v.shape).astype(np.float32), params)
+    tree, sd = convert._Tree({"enc": params}), {}
+    convert._instruction_encoder(tree, sd, "enc", "enc")
+    assert set(tree.leaves()) == tree.used  # every JAX leaf was carried across
+    enc = InstructionEncoder(**kw)
+    enc.load_state_dict({k[len("enc."):]: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, strict=True)
+
+    ref = jax_enc.apply({"params": params}, {"instruction": jnp.asarray(tokens)})
+    with torch.no_grad():
+        out = enc({"instruction": torch.from_numpy(tokens)})
+    assert tuple(out.shape) == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    if not final_state_only:
+        for b, n in enumerate((tokens != 0).sum(1)):
+            assert np.all(out[b, :, n:].numpy() == 0.0)  # exactly zero past each length
 
 
 def test_scaled_dot_attn_with_padding_mask():

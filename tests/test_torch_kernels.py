@@ -28,7 +28,7 @@ def _gru_inputs(T, B, H, device, seed=0):
     g = torch.Generator().manual_seed(seed)
     xi = torch.randn(T, B, 3 * H, generator=g)
     masks = torch.ones(T, B, 1)
-    masks[T // 2, 1::2] = 0.0
+    masks[T // 2, 1::2] = 0.0  # resets in the middle of the sequence
     h0 = torch.randn(B, H, generator=g)
     w_hh = torch.randn(3 * H, H, generator=g) * H**-0.5
     b_hh = torch.randn(3 * H, generator=g) * 0.1
@@ -36,33 +36,118 @@ def _gru_inputs(T, B, H, device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H", [(1, 32, 512), (16, 4, 512), (5, 3, 64)])
+@pytest.mark.parametrize("H", [64, 128, 512])
+@pytest.mark.parametrize("B", [1, 3, 32, 40])
+@pytest.mark.parametrize("T", [1, 2, 16])
 def test_gru_kernel_matches_plain(T, B, H):
-    args = _gru_inputs(T, B, H, _card())
-    out = gru_sequence(*args)
-    ref = gru_sequence_plain(*args)
+    """Non-zero h0 handed over as `states[:, 0]` of a [B, 2, H] state (rows
+    2H apart); atol 1e-4: the kernel sums each dot product in another order."""
+    xi, masks, h0, w_hh, b_hh = _gru_inputs(T, B, H, _card())
+    h0 = torch.stack([h0, torch.full_like(h0, float("nan"))], dim=1)[:, 0]
+    assert not h0.is_contiguous() or B == 1
+    out = gru_sequence(xi, masks, h0, w_hh, b_hh)
+    ref = gru_sequence_plain(xi, masks, h0, w_hh, b_hh)
     torch.cuda.synchronize()
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.uint8])
-def test_resize_kernel_matches_plain(out_dtype):
-    # the RxR frame size: enough u8 values (1M) that the 0.01% share of
-    # summation-order tie flips is a count, not a fraction of one value
-    g = torch.Generator().manual_seed(1)
-    x = torch.randint(0, 256, (4, 480, 640, 3), generator=g, dtype=torch.uint8).to(_card())
-    kw = dict(normalize=out_dtype == torch.bfloat16, out_dtype=out_dtype, scale_values=out_dtype != torch.uint8)
-    out = fused_resize_normalize(x, (256, 341), **kw).float()
-    ref = fused_resize_normalize_plain(x, (256, 341), **kw).float()
-    torch.cuda.synchronize()
-    diff = (out - ref).abs()
+def _assert_resize_close(out, ref, out_dtype, scale_values):
+    """u8 within 1 on at most 0.01% of values (summation order can flip a .5
+    tie), bf16 within one bf16 ulp, f32 1e-5 on [0, 1]-scaled values and 1e-3
+    on raw [0, 255] values."""
+    diff = (out.float() - ref.float()).abs()
     if out_dtype == torch.uint8:
         assert float(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-4
     elif out_dtype == torch.bfloat16:
-        assert bool((diff <= ref.abs() * 2.0**-7 + 1e-6).all())
+        assert bool((diff <= ref.float().abs() * 2.0**-7 + 1e-6).all())
     else:
-        assert float(diff.max()) <= 1e-5
+        assert float(diff.max()) <= (1e-5 if scale_values else 1e-3)
+
+
+def _images(shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
+    return torch.rand(shape, generator=g)
+
+
+TYPE_PAIRS = [(torch.uint8, torch.uint8), (torch.uint8, torch.float32), (torch.uint8, torch.bfloat16),
+              (torch.float32, torch.float32), (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 4])
+@pytest.mark.parametrize("in_dtype,out_dtype", TYPE_PAIRS, ids=lambda d: str(d).split(".")[-1])
+def test_resize_kernel_matches_plain(in_dtype, out_dtype, C):
+    # the RxR frame size: enough u8 values (1M) that the 0.01% share of
+    # summation-order tie flips is a count, not a fraction of one value
+    x = _images((4, 480, 640, C), in_dtype, 1).to(_card())
+    kw = dict(normalize=out_dtype == torch.bfloat16 and C <= 3, out_dtype=out_dtype, scale_values=out_dtype != torch.uint8)
+    out = fused_resize_normalize(x, (256, 341), **kw)
+    ref = fused_resize_normalize_plain(x, (256, 341), **kw)
+    torch.cuda.synchronize()
+    _assert_resize_close(out, ref, out_dtype, kw["scale_values"])
+
+
+# (name, input shape, input dtype, out_hw, out dtype); u8 output only where
+# the 0.01% share of tie flips is a count of values, not a fraction of one
+RESIZE_SHAPES = [
+    ("act_rgb", (32, 480, 640, 3), torch.uint8, (256, 341), torch.uint8),
+    ("act_depth", (32, 480, 640, 1), torch.float32, (256, 341), torch.float32),
+    ("upscale", (2, 32, 32, 3), torch.uint8, (48, 48), torch.float32),
+    ("identity", (2, 224, 224, 3), torch.uint8, (224, 224), torch.float32),
+    ("odd_width_u8", (3, 37, 53, 3), torch.uint8, (20, 31), torch.bfloat16),  # rows of 159 bytes
+    ("odd_width_f32", (3, 45, 61, 1), torch.float32, (64, 75), torch.float32),  # rows of 244 bytes
+    ("single_image", (1, 480, 640, 4), torch.uint8, (256, 341), torch.uint8),
+    ("odd_width_u8_out", (4, 250, 333, 3), torch.uint8, (133, 177), torch.uint8),  # rows of 999 bytes
+    ("one_output_row", (2, 64, 64, 3), torch.float32, (1, 7), torch.float32),
+    ("steep_downscale", (2, 200, 300, 1), torch.float32, (13, 17), torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RESIZE_SHAPES, ids=[c[0] for c in RESIZE_SHAPES])
+def test_resize_kernel_shapes(case):
+    _, shape, in_dtype, hw, out_dtype = case
+    x = _images(shape, in_dtype, 2).to(_card())
+    kw = dict(normalize=False, out_dtype=out_dtype, scale_values=False)
+    out = fused_resize_normalize(x, hw, **kw)
+    ref = fused_resize_normalize_plain(x, hw, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dtype and tuple(out.shape) == (shape[0],) + hw + (shape[3],)
+    if case[0] == "identity":
+        assert torch.equal(out, x.float())
+    _assert_resize_close(out, ref, out_dtype, False)
+
+
+@pytest.mark.cuda
+def test_resize_kernel_unaligned_base():
+    """A view that starts 4 bytes into its storage: no 16-byte copies."""
+    flat = _images((2 * 96 * 128 + 1,), torch.float32, 3).to(_card())
+    x = flat[1:].reshape(2, 96, 128, 1)
+    assert x.data_ptr() % 16 == 4
+    out = fused_resize_normalize(x, (64, 85), out_dtype=torch.float32)
+    ref = fused_resize_normalize_plain(x, (64, 85), out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _assert_resize_close(out, ref, torch.float32, True)
+
+
+@pytest.mark.cuda
+def test_wrappers_are_graph_capturable():
+    """Both wrappers launch on the capture stream, allocate with torch only
+    and copy nothing from the host once a shape has been seen."""
+    dev = _card()
+    args = _gru_inputs(1, 32, 512, dev)
+    x = _images((4, 480, 640, 3), torch.uint8, 4).to(dev)
+    kw = dict(out_dtype=torch.uint8, scale_values=False)
+    want = gru_sequence(*args), fused_resize_normalize(x, (256, 341), **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = gru_sequence(*args), fused_resize_normalize(x, (256, 341), **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_gru_wrapper_rejects_bad_inputs():
@@ -73,8 +158,13 @@ def test_gru_wrapper_rejects_bad_inputs():
         gru_sequence(xi, masks, h0, w_hh.t().contiguous().t(), b_hh)
     with pytest.raises(ValueError, match="shape"):
         gru_sequence(xi, masks, h0[:2], w_hh, b_hh)
+    with pytest.raises(ValueError, match="contiguous along its rows"):
+        gru_sequence(xi, masks, h0.t().contiguous().t(), w_hh, b_hh)
     xi, masks, h0, w_hh, b_hh = _gru_inputs(2, 3, 6, "meta")
     with pytest.raises(ValueError, match="multiple of 4"):
+        gru_sequence(xi, masks, h0, w_hh, b_hh)
+    xi, masks, h0, w_hh, b_hh = (torch.empty(s, device="meta") for s in [(1, 1, 3 * 4096), (1, 1, 1), (1, 4096), (3 * 4096, 4096), (3 * 4096,)])
+    with pytest.raises(ValueError, match="multiple of 4 up to"):
         gru_sequence(xi, masks, h0, w_hh, b_hh)
 
 
@@ -88,3 +178,5 @@ def test_resize_wrapper_rejects_bad_inputs():
         fused_resize_normalize(x.float(), (8, 8), out_dtype=torch.uint8)
     with pytest.raises(ValueError, match="C<=4"):
         fused_resize_normalize(torch.empty(2, 16, 16, 5, device="meta"), (8, 8))
+    with pytest.raises(ValueError, match="shared memory"):  # two stages of two f32 rows of 16384 x 4
+        fused_resize_normalize(torch.empty(1, 8, 16384, 4, device="meta"), (4, 8))

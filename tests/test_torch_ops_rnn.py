@@ -51,6 +51,40 @@ def test_plain_gru_sequence_matches_pallas(case):
         assert float((out[0] - zero[0]).abs().max()) > 1e-3  # step 0 consumed h0
 
 
+@pytest.mark.parametrize("T", [1, 6])
+def test_gru_sequence_takes_strided_h0(T):
+    """h0 handed over as `states[:, 0]` of a [B, 2, H] recurrent state, rows
+    2H apart, as the CMA policy does: no copy is needed first."""
+    B, H = 4, 64
+    xi, masks, h0, w_hh, b_hh = _inputs(11 + T, T, B, H)
+    masks[T // 2, 1] = 0.0
+    states = torch.from_numpy(np.stack([h0, np.full_like(h0, np.nan)], axis=1))
+    strided = states[:, 0]
+    assert not strided.is_contiguous() and strided.stride() == (2 * H, 1)
+    ref = jax_gru_sequence(*(jnp.asarray(a) for a in (xi, masks, h0, w_hh, b_hh)), interpret=True)
+    out = gru_sequence(torch.from_numpy(xi), torch.from_numpy(masks), strided, torch.from_numpy(w_hh), torch.from_numpy(b_hh))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_cma_state_slices_reach_the_gru_uncopied(monkeypatch):
+    """RNNStateEncoder passes `states[:, 0]` of the policy's packed state to
+    gru_sequence as a view of the same storage."""
+    import vlnce_torch.models.rnn_state_encoder as rse
+
+    seen = {}
+
+    def spy(xi, masks, h0, w_hh, b_hh):
+        seen["h0"] = h0
+        return gru_sequence(xi, masks, h0, w_hh, b_hh)
+
+    monkeypatch.setattr(rse, "gru_sequence", spy)
+    enc = RNNStateEncoder(8, 16, "GRU")
+    rnn_states = torch.randn(3, 2, 16)
+    with torch.no_grad():
+        enc(torch.randn(3, 8), rnn_states[:, :1], torch.ones(3, 1))
+    assert seen["h0"].data_ptr() == rnn_states.data_ptr() and seen["h0"].stride() == (32, 1)
+
+
 def _encoders(D, H, seed=0):
     jax_enc = JaxRNNStateEncoder(input_size=D, hidden_size=H, rnn_type="GRU")
     params = jax_enc.init(jax.random.PRNGKey(seed), jnp.zeros((1, D)), jax_enc.initial_state(1), jnp.ones((1, 1)))["params"]

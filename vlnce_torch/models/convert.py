@@ -136,13 +136,16 @@ def _tv_resnet(tree, sd, src: str, dst: str) -> None:
             _bn(tree, sd, f"{s}/ds_bn", f"{d}.downsample.1")
 
 
+def _instruction_encoder(tree, sd, src: str, dst: str) -> None:
+    _rnn(tree, sd, f"{src}/rnn_fwd/cell", f"{dst}.encoder_rnn")
+    if tree.has(f"{src}/rnn_bwd"):
+        _rnn(tree, sd, f"{src}/rnn_bwd/cell", f"{dst}.encoder_rnn", "_reverse")
+    if tree.has(f"{src}/embedding"):  # the token path's table
+        sd[f"{dst}.embedding_layer.weight"] = tree.get(f"{src}/embedding")
+
+
 def _encoders(tree, sd, src: str, dst: str) -> None:
-    ie = f"{src}/instruction_encoder"
-    _rnn(tree, sd, f"{ie}/rnn_fwd/cell", f"{dst}.instruction_encoder.encoder_rnn")
-    if tree.has(f"{ie}/rnn_bwd"):
-        _rnn(tree, sd, f"{ie}/rnn_bwd/cell", f"{dst}.instruction_encoder.encoder_rnn", "_reverse")
-    if tree.has(f"{ie}/embedding"):
-        sd[f"{dst}.instruction_encoder.embedding_layer.weight"] = tree.get(f"{ie}/embedding")
+    _instruction_encoder(tree, sd, f"{src}/instruction_encoder", f"{dst}.instruction_encoder")
 
     de = f"{src}/depth_encoder"
     _gn_resnet_encoder(tree, sd, f"{de}/visual_encoder", f"{dst}.depth_encoder.visual_encoder")

@@ -72,9 +72,10 @@ class RNNStateEncoder(nn.Module):
         return F.linear(x, self.rnn.weight_ih_l0, self.rnn.bias_ih_l0)
 
     def _gru(self, xi, states, masks):
+        # every tensor here is f32 (`.float()` is then a no-op) and contiguous
+        # but the state: gru_sequence takes the strided states[:, 0] as it is
         return gru_sequence(
-            xi.float().contiguous(), masks.float().contiguous(), states[:, 0].float().contiguous(),
-            self.rnn.weight_hh_l0.float().contiguous(), self.rnn.bias_hh_l0.float().contiguous(),
+            xi.float(), masks.float(), states[:, 0].float(), self.rnn.weight_hh_l0.float(), self.rnn.bias_hh_l0.float()
         )
 
     def _lstm(self, xi, states, masks):

@@ -2,11 +2,11 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
 `vlnce_torch/build/lib<name>-<digest>.so` (the directory is git-ignored),
-where the digest covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing here runs at import: a
-wrapper calls `load(name)` at its first launch on a CUDA tensor, and
-`build()` compiles several kernels at once, one nvcc process each, started
-together. The compiler's report (`-Xptxas -v`: registers, shared memory,
+where the digest covers the source, the headers (`csrc/*.cuh`) and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing here runs at import: a wrapper calls `load(name)` at its first launch
+on a CUDA tensor, and `build()` compiles several kernels at once, one nvcc
+process each, started together. The compiler's report (`-Xptxas -v`: registers, shared memory,
 spills) is kept beside each library as `.log`.
 """
 
@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import time
 from typing import Dict, Iterable
+
+import torch
 
 KERNELS = ("gru_sequence", "resize_normalize")
 
@@ -48,9 +50,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for filename in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, filename), "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
@@ -100,6 +105,17 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         _loaded[name] = ctypes.CDLL(path)
     return _loaded[name]
+
+
+def call_on_stream(fn, device, *args) -> int:
+    """fn(*args, stream) with `device` current and its current stream (the
+    capture stream inside `torch.cuda.graph`); returns fn's CUDA error code.
+    The device guard is skipped where `device` is current already: it is
+    host work on every launch of a host-bound step."""
+    if torch.cuda.current_device() == device.index:
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def check(name: str, status: int) -> None:
