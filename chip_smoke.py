@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch port: builds its CUDA kernels, holds each against
-its plain PyTorch version, and drives the RxR CMA act step at full width.
+its plain PyTorch version, and drives the RxR CMA act step, eval and inference
+at full width.
 
     python3 chip_smoke.py
 
@@ -22,7 +23,17 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    observations in the env's format; the kernels' launch counters must rise
    by 2 + 2 per step; then the same 8 steps in f32 with the kernels and with
    the plain versions swapped in must agree;
-5. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+5. serving: a checkpoint of the seeded full-width policy, then
+   `vlnce_torch.run.run_exp(..., "eval", ...)` over 8 forked simulator
+   workers (synthetic scenes, 480x640 frames, 16 episodes of at most 40
+   steps, bf16, sampled actions as the config says) and `run_exp(...,
+   "inference", ...)` over 8 episodes in the rxr format; the stats file must
+   hold finite values of the seven RxR measures, the episode ids must be
+   distinct, the weights must be the checkpoint's and on the card, and each
+   kernel's launch counter must have risen by exactly 2 per act step of each
+   loop; then where an env step's time goes (render, pipe, upload, act,
+   download), each measured apart;
+6. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -32,9 +43,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import math
+import os
+import pickle
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -44,6 +59,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 B = 32  # the act batch (bench.py)
 STEPS = 8
+N_ENVS = 8  # simulator workers of the serving phase
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -152,10 +168,10 @@ def phase_gru(dev):
         states = torch.stack([h0, torch.full_like(h0, float("nan"))], dim=1)
         return states[:, 0]
 
-    # (T, B, H, step with resets, strided h0, atol): the act shape, the IL
-    # sequence shape, then edges (one row, batches that are no multiple of the
+    # (T, B, H, step with resets, strided h0, atol): the act shape, the eval
+    # loop's shape, the IL sequence shape, then edges (one row, batches that are no multiple of the
     # kernel's 4-row tasks, narrow H where most lanes have no part of a row)
-    cases = [(1, B, 512, 0, True, 1e-5), (16, 4, 512, 7, True, 1e-4), (2, 1, 64, 1, False, 1e-4),
+    cases = [(1, B, 512, 0, True, 1e-5), (1, N_ENVS, 512, 0, True, 1e-5), (16, 4, 512, 7, True, 1e-4), (2, 1, 64, 1, False, 1e-4),
              (16, 3, 128, 8, True, 1e-4), (2, 40, 512, 1, True, 1e-4), (1, 40, 64, None, True, 1e-5)]
     errs = []
     for T, Bn, H, reset, is_strided, atol in cases:
@@ -262,6 +278,8 @@ def phase_resize(dev):
     modes = {  # label: (images, out_hw, arguments); every allowed type pair, C in {1, 3, 4}
         "act rgb u8 480x640->256x341": (rgb, (256, 341), act_calls[0][1]),
         "act depth f32 480x640->256x341": (depth, (256, 341), act_calls[1][1]),
+        f"act rgb u8, eval batch N={N_ENVS}": (rgb[:N_ENVS], (256, 341), act_calls[0][1]),
+        f"act depth f32, eval batch N={N_ENVS}": (depth[:N_ENVS], (256, 341), act_calls[1][1]),
         "identity u8->f32 224x224": (rgb[:, :224, :224].contiguous(), (224, 224), dict(normalize=False, out_dtype=f32)),
         "normalize u8->bf16": (rgb, (256, 341), dict(normalize=True, out_dtype=bf16)),
         "depth f32->bf16": (depth, (256, 341), dict(normalize=False, out_dtype=bf16)),
@@ -396,10 +414,23 @@ def plain_versions():
         rse.gru_sequence, ot.fused_resize_normalize = saved
 
 
-def phase_main_path(dev):
-    from vlnce_torch.envs.batch import batch_obs
+def _reset_launches():
     from vlnce_torch.ops.preprocess import fused_resize_normalize
     from vlnce_torch.ops.rnn import gru_sequence
+
+    gru_sequence.launches = 0
+    fused_resize_normalize.launches = 0
+
+
+def _read_launches():
+    from vlnce_torch.ops.preprocess import fused_resize_normalize
+    from vlnce_torch.ops.rnn import gru_sequence
+
+    return {"gru_sequence": gru_sequence.launches, "fused_resize_normalize": fused_resize_normalize.launches}
+
+
+def phase_main_path(dev):
+    from vlnce_torch.envs.batch import batch_obs
 
     t0 = time.perf_counter()
     cfg, policy, act_step = build_act_step(dev, "bfloat16")
@@ -414,10 +445,9 @@ def phase_main_path(dev):
           f"batched to the card in {time.perf_counter() - t0:.1f} s")
 
     sampler = torch.Generator(device=dev).manual_seed(int(cfg.TASK_CONFIG.SEED))
-    gru_sequence.launches = 0
-    fused_resize_normalize.launches = 0
+    _reset_launches()
     logits, states, actions = _run(act_step, policy, batches, dev, not cfg.EVAL.SAMPLE, sampler)
-    launches = {"gru_sequence": gru_sequence.launches, "fused_resize_normalize": fused_resize_normalize.launches}
+    launches = _read_launches()
     print(f"main path launches over {STEPS} act steps: {json.dumps(launches)}")
     assert launches == {"gru_sequence": 2 * STEPS, "fused_resize_normalize": 2 * STEPS}, launches
     assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(states).all()), "non-finite act outputs"
@@ -455,6 +485,163 @@ def phase_main_path(dev):
     return launches, step_ms
 
 
+# ---------------------------------------------------------------------------
+# serving: eval and inference through the entry point, over forked simulators
+# ---------------------------------------------------------------------------
+
+RXR_MEASURES = ("steps_taken", "path_length", "distance_to_goal", "success", "oracle_success", "spl", "ndtw")
+
+
+def _run_loop(run_type, opts):
+    """One `run_exp` with the launch counters set to 0 just before and read
+    just after; both must have risen by exactly 2 per act step of the loop."""
+    from vlnce_torch.run import run_exp
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    trainer = run_exp(EXP, run_type, opts)
+    wall = time.perf_counter() - t0
+    launches, timing = _read_launches(), trainer.last_loop_timing
+    print(f"{run_type} launches over {timing['act_steps']} act steps: {json.dumps(launches)}")
+    assert timing["act_steps"] > 0 and launches == {k: 2 * timing["act_steps"] for k in launches}, (launches, timing)
+    assert {p.device.type for p in trainer.policy.parameters()} == {"cuda"}, "the policy is not on the card"
+    return trainer, launches, wall
+
+
+def phase_serving(dev):
+    from vlnce_torch.utils.checkpoints import save_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        # a checkpoint of the seeded full-width policy, its head's bias marked
+        # so that loading it can be told from building the policy anew
+        cfg, policy, _ = build_act_step(dev, "bfloat16")
+        mark = torch.arange(6, dtype=torch.float32) * 0.01
+        with torch.no_grad():
+            policy.action_distribution.linear.bias.copy_(mark)
+        ckpt = os.path.join(tmp, "ckpt.0.pth")
+        save_checkpoint(ckpt, policy.state_dict(), config=cfg)
+        del policy
+        print(f"serving: checkpoint of {os.path.getsize(ckpt) / 1e6:.1f} MB written")
+
+        common = [
+            "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0",
+            "TASK_CONFIG.DATASET.NUM_SCENES", N_ENVS,  # one scene per worker
+            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40,
+            "NUM_ENVIRONMENTS", N_ENVS,
+            "TENSORBOARD_DIR", "", "VERBOSE", False, "LOG_FILE", os.path.join(tmp, "run.log"),
+        ]
+        trainer, eval_launches, wall = _run_loop("eval", common + [
+            "TASK_CONFIG.DATASET.NUM_EPISODES", 32, "EVAL.EPISODE_COUNT", 16, "EVAL.USE_CKPT_CONFIG", False,
+            "EVAL_CKPT_PATH_DIR", ckpt, "RESULTS_DIR", os.path.join(tmp, "evals"),
+        ])
+        assert torch.equal(trainer.policy.action_distribution.linear.bias.cpu(), mark), "the checkpoint's weights were not loaded"
+        with open(os.path.join(tmp, "evals", f"stats_ckpt_0_{cfg.EVAL.SPLIT}.json")) as f:
+            stats = json.load(f)
+        assert sorted(stats) == sorted(RXR_MEASURES), stats
+        assert all(math.isfinite(v) for v in stats.values()), stats
+        episodes = trainer._last_eval_episode_stats
+        assert 16 <= len(set(episodes)) == len(episodes) <= 16 + N_ENVS - 1, sorted(episodes)
+        t = trainer.last_loop_timing
+        print(f"eval: {len(episodes)} episodes, stats {json.dumps({k: round(v, 4) for k, v in stats.items()})}")
+        print(f"eval wall time: {wall:.2f} s for run_exp (envs forked, policy built, checkpoint loaded), {t['total_time']:.2f} s in the loop")
+        print(f"eval act steps: {t['act_steps']} at N={N_ENVS}, {t['env_steps']} env steps")
+        print(f"eval env-steps/s of the whole loop: {t['env_steps'] / t['total_time']:.1f}")
+        print(f"eval pth_time {t['pth_time']:.3f} s : env_time {t['env_time']:.3f} s "
+              f"({1e3 * t['pth_time'] / t['act_steps']:.1f} ms and {1e3 * t['env_time'] / t['act_steps']:.1f} ms per act step; "
+              f"act share {t['pth_time'] / t['total_time']:.1%} of the loop; the first act step took {t['first_act_time']:.3f} s)")
+        print(f"eval time outside both clocks: {t['total_time'] - t['pth_time'] - t['env_time']:.3f} s "
+              f"(resets of finished episodes, slot copies, current_episodes)")
+        print(f"eval peak card memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        predictions = os.path.join(tmp, "predictions.jsonl")
+        inf_trainer, inf_launches, wall = _run_loop("inference", common + [
+            "TASK_CONFIG.DATASET.NUM_EPISODES", N_ENVS, "INFERENCE.FORMAT", "rxr", "INFERENCE.USE_CKPT_CONFIG", False,
+            "INFERENCE.CKPT_PATH", ckpt, "INFERENCE.PREDICTIONS_FILE", predictions,
+        ])
+        with open(predictions) as f:
+            lines = [json.loads(line) for line in f]
+        assert len(lines) == N_ENVS and len({str(e["instruction_id"]) for e in lines}) == N_ENVS, lines
+        for entry in lines:
+            path = entry["path"]
+            assert len(path) >= 1 and all(len(p) == 3 and all(math.isfinite(x) for x in p) for p in path), entry
+            assert all(a != b for a, b in zip(path[:-1], path[1:])), "consecutive duplicates in an rxr path"
+        t = inf_trainer.last_loop_timing
+        print(f"inference: {len(lines)} rxr entries, {t['act_steps']} act steps, {t['env_steps']} env steps in {t['total_time']:.2f} s "
+              f"(run_exp {wall:.2f} s), pth_time {t['pth_time']:.3f} s : env_time {t['env_time']:.3f} s")
+
+        phase_env_step_parts(trainer, dev)
+    return eval_launches, inf_launches
+
+
+def phase_env_step_parts(trainer, dev, steps: int = 6):
+    """Where an env step of the eval loop goes, each part measured apart at
+    N = N_ENVS with the eval's own policy: render (one in-process env step),
+    pipe (pickling one observation there and back), the 8 workers' step as the
+    loop sees it, one worker's reset to its next episode, upload, act and
+    download."""
+    from vlnce_torch.envs.batch import ObsSlots
+    from vlnce_torch.envs.env_utils import construct_envs_auto_reset_false, get_env_class
+    from vlnce_torch.trainers.base_trainer import make_fused_act_step
+
+    config = trainer.config.clone().defrost()
+    config.TASK_CONFIG.DATASET.TYPE = "Synthetic-VLN-v0"
+    config.TASK_CONFIG.DATASET.NUM_SCENES = N_ENVS
+    config.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS = 500
+    config.NUM_ENVIRONMENTS = N_ENVS
+    config.freeze()
+
+    env = get_env_class(config.ENV_NAME)(config)
+    obs = env.reset()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        obs = env.step(1 + i % 3)[0]
+    render_ms = 1e3 * (time.perf_counter() - t0) / steps
+    env.close()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        blob = pickle.dumps(obs, protocol=pickle.HIGHEST_PROTOCOL)
+        pickle.loads(blob)
+    pickle_ms = 1e3 * (time.perf_counter() - t0) / steps
+
+    envs = construct_envs_auto_reset_false(config, get_env_class(config.ENV_NAME))
+    observations = envs.reset()
+    ids = list(range(N_ENVS))
+    envs.step_at(ids, [1] * N_ENVS)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        stepped = envs.step_at(ids, [1 + i % 3] * N_ENVS)
+    workers_ms = 1e3 * (time.perf_counter() - t0) / steps
+    t0 = time.perf_counter()
+    for i in range(steps):
+        envs.reset_at(i % N_ENVS)
+        envs.call_at(i % N_ENVS, "current_episode")
+    reset_ms = 1e3 * (time.perf_counter() - t0) / steps
+    envs.close()
+
+    slots = ObsSlots(observations, dev)
+    for i, (o, _, _, _) in enumerate(stepped):
+        slots.update(i, o)
+    upload_ms = cuda_ms(slots.to_device, iters=10)
+    policy = trainer.policy
+    act_step = make_fused_act_step(policy, trainer.obs_transforms)
+    batch = slots.to_device()
+    rnn, prev = policy.initial_rnn_states(N_ENVS), torch.zeros(N_ENVS, 1, dtype=torch.long, device=dev)
+    masks = torch.ones(N_ENVS, 1, device=dev)
+    act_ms = cuda_ms(lambda: act_step(batch, rnn, prev, masks, True), iters=10, warmup=2)
+    actions = act_step(batch, rnn, prev, masks, True)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        actions.reshape(-1).cpu().numpy()
+    download_ms = 1e3 * (time.perf_counter() - t0) / steps
+    print(f"env step parts at N={N_ENVS} (ms): render {render_ms:.1f} per env in-process, pickle round trip of one "
+          f"{len(blob) / 1e6:.2f} MB observation {pickle_ms:.1f}, all {N_ENVS} forked workers' step as the loop sees it {workers_ms:.1f}, "
+          f"one worker's reset to its next episode {reset_ms:.1f}, "
+          f"upload of {slots.nbytes() / 1e6:.1f} MB from pinned memory {upload_ms:.2f} "
+          f"({slots.nbytes() / upload_ms / 1e6:.1f} GB/s), act step {act_ms:.2f}, download of the actions {download_ms:.3f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -467,8 +654,12 @@ def main() -> int:
     phase_build()
     kernels = [phase_gru(dev), phase_resize(dev)]
     launches, _ = phase_main_path(dev)
+    eval_launches, inference_launches = phase_serving(dev)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_act_phase"] = launches[k["name"]]
+        k["launches_eval"] = eval_launches[k["name"]]
+        k["launches_inference"] = inference_launches[k["name"]]
+        k["launches"] = k["launches_act_phase"] + k["launches_eval"] + k["launches_inference"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

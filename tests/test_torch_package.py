@@ -16,8 +16,13 @@ from tests.torch_port_cases import JAX_RXR_CMA, RXR_CMA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "vlnce_tpu", "gymnasium", "attr", "tqdm", "cv2")
+
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
+blocked = %r
+for name in blocked:
+    sys.modules[name] = None  # `import name` now raises ImportError
 import vlnce_torch
 from vlnce_torch.ops import _build
 names = [m.name for m in pkgutil.walk_packages(vlnce_torch.__path__, "vlnce_torch.")]
@@ -25,10 +30,19 @@ for name in names:
     importlib.import_module(name)
 print(json.dumps({
     "modules": names,
-    "foreign": sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vlnce_tpu")),
+    "foreign": sorted(k for k, v in sys.modules.items() if k.split(".")[0] in blocked and v is not None),
     "loaded_kernels": sorted(_build.loaded()),
 }))
-"""
+""" % (BLOCKED,)
+
+NEW_MODULES = [
+    "vlnce_torch.run", "vlnce_torch.trainers.base_trainer", "vlnce_torch.utils.checkpoints", "vlnce_torch.utils.logging",
+    "vlnce_torch.utils.tensorboard", "vlnce_torch.envs.env", "vlnce_torch.envs.env_utils", "vlnce_torch.envs.gridworld",
+    "vlnce_torch.envs.rl_envs", "vlnce_torch.envs.sim", "vlnce_torch.envs.vector_env", "vlnce_torch.tasks.actions",
+    "vlnce_torch.tasks.datasets", "vlnce_torch.tasks.dtw", "vlnce_torch.tasks.episodes", "vlnce_torch.tasks.geometry",
+    "vlnce_torch.tasks.measures", "vlnce_torch.tasks.sensors", "vlnce_torch.tasks.shortest_path_follower",
+    "vlnce_torch.tasks.task", "vlnce_torch.tasks.vocab",
+]
 
 
 def test_import_pulls_in_no_jax_and_builds_no_kernel():
@@ -37,6 +51,7 @@ def test_import_pulls_in_no_jax_and_builds_no_kernel():
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "vlnce_torch.models.cma_policy" in report["modules"] and "vlnce_torch.ops.preprocess" in report["modules"]
+    assert set(NEW_MODULES) <= set(report["modules"])
     assert report["foreign"] == []
     assert report["loaded_kernels"] == []
 

@@ -7,8 +7,13 @@ kernels is a CUDA kernel written for sm_90a under `csrc/`, built by nvcc at
 its first launch (`ops/_build.py`) and bound with ctypes. On CPU tensors every
 kernel wrapper runs its plain PyTorch version instead.
 
-Ported so far: the act step of the RxR CMA policy (obs transforms, CMAPolicy,
-`trainers.base_trainer.make_fused_act_step`).
+Ported so far: the serving path of the RxR CMA policy. `python -m
+vlnce_torch.run --run-type {eval,inference}` drives `trainers.base_trainer`'s
+eval and inference loops over the host env layer (`envs/`, `tasks/`: the
+procedural GridWorld simulator, datasets, sensors, measures, forked vector
+envs), with checkpoints from `utils.checkpoints`, around the act step (obs
+transforms, CMAPolicy, `trainers.base_trainer.make_fused_act_step`). Training
+is not ported yet.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,8 @@ base_il_trainer.py:25,284): per-env numpy observations are stacked on the
 host into one contiguous array per sensor and copied to the device once per
 sensor, from pinned memory when the device is CUDA so the copy is
 asynchronous. The env axis can be zero-padded to a fixed size, so paused
-envs keep their slot.
+envs keep their slot. `ObsSlots` is the staging area of the eval and
+inference loops: one host buffer per sensor that lives for the whole loop.
 """
 
 from __future__ import annotations
@@ -51,3 +52,30 @@ def to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
         out[k] = t
     return out
 
+
+
+class ObsSlots:
+    """The stacked observations of a fixed set of N envs, kept on the host in
+    one buffer per sensor (pinned when the device is CUDA) for the life of a
+    loop. `update(i, obs)` overwrites slot i after env i stepped or reset;
+    `to_device()` uploads all sensors, one asynchronous copy each. The copies
+    read the buffers while they run, so the caller must have synchronised
+    with the device (the loops do, when they download the actions) before it
+    calls `update` again."""
+
+    def __init__(self, observations: List[Dict[str, np.ndarray]], device):
+        self.device = torch.device(device)
+        self._host = {k: torch.from_numpy(v) for k, v in stack_obs(observations).items()}
+        if self.device.type == "cuda":
+            self._host = {k: t.pin_memory() for k, t in self._host.items()}
+        self._arrays = {k: t.numpy() for k, t in self._host.items()}
+
+    def update(self, index: int, obs: Dict[str, np.ndarray]) -> None:
+        for k, v in obs.items():
+            self._arrays[k][index] = np.asarray(v)
+
+    def to_device(self) -> Dict[str, torch.Tensor]:
+        return {k: t.to(self.device, non_blocking=True) for k, t in self._host.items()}
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self._host.values())

@@ -10,27 +10,36 @@ instruction and progress sensors of `TASK.SENSORS`.
 
 from __future__ import annotations
 
-from typing import Dict as TDict, Tuple
+from typing import Dict as TDict, Optional, Tuple
 
 import numpy as np
 
 
-class Box:
-    def __init__(self, low, high, shape: Tuple[int, ...], dtype):
-        self.shape = tuple(int(s) for s in shape)
+class Space:
+    """Base of the space types, for annotations and isinstance checks."""
+
+
+class Box(Space):
+    """Bounded array space. `low` and `high` are scalars or arrays; without
+    `shape` they give it, as in gymnasium."""
+
+    def __init__(self, low, high, shape: Optional[Tuple[int, ...]] = None, dtype=np.float32):
         self.dtype = np.dtype(dtype)
-        self.low = np.full(self.shape, low, self.dtype)
-        self.high = np.full(self.shape, high, self.dtype)
+        if shape is None:
+            shape = np.broadcast(np.asarray(low), np.asarray(high)).shape
+        self.shape = tuple(int(s) for s in shape)
+        self.low = np.broadcast_to(np.asarray(low, self.dtype), self.shape).copy()
+        self.high = np.broadcast_to(np.asarray(high, self.dtype), self.shape).copy()
 
     def __repr__(self) -> str:
         return f"Box({self.shape}, {self.dtype})"
 
 
-class Dict:
-    def __init__(self, spaces: TDict[str, Box]):
+class Dict(Space):
+    def __init__(self, spaces: TDict[str, Space]):
         self.spaces = dict(spaces)
 
-    def __getitem__(self, key: str) -> Box:
+    def __getitem__(self, key: str) -> Space:
         return self.spaces[key]
 
     def __contains__(self, key: str) -> bool:
@@ -40,9 +49,12 @@ class Dict:
         return f"Dict({self.spaces})"
 
 
-class Discrete:
+class Discrete(Space):
     def __init__(self, n: int):
         self.n = int(n)
+
+    def __repr__(self) -> str:
+        return f"Discrete({self.n})"
 
 
 def observation_space_from_config(task_config) -> Dict:

@@ -1,4 +1,5 @@
-"""Weights carried across from the JAX package.
+"""Weights into the port's modules: from the JAX package, and from
+reference-keyed torch files.
 
 `state_dict_from_jax_params` turns the JAX package's parameter tree (nested
 dicts of numpy arrays, as flax holds them) into this package's state_dict,
@@ -14,6 +15,10 @@ vlnce_tpu/models/convert.py:convert_policy_state_dict:
 
 Every JAX parameter must land somewhere: a leftover raises, so nothing is
 dropped silently. Load the result with `load_state_dict(sd, strict=True)`.
+
+`load_policy_state_dict` is the strict load of a reference-keyed state dict
+that the trainer uses for checkpoints, and `load_ddppo_depth_checkpoint` the
+DDPPO PointGoal key remap into the depth encoder.
 """
 
 from __future__ import annotations
@@ -182,3 +187,51 @@ def state_dict_from_jax_params(params: Mapping, policy_name: str = "CMAPolicy") 
     if unused:
         raise KeyError(f"state_dict_from_jax_params: JAX params with no place in the port: {unused}")
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def load_policy_state_dict(policy, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Load a reference-keyed state dict into a port policy, strictly: a key
+    of the file that the policy does not use, or a key of the policy that the
+    file does not fill, raises. The one exemption is BatchNorm's
+    `num_batches_tracked` counters, which a frozen BatchNorm has no use for."""
+    policy.load_state_dict(
+        {k: v for k, v in state_dict.items() if not k.endswith(".num_batches_tracked")}, strict=True
+    )
+
+
+def ddppo_depth_state_dict(ckpt: Mapping) -> Dict[str, torch.Tensor]:
+    """The visual-encoder weights of a DDPPO PointGoal checkpoint under the
+    depth encoder's own key names: `actor_critic.net.visual_encoder.<key>`
+    becomes `<key>` and every other entry is left out, as the reference does
+    (resnet_encoders.py:48-61)."""
+    weights = {}
+    for k, v in ckpt["state_dict"].items():
+        parts = k.split(".")[2:]
+        if not parts or parts[0] != "visual_encoder":
+            continue
+        weights[".".join(parts[1:])] = v
+    return weights
+
+
+def load_ddppo_depth_checkpoint(policy, ckpt: Mapping) -> None:
+    """Load DDPPO PointGoal weights into `policy.net.depth_encoder
+    .visual_encoder`, strictly."""
+    policy.net.depth_encoder.visual_encoder.load_state_dict(ddppo_depth_state_dict(ckpt), strict=True)
+
+
+def load_pretrained_embeddings(policy, embedding_file: str) -> bool:
+    """Overwrite the instruction embedding table from a GloVe-style
+    embeddings.json.gz (JSON [vocab, dim] floats) if the file exists; returns
+    whether it did."""
+    import gzip
+    import json
+    import os
+
+    if not os.path.exists(embedding_file):
+        return False
+    with gzip.open(embedding_file, "rt") as f:
+        table = torch.tensor(json.load(f), dtype=torch.float32)
+    weight = policy.net.instruction_encoder.embedding_layer.weight
+    with torch.no_grad():
+        weight.copy_(table.to(weight.device))
+    return True
