@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch port: builds its CUDA kernels, holds each against
 its plain PyTorch version, and drives the RxR CMA act step, eval and inference
-at full width.
+and the R2R CMA DAgger training at full width.
 
     python3 chip_smoke.py
 
@@ -33,7 +33,19 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    kernel's launch counter must have risen by exactly 2 per act step of each
    loop; then where an env step's time goes (render, pipe, upload, act,
    download), each measured apart;
-6. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+6. B1's backward kernel (the gradient of gru_sequence) against its plain
+   version at the training shape (T=32, B=5, H=512) and at T=1, B=8, with
+   times beside the plain loop's, autograd through cuDNN's GRU, and the bound;
+7. training: `run_exp(cma_pm_da_aug_tune.yaml, "train")` at full width in
+   bf16 over 8 forked workers (synthetic scenes, 224x224 / 256x256 frames):
+   2 DAgger iterations (beta 1.0, then 0.5) of 16 episodes and 2 epochs at
+   batch size 5, then `run_exp(..., "eval")` of the last checkpoint; B1 must
+   be launched exactly twice forward per collection step and twice forward
+   and twice backward per train step, B2 never; frozen weights must not
+   move, the others must; the optimizer holds state for the trainable ones
+   only; the action loss must fall; then the train step alone on a seeded
+   batch at T=32, N=5 for its warm split (forward, backward, optimizer);
+8. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -169,9 +181,12 @@ def phase_gru(dev):
         return states[:, 0]
 
     # (T, B, H, step with resets, strided h0, atol): the act shape, the eval
-    # loop's shape, the IL sequence shape, then edges (one row, batches that are no multiple of the
-    # kernel's 4-row tasks, narrow H where most lanes have no part of a row)
-    cases = [(1, B, 512, 0, True, 1e-5), (1, N_ENVS, 512, 0, True, 1e-5), (16, 4, 512, 7, True, 1e-4), (2, 1, 64, 1, False, 1e-4),
+    # loop's shape, the shapes of the training path (a collection group of N_ENVS / 2 rows at T = 1;
+    # IL.batch_size 5 rows, no multiple of the kernel's 4-row tasks, at every T a batch takes), then
+    # edges (one row, other batches off the 4-row tasks, narrow H where most lanes have no part of a row)
+    cases = [(1, B, 512, 0, True, 1e-5), (1, N_ENVS, 512, 0, True, 1e-5), (1, N_ENVS // 2, 512, 0, True, 1e-5),
+             (16, TRAIN_B, 512, 7, True, 1e-4), (TRAIN_T, TRAIN_B, 512, 11, True, 1e-4), (48, TRAIN_B, 512, 20, True, 1e-4),
+             (16, 4, 512, 7, True, 1e-4), (2, 1, 64, 1, False, 1e-4),
              (16, 3, 128, 8, True, 1e-4), (2, 40, 512, 1, True, 1e-4), (1, 40, 64, None, True, 1e-5)]
     errs = []
     for T, Bn, H, reset, is_strided, atol in cases:
@@ -233,9 +248,105 @@ def phase_gru(dev):
           f"T=16 B=4 H=512, one launch: kernel {seq_ms:.4f} ms, plain {seq_plain_ms:.4f} ms")
     return {
         "name": "gru_sequence", "route": "cuda", "source": "vlnce_torch/csrc/gru_sequence.cu",
-        "replaces": "vlnce_tpu/ops/pallas_rnn.py:55", "max_abs_err": errs[0],
+        "replaces": "vlnce_tpu/ops/pallas_rnn.py:55", "max_abs_err": max(errs),  # over every shape above
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         "eager_ms": eager_ms, "empty_launch_ms": floor_ms, "seq_T16_B4_ms": seq_ms,
+    }
+
+
+# ---------------------------------------------------------------------------
+# B1 backward: the gradient of the masked GRU sequence
+# ---------------------------------------------------------------------------
+
+TRAIN_T, TRAIN_B = 32, 5  # one R2R CMA DAgger batch: IL.batch_size 5, padded to a multiple of 16
+
+
+def phase_gru_backward(dev):
+    from vlnce_torch.ops.rnn import (_BLOCK_UNITS, _backward_launch, gru_sequence_backward, gru_sequence_backward_plain,
+                                     gru_sequence_plain)
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    H = 512
+
+    def inputs(T, Bn, reset_at):
+        xi = torch.randn(T, Bn, 3 * H, generator=g)
+        masks = torch.ones(T, Bn, 1)
+        masks[reset_at, ::2] = 0.0
+        states = torch.stack([torch.randn(Bn, H, generator=g), torch.full((Bn, H), float("nan"))], dim=1)
+        w_hh = torch.randn(3 * H, H, generator=g) * H**-0.5
+        b_hh = torch.randn(3 * H, generator=g) * 0.1
+        # the policy hands d_out over as a view of a [T * B, H] gradient; a
+        # transposed view here, so the wrapper's copy is exercised
+        d_out = torch.randn(Bn, T, H, generator=g)
+        xi, masks, states, w_hh, b_hh, d_out = (t.to(dev) for t in (xi, masks, states, w_hh, b_hh, d_out))
+        h0 = states[:, 0]  # rows 2H apart
+        out = gru_sequence_plain(xi, masks, h0, w_hh, b_hh)
+        return d_out.transpose(0, 1), xi, masks, h0, w_hh, b_hh, out
+
+    names = ("d_xi", "d_h0", "d_w_hh", "d_b_hh")
+    shapes = {"train": inputs(TRAIN_T, TRAIN_B, 11), "step": inputs(1, N_ENVS, 0), "long": inputs(48, TRAIN_B, 20)}
+    worst = {}
+    for label, args in shapes.items():
+        got = gru_sequence_backward(*args)
+        ref = gru_sequence_backward_plain(*args)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(names, got, ref):
+            scale = max(1.0, float(b.abs().max()))  # d_w_hh sums T * B rows: held relative to its scale
+            errs[name] = float((a - b).abs().max())
+            assert a.shape == b.shape and errs[name] <= 1e-5 * scale, f"B1 backward {label} {name}: {errs[name]} at scale {scale}"
+        T, Bn = args[1].shape[:2]
+        print(f"B1 backward T={T} B={Bn} H={H}, strided h0, transposed d_out: max_abs_err "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + " (atol 1e-5 x max(1, scale))")
+        worst[label] = errs
+
+    # the training shape: a cooperative launch, timed by CUDA events around
+    # back-to-back calls of the wrapper (its kernels take longer than the
+    # host needs to launch them); the plain loop is bound by the host
+    train = tuple(t.contiguous() if i == 0 else t for i, t in enumerate(shapes["train"]))
+    d_out, xi, masks, h0, w_hh, b_hh, out = train
+    ms = cuda_ms(lambda: gru_sequence_backward(*train), iters=50)
+    # the kernel's launches alone (the recurrence and the d_h0 sum), into buffers allocated once
+    d_xi, d_gh, d_h0 = torch.empty_like(xi), torch.empty_like(xi), torch.empty(TRAIN_B, H, device=dev)
+    scratch = torch.empty(2, H // _BLOCK_UNITS, TRAIN_B, H, device=dev)
+    kernel_ms = cuda_ms(lambda: _backward_launch(*train, d_xi, d_h0, d_gh, scratch), iters=50)
+    plain_ms = cuda_ms(lambda: gru_sequence_backward_plain(*train), iters=5, warmup=1)
+
+    def weight_gradient():  # the wrapper's torch ops after the kernel: d_w_hh and d_b_hh from d_gh
+        h_prev = torch.cat([h0[None], out[:-1]]) * masks
+        return xi.reshape(-1, 3 * H).T @ h_prev.reshape(-1, H), xi.sum(dim=(0, 1))
+
+    weight_ms = cuda_ms(weight_gradient, iters=50)
+    # yardstick only, the port never calls it: autograd through cuDNN's GRU on
+    # [T, B, H] inputs (no resets, and it also differentiates the input
+    # projection, which B1 leaves to a matmul outside)
+    gru = torch.nn.GRU(H, H).to(dev)
+    x = torch.randn(TRAIN_T, TRAIN_B, H, device=dev, requires_grad=True)
+    y, _ = gru(x, h0[None].contiguous())
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(y, [x] + list(gru.parameters()), d_out, retain_graph=True), iters=50)
+    rows = TRAIN_T * TRAIN_B
+    moved = nbytes(*train) + nbytes(xi, h0, w_hh, b_hh)  # inputs once, d_xi, d_h0, d_w_hh and d_b_hh once
+    flops = rows * (3 * 2 * 3 * H * H + 40 * H)  # h_prev . w_hh^T, d_gh . w_hh and d_gh^T . h_prev, and the gates
+    b_ms, b_by = bound_ms(moved, flops)
+    print(f"B1 backward at T={TRAIN_T} B={TRAIN_B} H={H} (one cooperative launch + d_h0 + the weight gradient's torch ops), "
+          f"CUDA events around 50 back-to-back calls: wrapper {ms:.4f} ms, of which the kernel's launches alone {kernel_ms:.4f} ms "
+          f"({1e3 * kernel_ms / TRAIN_T:.2f} us per step) and d_w_hh and d_b_hh by torch {weight_ms:.4f} ms; plain loop {plain_ms:.4f} ms (host-bound); autograd through "
+          f"cuDNN GRU {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+
+    # T = 1: ordinary launches, device time by graph replay
+    step = tuple(t.contiguous() if i == 0 else t for i, t in enumerate(shapes["step"]))
+    step_ms = graph_ms(lambda: gru_sequence_backward(*step), reps=20)
+    step_plain_ms = graph_ms(lambda: gru_sequence_backward_plain(*step), reps=20)
+    print(f"B1 backward at T=1 B={N_ENVS} H={H}, device time by graph replay: wrapper {step_ms:.4f} ms, plain {step_plain_ms:.4f} ms")
+    return {
+        "name": "gru_sequence_backward", "route": "cuda", "source": "vlnce_torch/csrc/gru_sequence.cu",
+        "replaces": "vlnce_tpu/ops/pallas_rnn.py:55",
+        "note": "the gradient of B1; the JAX package differentiates the lax.scan of vlnce_tpu/models/rnn_state_encoder.py:133",
+        # max_abs_err: the largest over all four outputs at the training shape; ms: the wrapper (the kernel's
+        # launches, the allocations and torch's d_w_hh and d_b_hh); kernel_ms: the kernel's launches alone
+        "max_abs_err": max(worst["train"].values()), "max_abs_err_by_output": worst["train"],
+        "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "weight_gradient_ms": weight_ms, "step_T1_B8_ms": step_ms, "step_T1_B8_plain_ms": step_plain_ms,
     }
 
 
@@ -414,19 +525,21 @@ def plain_versions():
         rse.gru_sequence, ot.fused_resize_normalize = saved
 
 
-def _reset_launches():
+def _counted():
     from vlnce_torch.ops.preprocess import fused_resize_normalize
-    from vlnce_torch.ops.rnn import gru_sequence
+    from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_backward
 
-    gru_sequence.launches = 0
-    fused_resize_normalize.launches = 0
+    return {"gru_sequence": gru_sequence, "gru_sequence_backward": gru_sequence_backward,
+            "fused_resize_normalize": fused_resize_normalize}
+
+
+def _reset_launches():
+    for wrapper in _counted().values():
+        wrapper.launches = 0
 
 
 def _read_launches():
-    from vlnce_torch.ops.preprocess import fused_resize_normalize
-    from vlnce_torch.ops.rnn import gru_sequence
-
-    return {"gru_sequence": gru_sequence.launches, "fused_resize_normalize": fused_resize_normalize.launches}
+    return {name: wrapper.launches for name, wrapper in _counted().items()}
 
 
 def phase_main_path(dev):
@@ -449,7 +562,7 @@ def phase_main_path(dev):
     logits, states, actions = _run(act_step, policy, batches, dev, not cfg.EVAL.SAMPLE, sampler)
     launches = _read_launches()
     print(f"main path launches over {STEPS} act steps: {json.dumps(launches)}")
-    assert launches == {"gru_sequence": 2 * STEPS, "fused_resize_normalize": 2 * STEPS}, launches
+    assert launches == {"gru_sequence": 2 * STEPS, "gru_sequence_backward": 0, "fused_resize_normalize": 2 * STEPS}, launches
     assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(states).all()), "non-finite act outputs"
     assert tuple(logits.shape) == (STEPS, B, 6) and tuple(states.shape) == (STEPS, B, 2, 512)
     assert int(actions.min()) >= 0 and int(actions.max()) < 6, "action out of range"
@@ -492,19 +605,20 @@ def phase_main_path(dev):
 RXR_MEASURES = ("steps_taken", "path_length", "distance_to_goal", "success", "oracle_success", "spl", "ndtw")
 
 
-def _run_loop(run_type, opts):
+def _run_loop(run_type, opts, exp=EXP, per_act_step=(2, 0, 2)):
     """One `run_exp` with the launch counters set to 0 just before and read
-    just after; both must have risen by exactly 2 per act step of the loop."""
+    just after; B1, its backward and B2 must have risen by exactly
+    `per_act_step` per act step of the loop."""
     from vlnce_torch.run import run_exp
 
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    trainer = run_exp(EXP, run_type, opts)
+    trainer = run_exp(exp, run_type, opts)
     wall = time.perf_counter() - t0
     launches, timing = _read_launches(), trainer.last_loop_timing
     print(f"{run_type} launches over {timing['act_steps']} act steps: {json.dumps(launches)}")
-    assert timing["act_steps"] > 0 and launches == {k: 2 * timing["act_steps"] for k in launches}, (launches, timing)
+    assert timing["act_steps"] > 0 and list(launches.values()) == [n * timing["act_steps"] for n in per_act_step], (launches, timing)
     assert {p.device.type for p in trainer.policy.parameters()} == {"cuda"}, "the policy is not on the card"
     return trainer, launches, wall
 
@@ -642,6 +756,242 @@ def phase_env_step_parts(trainer, dev, steps: int = 6):
           f"({slots.nbytes() / upload_ms / 1e6:.1f} GB/s), act step {act_ms:.2f}, download of the actions {download_ms:.3f}")
 
 
+# ---------------------------------------------------------------------------
+# training: R2R CMA DAgger through the entry point, then eval of its checkpoint
+# ---------------------------------------------------------------------------
+
+R2R_EXP = "vlnce_torch/config/experiments/r2r_baselines/cma_pm_da_aug_tune.yaml"
+TRAIN_EPISODES, TRAIN_EPOCHS, TRAIN_ITERATIONS = 16, 2, 2
+
+
+def build_train_step(dev, dtype: str, T: int = TRAIN_T, N: int = TRAIN_B, seed: int = 5, mark=None):
+    """The R2R CMA DAgger config at full width on `dev`, its policy with
+    seeded weights, masked Adam, the IL train step, and one seeded [T, N] batch
+    on `dev` as the trainer hands it over (cached features of the frozen
+    encoders, 200-token instructions, progress): (cfg, policy, optimizer,
+    train_step, batch)."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
+    from vlnce_torch.models.cma_policy import CMAPolicy
+    from vlnce_torch.parallel.il_step import build_il_train_step
+    from vlnce_torch.parallel.optim import masked_adam
+
+    cfg = get_config(R2R_EXP, ["CUDA.DEVICE", str(dev), "CUDA.PRECISION.compute_dtype", dtype])
+    space = observation_space_from_config(cfg.TASK_CONFIG)
+    policy = CMAPolicy.from_config(cfg, space, action_space_from_config(cfg.TASK_CONFIG))
+    optimizer = masked_adam(cfg.IL.lr, policy, cfg.MODEL)
+    rng = np.random.RandomState(seed)
+    tokens = np.zeros((N,) + space["instruction"].shape, np.int64)
+    for n in range(N):
+        length = rng.randint(8, 30)
+        tokens[n, :length] = rng.randint(2, 32, length)
+    depth_chw = policy.net.depth_encoder.visual_encoder.output_shape_chw()
+    masks = np.ones((T, N), np.float32)
+    masks[0] = 0.0
+    weights = np.where(rng.rand(T, N) < 0.3, 3.2, 1.0).astype(np.float32)
+    weights[T - 3:, 0] = 0.0  # one episode shorter than the batch's length
+    arrays = (
+        {
+            "instruction": np.broadcast_to(tokens, (T,) + tokens.shape).astype(np.int32),
+            "progress": np.broadcast_to(np.linspace(0, 1, T, dtype=np.float32)[:, None, None], (T, N, 1)),
+            "rgb_features": rng.randn(T, N, policy.net.rgb_encoder.resnet_layer_size, 4, 4).astype(np.float32),
+            "depth_features": np.abs(rng.randn(T, N, *depth_chw)).astype(np.float32),
+        },
+        rng.randint(0, 4, (T, N)), masks, rng.randint(0, 4, (T, N)), weights,
+    )
+    obs, *rest = arrays
+    batch = ({k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in obs.items()},
+             *(torch.from_numpy(a).to(dev) for a in rest))
+    train_step = build_il_train_step(policy, optimizer, **({"mark": mark} if mark else {}))
+    return cfg, policy, optimizer, train_step, batch
+
+
+def phase_train_step(dev, steps: int = 10):
+    """The train step alone at the training shape (T = TRAIN_T, N = TRAIN_B),
+    its batch already on the card: the split by CUDA events over `steps` warm
+    steps, and B1's launches per step."""
+    from vlnce_torch.utils.profiling import StepClock
+
+    clock = StepClock(dev)
+    _, policy, _, train_step, batch = build_train_step(dev, "bfloat16", mark=clock.mark)
+    for _ in range(3):
+        clock.start()
+        train_step(*batch)
+    warm_up = clock.totals()
+    _reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        clock.start()
+        losses.append(train_step(*batch)[0])
+    totals = {k: v - warm_up[k] for k, v in clock.totals().items()}
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = _read_launches()
+    assert launches == {"gru_sequence": 2 * steps, "gru_sequence_backward": 2 * steps, "fused_resize_normalize": 0}, launches
+    losses = torch.stack(losses).tolist()
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses  # one batch, repeated: the loss must fall
+    print(f"train step alone at T={TRAIN_T} N={TRAIN_B}, batch on the card, {steps} warm steps: {wall_ms:.2f} ms per step by the host's clock; "
+          + ", ".join(f"{k} {totals[k] / steps:.2f}" for k in ("forward", "backward", "optimizer")) + " ms by CUDA events; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {json.dumps(launches)}")
+    return launches
+
+
+def phase_train_step_against_plain(dev):
+    """The train step's forward and backward in f32 (TF32 off) from one set of
+    seeded weights and one batch at the training shape, once through both B1
+    kernels and once with the plain loop under ordinary autograd: the three
+    losses must agree within 1e-5 relative, and every trainable gradient
+    within 1e-5 of the tensor's own scale (max |plain|) plus 1e-8 of the
+    largest gradient of all: a gradient that is zero by the formula (the
+    bias of the attention keys, which softmax shifts out) is rounding noise
+    in both runs and has no scale of its own."""
+    from vlnce_torch.parallel.il_step import il_losses
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, policy, _, _, batch = build_train_step(dev, "float32")
+
+    def losses_and_gradients():
+        policy.zero_grad(set_to_none=True)
+        losses = il_losses(policy, *batch)
+        losses[0].backward()
+        return torch.stack(losses).detach(), {k: p.grad.clone() for k, p in policy.named_parameters() if p.requires_grad}
+
+    _reset_launches()
+    k_losses, k_grads = losses_and_gradients()
+    launches = _read_launches()
+    assert launches == {"gru_sequence": 2, "gru_sequence_backward": 2, "fused_resize_normalize": 0}, launches
+    with plain_versions():
+        p_losses, p_grads = losses_and_gradients()
+    assert _read_launches() == launches, "the plain run launched a kernel"
+    assert sorted(k_grads) == sorted(p_grads) and len(p_grads) > 0
+    err_l = float(((k_losses - p_losses).abs() / p_losses.abs()).max())
+    largest = max(float(ref.abs().max()) for ref in p_grads.values())
+    ratios = {}
+    for name, ref in p_grads.items():
+        scale = float(ref.abs().max())
+        err = float((k_grads[name] - ref).abs().max())
+        ratios[name] = (err / (1e-5 * scale + 1e-8 * largest), err, scale)  # 1.0 is the tolerance
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1][0])[:3]
+    print(f"f32 train step at T={TRAIN_T} N={TRAIN_B}, kernels vs plain loop under autograd: losses {k_losses.tolist()} vs {p_losses.tolist()} "
+          f"(max relative diff {err_l:.3e}, held at 1e-5); {len(p_grads)} gradients, the largest max |plain| {largest:.3e}; nearest to "
+          f"the tolerance 1e-5 x max |plain| + 1e-8 x that: "
+          + "; ".join(f"{name} at {r:.3f} of it (|diff| {e:.3e}, max |plain| {sc:.3e})" for name, (r, e, sc) in worst))
+    assert all(bool(torch.isfinite(g).all()) for g in k_grads.values()), "non-finite gradient"
+    assert err_l <= 1e-5 and worst[0][1][0] <= 1.0, "the f32 train step through the kernels disagrees with the plain loop"
+
+
+def phase_training(dev):
+    from vlnce_torch.config import get_config
+    from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
+    from vlnce_torch.models.cma_policy import CMAPolicy
+    from vlnce_torch.parallel.optim import trainable_mask
+    from vlnce_torch.run import run_exp
+    from vlnce_torch.trainers.dagger_trainer import DaggerTrainer
+    from vlnce_torch.utils.checkpoints import load_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        ckpts = os.path.join(tmp, "checkpoints")
+        common = [
+            "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0",
+            "TASK_CONFIG.DATASET.NUM_SCENES", N_ENVS,  # one scene per worker
+            "TASK_CONFIG.DATASET.NUM_EPISODES", 64,
+            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40,  # T of a batch is then 16, 32 or 48
+            "NUM_ENVIRONMENTS", N_ENVS,
+            "TENSORBOARD_DIR", "", "VERBOSE", False, "LOG_FILE", os.path.join(tmp, "run.log"),
+            "CHECKPOINT_FOLDER", ckpts,
+        ]
+        train_opts = common + [
+            "IL.load_from_ckpt", False, "IL.DAGGER.iterations", TRAIN_ITERATIONS, "IL.DAGGER.update_size", TRAIN_EPISODES,
+            "IL.epochs", TRAIN_EPOCHS, "IL.batch_size", TRAIN_B, "CUDA.PIPELINED_COLLECTION", True,
+            "IL.DAGGER.lmdb_features_dir", os.path.join(tmp, "trajectories"),
+        ]
+        # the seeded weights the trainer starts from: the same config gives the same draw
+        cfg = get_config(R2R_EXP, train_opts)
+        start = CMAPolicy.from_config(cfg, observation_space_from_config(cfg.TASK_CONFIG), action_space_from_config(cfg.TASK_CONFIG))
+        mask = trainable_mask(start, cfg.MODEL)
+        start = {k: v.cpu() for k, v in start.state_dict().items()}
+
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        DaggerTrainer.time_train_steps = True  # the split of every train step by CUDA events
+        try:
+            trainer = run_exp(R2R_EXP, "train", train_opts)
+        finally:
+            DaggerTrainer.time_train_steps = False
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+
+        rounds, history = trainer.collection_stats, trainer.loss_history
+        collect_steps = sum(r["collect_steps"] for r in rounds)
+        train_steps = len(history)
+        print(f"training: {R2R_EXP} at full width ({trainer.policy.num_params() / 1e6:.1f}M weights, "
+              f"{sum(mask.values())} of {len(mask)} parameter tensors trainable), run_exp took {wall:.1f} s")
+        print(f"training launches over {collect_steps} collection steps and {train_steps} train steps: {json.dumps(launches)}")
+        assert train_steps > 0 and collect_steps > 0
+        assert launches == {"gru_sequence": 2 * collect_steps + 2 * train_steps, "gru_sequence_backward": 2 * train_steps,
+                            "fused_resize_normalize": 0}, launches
+        assert [r["beta"] for r in rounds] == [1.0, 0.5] and all(r["episodes"] >= TRAIN_EPISODES for r in rounds), rounds
+        for r in rounds:
+            print(f"collection round {r['data_it']} (beta {r['beta']}): {r['episodes']} episodes, {r['env_steps']} env steps in "
+                  f"{r['collect_steps']} collect steps of two groups of {N_ENVS // 2}; {r['env_steps'] / r['total_time']:.1f} env-steps/s "
+                  f"of the whole round ({r['total_time']:.2f} s with the workers' start), pth_time {r['pth_time']:.3f} s : env_time {r['env_time']:.3f} s "
+                  f"({1e3 * r['pth_time'] / r['collect_steps']:.1f} ms per collect step)")
+
+        losses = np.array([h[2:] for h in history])
+        assert np.isfinite(losses).all(), "non-finite training loss"
+        # the action loss (cross-entropy) starts at ln 4 for every batch, since the seeded head is
+        # near uniform, so its fall shows across batches; the aux loss (squared progress error)
+        # follows each batch's share of early and late steps, and with it the sum
+        first = [h for h in history if h[0] == 0]
+        last_epoch = np.mean([h[2:] for h in first if h[1] == TRAIN_EPOCHS - 1], axis=0)
+        print("losses (loss, action, aux) of iteration 0: first batch " + " ".join(f"{x:.4f}" for x in first[0][2:])
+              + "; mean of its last epoch " + " ".join(f"{x:.4f}" for x in last_epoch)
+              + "; last batch of the run " + " ".join(f"{x:.4f}" for x in history[-1][2:]))
+        assert last_epoch[1] < first[0][3], "the action loss of iteration 0 did not fall"
+
+        clock = trainer.step_clock.totals()
+        assert sorted(clock) == ["backward", "forward", "optimizer", "upload"] and trainer.step_clock.steps == train_steps
+        first_step = dict(trainer.step_clock.first)
+        warm = {k: (clock[k] - first_step[k]) / (train_steps - 1) for k in clock}  # the first step warms the libraries up
+        step_ms = sum(warm.values())
+        order = ("upload", "forward", "backward", "optimizer")
+        print(f"train step by CUDA events, mean of the {train_steps - 1} steps after the first: {step_ms:.2f} ms per step = "
+              + ", ".join(f"{k} {warm[k]:.2f}" for k in order) + f" ms; {1e3 / step_ms:.1f} steps/s; the first step "
+              + ", ".join(f"{k} {first_step[k]:.1f}" for k in order) + f" ms; T values seen {json.dumps(trainer.train_lengths, sort_keys=True)}; "
+              f"peak card memory {peak / 2**30:.2f} GiB")
+
+        after = trainer.policy.state_dict()
+        assert {p.device.type for p in trainer.policy.parameters()} == {"cuda"}, "the policy is not on the card"
+        moved = {k for k in mask if not torch.equal(after[k].cpu(), start[k])}
+        frozen = {k for k, trains in mask.items() if not trains}
+        assert moved == set(mask) - frozen, (sorted(moved & frozen)[:3], sorted(set(mask) - frozen - moved)[:3])
+        named = dict(trainer.policy.named_parameters())
+        with_state = {k for k, p in named.items() if p in trainer.optimizer.state}
+        assert with_state == set(mask) - frozen and all(named[k].grad is None for k in frozen)
+        print(f"weights: {len(frozen)} frozen tensors bit-equal to the seeded start, {len(moved)} trainable tensors changed, "
+              f"Adam state for {len(with_state)} tensors")
+
+        last = os.path.join(ckpts, f"ckpt.{TRAIN_ITERATIONS * TRAIN_EPOCHS - 1}.ckpt")
+        saved = load_checkpoint(last)
+        assert len(saved["optim_state"]["state"]) == len(with_state) and saved["extra_state"]["dagger_it"] == TRAIN_ITERATIONS - 1
+        evaluator, eval_launches, eval_wall = _run_loop("eval", common + [
+            "EVAL.EPISODE_COUNT", 8, "EVAL.USE_CKPT_CONFIG", False, "EVAL_CKPT_PATH_DIR", last,
+            "RESULTS_DIR", os.path.join(tmp, "evals"),
+        ], exp=R2R_EXP, per_act_step=(2, 0, 0))
+        head = "action_distribution.linear.weight"
+        assert torch.equal(evaluator.policy.state_dict()[head], after[head]), "eval did not load the trained weights"
+        with open(os.path.join(tmp, "evals", f"stats_ckpt_0_{cfg.EVAL.SPLIT}.json")) as f:
+            stats = json.load(f)
+        assert sorted(stats) == sorted(RXR_MEASURES) and all(math.isfinite(v) for v in stats.values()), stats
+        print(f"eval of {os.path.basename(last)} ({os.path.getsize(last) / 1e6:.1f} MB with optimizer state): "
+              f"{len(evaluator._last_eval_episode_stats)} episodes in {eval_wall:.1f} s, stats {json.dumps({k: round(v, 4) for k, v in stats.items()})}")
+    return launches, eval_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -652,14 +1002,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     name = phase_device()
     phase_build()
-    kernels = [phase_gru(dev), phase_resize(dev)]
-    launches, _ = phase_main_path(dev)
-    eval_launches, inference_launches = phase_serving(dev)
+    kernels = [phase_gru(dev), phase_gru_backward(dev), phase_resize(dev)]
+    paths = {"act_phase": phase_main_path(dev)[0]}
+    paths["eval"], paths["inference"] = phase_serving(dev)
+    paths["training"], paths["training_eval"] = phase_training(dev)
+    paths["train_step"] = phase_train_step(dev)
+    phase_train_step_against_plain(dev)
     for k in kernels:
-        k["launches_act_phase"] = launches[k["name"]]
-        k["launches_eval"] = eval_launches[k["name"]]
-        k["launches_inference"] = inference_launches[k["name"]]
-        k["launches"] = k["launches_act_phase"] + k["launches_eval"] + k["launches_inference"]
+        for path, launches in paths.items():
+            k[f"launches_{path}"] = launches[k["name"]]
+        k["launches"] = sum(launches[k["name"]] for launches in paths.values())
+    assert all(k["launches"] > 0 for k in kernels), "a kernel was launched on no path"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

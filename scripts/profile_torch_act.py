@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the port's RxR CMA act step goes, on one CUDA card.
+"""Where the time of the port's RxR CMA act step, or of its R2R CMA train
+step, goes on one CUDA card.
 
-    python3 scripts/profile_torch_act.py
+    python3 scripts/profile_torch_act.py            # the act step
+    python3 scripts/profile_torch_act.py --train    # the IL train step
 
-Builds the act step that chip_smoke.py drives (the RxR CMA policy of
+Act mode builds the act step that chip_smoke.py drives (the RxR CMA policy of
 rxr_cma_en.yaml at full width in bf16, seeded weights, B=32, the same seeded
 observations), then reports:
 
@@ -14,6 +16,12 @@ observations), then reports:
   crops), the instruction biLSTM, the depth and RGB encoders, and the rest
   (GRUs, attention, heads, the action draw) as the step minus those;
 - device time by kernel family and by kernel name over PROFILED_STEPS steps.
+
+Train mode builds the train step that chip_smoke.py times
+(cma_pm_da_aug_tune.yaml at full width, one seeded batch of cached features
+at T=32, N=5 on the card) and reports the step's time, its device busy time
+and idle share, the busy time of the forward alone (the rest is backward and
+optimizer), and device time by kernel family and name.
 """
 
 from __future__ import annotations
@@ -27,10 +35,11 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import B, build_act_step, cuda_ms, episode_observations  # noqa: E402
+from chip_smoke import B, TRAIN_B, TRAIN_T, build_act_step, build_train_step, cuda_ms, episode_observations  # noqa: E402
 
 PROFILED_STEPS = 10
 FAMILIES = (  # first match wins
+    ("gru_sequence backward (B1)", ("gru_sequence_backward",)),
     ("gru_sequence (B1)", ("gru_sequence",)),
     ("resize_normalize (B2)", ("resize_normalize",)),
     ("cuDNN LSTM", ("RNN", "LSTM", "lstm", "rnn")),
@@ -60,10 +69,46 @@ def device_ms(fn, steps):
     return sum(kernels.values()), kernels
 
 
+def _print_kernels(kernels, busy):
+    """Device time by kernel family and of the top kernels; returns the families."""
+    families = collections.Counter()
+    for k, v in kernels.items():
+        fam = next(f for f, keys in FAMILIES if any(s in k for s in keys))
+        families[fam] += v
+    print("device busy by kernel family:")
+    for fam, v in families.most_common():
+        print(f"  {fam:38s} {v:8.3f} ms  {v / busy:6.1%}")
+    print("top kernels (ms/step):")
+    for k, v in kernels.most_common(12):
+        print(f"  {v:8.3f}  {k[:110]}")
+    return families
+
+
+def profile_train_step(dev) -> int:
+    from vlnce_torch.parallel.il_step import il_losses
+
+    _, policy, _, train_step, batch = build_train_step(dev, "bfloat16")
+    name = torch.cuda.get_device_name(0)
+    print(f"device: {name}; train step at T={TRAIN_T}, N={TRAIN_B}, bf16 encoders (bypassed: cached features), "
+          f"{policy.num_params() / 1e6:.1f}M weights")
+    step = lambda: train_step(*batch)  # noqa: E731
+    total = cuda_ms(step, iters=10, warmup=3)
+    busy, kernels = device_ms(step, PROFILED_STEPS)
+    forward, _ = device_ms(lambda: il_losses(policy, *batch), PROFILED_STEPS)
+    print(f"train step: {total:.3f} ms/step (CUDA events); device busy {busy:.3f} ms/step (profiler), idle share "
+          f"{max(0.0, 1 - busy / total):.1%}; forward alone {forward:.3f} ms busy, backward + optimizer {busy - forward:.3f}")
+    families = _print_kernels(kernels, busy)
+    print(json.dumps({"device": name, "T": TRAIN_T, "N": TRAIN_B, "train_step_ms": total, "device_busy_ms": busy,
+                      "forward_busy_ms": forward, "families_ms": dict(families)}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_act: no CUDA card visible", file=sys.stderr)
         return 1
+    if "--train" in sys.argv[1:]:
+        return profile_train_step(torch.device("cuda", 0))
 
     from vlnce_torch.envs.batch import batch_obs
     from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms
@@ -96,16 +141,7 @@ def main() -> int:
     print("device busy by layer:")
     for k, v in layers.items():
         print(f"  {k:38s} {v:8.3f} ms  {v / busy:6.1%}")
-    families = collections.Counter()
-    for k, v in kernels.items():
-        fam = next(f for f, keys in FAMILIES if any(s in k for s in keys))
-        families[fam] += v
-    print("device busy by kernel family:")
-    for fam, v in families.most_common():
-        print(f"  {fam:38s} {v:8.3f} ms  {v / busy:6.1%}")
-    print("top kernels (ms/step):")
-    for k, v in kernels.most_common(12):
-        print(f"  {v:8.3f}  {k[:110]}")
+    families = _print_kernels(kernels, busy)
     print(json.dumps({"device": name, "batch": B, "act_ms": total, "device_busy_ms": busy,
                       "layers_busy_ms": layers, "families_ms": dict(families)}))
     return 0

@@ -14,6 +14,7 @@ action can have flipped unseen.
 """
 
 import json
+import zlib
 
 import numpy as np
 import pytest
@@ -31,6 +32,8 @@ from vlnce_tpu.ops.obs_transforms import apply_obs_transforms_batch as jax_apply
 from vlnce_tpu.trainers.base_trainer import BaseVLNCETrainer as JaxTrainer
 from vlnce_tpu.utils.checkpoints import save_checkpoint as jax_save_checkpoint
 import vlnce_torch.tasks  # noqa: F401
+from vlnce_tpu.tasks import sensors as jax_sensors
+from vlnce_torch.tasks import sensors as port_sensors
 from vlnce_torch.envs import Env
 from vlnce_torch.envs.batch import stack_obs
 from vlnce_torch.models.convert import state_dict_from_jax_params
@@ -130,6 +133,24 @@ def checkpoints(tmp_path_factory):
     jax_save_checkpoint(jax_path, params, config=jcfg)
     save_checkpoint(port_path, state_dict_from_jax_params(params), config=cfg)
     return jax_path, port_path
+
+
+HASH_PREFIX = "a"  # with it the narrowest greedy margin on the JAX side is 5.5e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def stable_instruction_features():
+    """Both packages' RxR sensors seed their synthetic instruction features
+    from `hash(str)`, which Python salts per process, so the agents' greedy
+    choices, and how narrow their closest margin is, changed from run to run
+    (about every third salt puts one choice on a margin below the act step's
+    tolerance, which the tests below refuse). Pin the hash for this module
+    (the envs run in-process), so that every run makes the same choices."""
+    patch = pytest.MonkeyPatch()
+    for module in (jax_sensors, port_sensors):
+        patch.setattr(module, "hash", lambda text: zlib.crc32((HASH_PREFIX + text).encode()), raising=False)
+    yield
+    patch.undo()
 
 
 @pytest.fixture(autouse=True)

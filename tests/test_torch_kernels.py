@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from vlnce_torch.ops.preprocess import fused_resize_normalize, fused_resize_normalize_plain
-from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_plain
+from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_backward, gru_sequence_backward_plain, gru_sequence_plain
 
 
 def _card():
@@ -49,6 +49,94 @@ def test_gru_kernel_matches_plain(T, B, H):
     ref = gru_sequence_plain(xi, masks, h0, w_hh, b_hh)
     torch.cuda.synchronize()
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-4)
+
+
+def _strided(h0):
+    """h0 as `states[:, 0]` of a [B, 2, H] recurrent state: rows 2H apart."""
+    return torch.stack([h0, torch.full_like(h0, float("nan"))], dim=1)[:, 0]
+
+
+def _assert_gradients_close(got, ref):
+    """d_xi, d_h0 and d_b_hh within atol 1e-5 scaled by the reference's
+    largest value where that exceeds 1 (they are of order 1); d_w_hh, a sum
+    over T * B rows, within 1e-5 of its own scale."""
+    for name, a, b in zip(("d_xi", "d_h0", "d_w_hh", "d_b_hh"), got, ref):
+        assert a.shape == b.shape, name
+        scale = max(1.0, float(b.abs().max()))
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 * scale, f"{name}: max abs err {err:.3e} at scale {scale:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 512])
+@pytest.mark.parametrize("B", [1, 4, 5, 8, 32])
+@pytest.mark.parametrize("T", [1, 2, 16, 48])
+def test_gru_backward_kernel_matches_plain(T, B, H):
+    """The backward kernel against the explicit formula, with resets in the
+    middle, a strided h0 and a d_out that is a transposed view."""
+    dev = _card()
+    xi, masks, h0, w_hh, b_hh = _gru_inputs(T, B, H, dev)
+    h0 = _strided(h0)
+    out = gru_sequence_plain(xi, masks, h0, w_hh, b_hh)
+    g = torch.Generator().manual_seed(T * 100 + B)
+    d_out = torch.randn(B, T, H, generator=g).to(dev).transpose(0, 1)
+    assert not d_out.is_contiguous() or T == 1 or B == 1
+    got = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out)
+    ref = gru_sequence_backward_plain(d_out, xi, masks, h0, w_hh, b_hh, out)
+    torch.cuda.synchronize()
+    assert tuple(got[1].shape) == (B, H)
+    _assert_gradients_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(1, 8, 512), (16, 5, 512), (32, 5, 512), (6, 3, 64)])
+def test_gru_sequence_autograd_matches_plain_loop(T, B, H):
+    """`gru_sequence` on the card (both kernels) against autograd through
+    the plain loop, in f32 at atol 1e-5 (relative to scale above 1), for a
+    loss that weighs every output, through a strided h0."""
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    weight = torch.randn(T, B, H, generator=g).to(dev)
+    grads = []
+    for fn in (gru_sequence, gru_sequence_plain):
+        xi, masks, h0, w_hh, b_hh = _gru_inputs(T, B, H, dev)
+        states = torch.stack([h0, torch.zeros_like(h0)], dim=1).requires_grad_()
+        leaves = [xi.requires_grad_(), states, w_hh.requires_grad_(), b_hh.requires_grad_()]
+        out = fn(xi, masks, states[:, 0], w_hh, b_hh)
+        (out * weight).sum().backward()
+        grads.append([xi.grad, states.grad[:, 0], w_hh.grad, b_hh.grad])
+        assert float(states.grad[:, 1].abs().max()) == 0.0
+    torch.cuda.synchronize()
+    _assert_gradients_close(*grads)
+
+
+@pytest.mark.cuda
+def test_gru_backward_counts_launches_and_leaves_no_grad_for_masks():
+    dev = _card()
+    xi, masks, h0, w_hh, b_hh = _gru_inputs(4, 5, 64, dev)
+    masks.requires_grad_()
+    before = gru_sequence.launches, gru_sequence_backward.launches
+    out = gru_sequence(xi.requires_grad_(), masks, h0, w_hh, b_hh)
+    out.sum().backward()
+    assert (gru_sequence.launches, gru_sequence_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert masks.grad is None and xi.grad is not None
+
+
+@pytest.mark.cuda
+def test_gru_backward_step_is_graph_capturable():
+    """T = 1 is ordinary launches: the act step's backward can be captured."""
+    dev = _card()
+    xi, masks, h0, w_hh, b_hh = _gru_inputs(1, 8, 512, dev)
+    out = gru_sequence_plain(xi, masks, h0, w_hh, b_hh)
+    d_out = torch.ones_like(out)
+    want = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _assert_resize_close(out, ref, out_dtype, scale_values):
@@ -166,6 +254,22 @@ def test_gru_wrapper_rejects_bad_inputs():
     xi, masks, h0, w_hh, b_hh = (torch.empty(s, device="meta") for s in [(1, 1, 3 * 4096), (1, 1, 1), (1, 4096), (3 * 4096, 4096), (3 * 4096,)])
     with pytest.raises(ValueError, match="multiple of 4 up to"):
         gru_sequence(xi, masks, h0, w_hh, b_hh)
+
+
+def test_gru_backward_wrapper_rejects_bad_inputs():
+    xi, masks, h0, w_hh, b_hh = _gru_inputs(2, 3, 8, "meta")
+    out = torch.empty(2, 3, 8, device="meta")
+    with pytest.raises(ValueError, match="d_out has shape"):
+        gru_sequence_backward(out[:1], xi, masks, h0, w_hh, b_hh, out)
+    with pytest.raises(ValueError, match="float32"):
+        gru_sequence_backward(out.double(), xi, masks, h0, w_hh, b_hh, out)
+    with pytest.raises(ValueError, match="out must be contiguous"):
+        gru_sequence_backward(out, xi, masks, h0, w_hh, b_hh, torch.empty(3, 2, 8, device="meta").transpose(0, 1))
+    with pytest.raises(ValueError, match="contiguous along its rows"):
+        gru_sequence_backward(out, xi, masks, h0.t().contiguous().t(), w_hh, b_hh, out)
+    xi, masks, h0, w_hh, b_hh = _gru_inputs(2, 3, 6, "meta")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gru_sequence_backward(torch.empty(2, 3, 6, device="meta"), xi, masks, h0, w_hh, b_hh, torch.empty(2, 3, 6, device="meta"))
 
 
 def test_resize_wrapper_rejects_bad_inputs():

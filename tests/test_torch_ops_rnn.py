@@ -3,7 +3,10 @@
 On CPU tensors the port's `gru_sequence` runs its plain PyTorch version; the
 JAX side runs the Pallas kernel in interpret mode, as tests/test_pallas_rnn.py
 does. Tolerance: atol 1e-5 in f32, the same as that file (the two differ only
-in summation order).
+in summation order). The gradient (`gru_sequence_backward_plain`, the explicit
+formula the backward kernel implements) is held against torch autograd
+through the plain loop and against `jax.vjp` of the JAX RNNStateEncoder's
+GRU scan, at the same tolerance.
 """
 
 import numpy as np
@@ -16,7 +19,7 @@ import jax.numpy as jnp
 from vlnce_tpu.models.rnn_state_encoder import RNNStateEncoder as JaxRNNStateEncoder
 from vlnce_tpu.ops.pallas_rnn import gru_sequence as jax_gru_sequence
 from vlnce_torch.models.rnn_state_encoder import RNNStateEncoder
-from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_plain
+from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_backward, gru_sequence_backward_plain, gru_sequence_plain
 
 ATOL = 1e-5
 
@@ -115,3 +118,75 @@ def test_rnn_state_encoder_gru_matches_jax(mode):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=ATOL)
     np.testing.assert_allclose(new_states.numpy(), np.asarray(ref_states), atol=ATOL)
 
+
+
+def _backward_case(T, seed=3):
+    """Inputs with a reset in the middle of the sequence, h0 as the strided
+    `states[:, 0]` of a [B, 2, H] state, and a gradient for every output."""
+    B, H = 4, 32
+    xi, masks, h0, w_hh, b_hh = _inputs(seed + T, T, B, H)
+    masks[T // 2, 1::2] = 0.0
+    d_out = np.random.RandomState(seed).randn(T, B, H).astype(np.float32)
+    return d_out, xi, masks, h0, w_hh, b_hh
+
+
+@pytest.mark.parametrize("T", [1, 3, 16])
+def test_plain_gru_backward_matches_autograd(T):
+    d_out, xi, masks, h0, w_hh, b_hh = _backward_case(T)
+    states = torch.from_numpy(np.stack([h0, np.zeros_like(h0)], axis=1)).requires_grad_()
+    xi_t, w_t, b_t = (torch.from_numpy(a).requires_grad_() for a in (xi, w_hh, b_hh))
+    out = gru_sequence(xi_t, torch.from_numpy(masks), states[:, 0], w_t, b_t)  # the plain loop under autograd
+    out.backward(torch.from_numpy(d_out))
+    with torch.no_grad():
+        got = gru_sequence_backward(torch.from_numpy(d_out), xi_t, torch.from_numpy(masks), states[:, 0], w_t, b_t, out)
+    assert tuple(got[1].shape) == h0.shape
+    for name, a, b in zip(("d_xi", "d_h0", "d_w_hh", "d_b_hh"), got, (xi_t.grad, states.grad[:, 0], w_t.grad, b_t.grad)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL, err_msg=name)
+    assert float(states.grad[:, 1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("T", [1, 3, 16])
+def test_plain_gru_backward_matches_jax_vjp(T):
+    """The JAX encoder with an identity input projection (x is xi), so that
+    the cotangent of x is d_xi."""
+    d_out, xi, masks, h0, w_hh, b_hh = _backward_case(T)
+    B, H = h0.shape
+    jax_enc = JaxRNNStateEncoder(input_size=3 * H, hidden_size=H, rnn_type="GRU")
+    params = {"cell": {"weight_ih": jnp.eye(3 * H), "bias_ih": jnp.zeros(3 * H), "weight_hh": jnp.asarray(w_hh), "bias_hh": jnp.asarray(b_hh)}}
+
+    def outputs(params, x, states):
+        return jax_enc.apply({"params": params}, x, states, jnp.asarray(masks))[0]
+
+    _, vjp = jax.vjp(outputs, params, jnp.asarray(xi), jnp.asarray(h0)[:, None, :])
+    d_params, d_x, d_states = vjp(jnp.asarray(d_out))
+    ref = d_x, d_states[:, 0], d_params["cell"]["weight_hh"], d_params["cell"]["bias_hh"]
+
+    states = torch.from_numpy(np.stack([h0, np.full_like(h0, np.nan)], axis=1))
+    args = [torch.from_numpy(a) for a in (xi, masks)] + [states[:, 0]] + [torch.from_numpy(a) for a in (w_hh, b_hh)]
+    out = gru_sequence_plain(*args)
+    got = gru_sequence_backward_plain(torch.from_numpy(d_out), *args, out)
+    for name, a, b in zip(("d_xi", "d_h0", "d_w_hh", "d_b_hh"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, err_msg=name)
+
+
+def test_rnn_state_encoder_gru_is_differentiable_like_jax():
+    """Gradients of a weighted sum of the sequence outputs with respect to
+    the encoder's four parameters and its input, against jax.grad."""
+    D, H, B, T = 24, 32, 3, 5
+    jax_enc, params, enc = _encoders(D, H, seed=2)
+    rng = np.random.RandomState(4)
+    x, states = rng.randn(T, B, D).astype(np.float32), rng.randn(B, 1, H).astype(np.float32)
+    masks = np.ones((T, B, 1), np.float32)
+    masks[2, 1] = 0.0
+    weight = rng.randn(T, B, H).astype(np.float32)
+
+    def loss(params, x):
+        return jnp.sum(jax_enc.apply({"params": params}, x, jnp.asarray(states), jnp.asarray(masks))[0] * weight)
+
+    d_params, d_x = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    x_t = torch.from_numpy(x).requires_grad_()
+    out, _ = enc(x_t, torch.from_numpy(states), torch.from_numpy(masks))
+    (out * torch.from_numpy(weight)).sum().backward()
+    np.testing.assert_allclose(x_t.grad.numpy(), np.asarray(d_x), atol=ATOL)
+    for k, v in d_params["cell"].items():
+        np.testing.assert_allclose(getattr(enc.rnn, f"{k}_l0").grad.numpy(), np.asarray(v), atol=ATOL * max(1.0, float(np.abs(v).max())), err_msg=k)

@@ -16,7 +16,7 @@ from tests.torch_port_cases import JAX_RXR_CMA, RXR_CMA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "vlnce_tpu", "gymnasium", "attr", "tqdm", "cv2")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "vlnce_tpu", "gymnasium", "attr", "tqdm", "cv2", "msgpack", "lmdb")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -42,6 +42,10 @@ NEW_MODULES = [
     "vlnce_torch.tasks.datasets", "vlnce_torch.tasks.dtw", "vlnce_torch.tasks.episodes", "vlnce_torch.tasks.geometry",
     "vlnce_torch.tasks.measures", "vlnce_torch.tasks.sensors", "vlnce_torch.tasks.shortest_path_follower",
     "vlnce_torch.tasks.task", "vlnce_torch.tasks.vocab",
+    # the training slice
+    "vlnce_torch.trainers.dagger_trainer", "vlnce_torch.parallel.il_step", "vlnce_torch.parallel.optim",
+    "vlnce_torch.data.collate", "vlnce_torch.data.prefetch", "vlnce_torch.data.trajectory_store",
+    "vlnce_torch.models.aux_losses", "vlnce_torch.utils.profiling",
 ]
 
 
@@ -82,3 +86,25 @@ def test_rxr_observation_space_after_transforms():
     assert space["rgb"].shape == (224, 224, 3) and space["rgb"].dtype == np.uint8
     assert space["depth"].shape == (256, 256, 1) and space["depth"].dtype == np.float32
     assert space["rxr_instruction"].shape == (512, 768)
+
+
+def test_r2r_cma_configs_match_jax():
+    """The port's copies of the ten R2R CMA experiment YAMLs give the JAX
+    package's model and IL settings, and point at the port's task YAMLs."""
+    names = sorted(f for f in os.listdir(os.path.join(REPO, "vlnce_torch/config/experiments/r2r_baselines")))
+    assert len(names) == 10 and all(n.startswith("cma") for n in names)
+    for name in names:
+        jcfg = jax_get_config(f"vlnce_tpu/config/experiments/r2r_baselines/{name}")
+        cfg = get_config(f"vlnce_torch/config/experiments/r2r_baselines/{name}")
+        assert cfg.BASE_TASK_CONFIG_PATH == jcfg.BASE_TASK_CONFIG_PATH.replace("vlnce_tpu/", "vlnce_torch/")
+        assert cfg.TRAINER_NAME == jcfg.TRAINER_NAME == "dagger"
+        for section in ("MODEL", "IL", "EVAL"):
+            assert json.dumps(cfg[section].to_dict(), sort_keys=True) == json.dumps(jcfg[section].to_dict(), sort_keys=True), (name, section)
+        assert cfg.TASK_CONFIG.TASK.to_dict() == jcfg.TASK_CONFIG.TASK.to_dict()
+        assert cfg.TASK_CONFIG.DATASET.to_dict() == jcfg.TASK_CONFIG.DATASET.to_dict()
+
+
+def test_training_keys_of_the_cuda_section():
+    cfg = get_config()
+    assert cfg.CUDA.ASYNC_CHECKPOINT is True and cfg.CUDA.PIPELINED_COLLECTION is False and cfg.CUDA.PROFILE_DIR == ""
+    assert not (cfg.CUDA.ON_DEVICE_DAGGER or cfg.CUDA.DAGGER_RESIDENT or cfg.CUDA.RESIDENT_EPOCH_SCAN)

@@ -8,7 +8,7 @@ import sys
 
 import pytest
 
-from tests.torch_port_cases import RXR_CMA, SMALL_OPTS
+from tests.torch_port_cases import R2R_CMA, R2R_SMALL_OPTS, RXR_CMA, SMALL_OPTS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MEASURES = ["distance_to_goal", "ndtw", "oracle_success", "path_length", "spl", "steps_taken", "success"]
@@ -18,8 +18,8 @@ def _cli(value) -> str:
     return value if isinstance(value, str) else json.dumps(value)
 
 
-def _run(run_type, tmp_path, extra=()):
-    opts = SMALL_OPTS + [
+def _run(run_type, tmp_path, extra=(), exp=RXR_CMA, small=SMALL_OPTS):
+    opts = small + [
         "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0",
         "TASK_CONFIG.DATASET.NUM_EPISODES", 8,
         "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 4,
@@ -35,8 +35,9 @@ def _run(run_type, tmp_path, extra=()):
         *extra,
     ]
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "VLNCE_TORCH_THREADED_ENVS")}
+    env["OMP_NUM_THREADS"] = "1"  # the command and its forked workers share the cores with the other test processes
     return subprocess.run(
-        [sys.executable, "-m", "vlnce_torch.run", "--exp-config", RXR_CMA, "--run-type", run_type, *map(_cli, opts)],
+        [sys.executable, "-m", "vlnce_torch.run", "--exp-config", exp, "--run-type", run_type, *map(_cli, opts)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
 
@@ -63,10 +64,42 @@ def test_inference_on_the_cpu_writes_rxr_predictions(tmp_path):
 
 
 def test_train_fails_with_the_roadmap_message(tmp_path):
+    """TRAINER_NAME recollect_trainer (rxr_cma_en.yaml) has no training loop yet."""
     out = _run("train", tmp_path, CPU)
     assert out.returncode != 0
     assert "NotImplementedError" in out.stderr and "recollect_trainer" in out.stderr
     assert "ROADMAP.md section A, 'Seq2Seq, recollection'" in out.stderr
+
+
+def test_dagger_train_then_eval_of_its_checkpoint(tmp_path):
+    """`--run-type train` of the R2R CMA DAgger recipe with forked workers:
+    two rounds (beta 1, then 0.5) leave a store, a checkpoint per epoch with
+    optimizer state, and `--run-type eval` scores the last one."""
+    import torch
+
+    from vlnce_torch.data.trajectory_store import store_length
+
+    train = [
+        "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 6, "IL.load_from_ckpt", False, "IL.DAGGER.iterations", 2,
+        "IL.DAGGER.update_size", 4, "IL.epochs", 1, "IL.batch_size", 2, "CUDA.PIPELINED_COLLECTION", True,
+        "IL.DAGGER.lmdb_features_dir", str(tmp_path / "trajectories"), "CHECKPOINT_FOLDER", str(tmp_path / "checkpoints"),
+    ]
+    out = _run("train", tmp_path, CPU + train, exp=R2R_CMA, small=R2R_SMALL_OPTS)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert store_length(str(tmp_path / "trajectories")) >= 8
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == ["ckpt.0.ckpt", "ckpt.1.ckpt"]
+    ckpt = torch.load(tmp_path / "checkpoints" / "ckpt.1.ckpt", weights_only=True)
+    assert ckpt["extra_state"]["dagger_it"] == 1 and len(ckpt["optim_state"]["state"]) > 0
+    log = (tmp_path / "run.log").read_text()
+    assert "[collection it 0] 4 episodes" in log and "[dagger it 1 epoch 0] loss=" in log
+
+    out = _run("eval", tmp_path, CPU + ["EVAL_CKPT_PATH_DIR", str(tmp_path / "checkpoints" / "ckpt.1.ckpt"), "EVAL.USE_CKPT_CONFIG", False],
+               exp=R2R_CMA, small=R2R_SMALL_OPTS)
+    assert out.returncode == 0, out.stderr[-2000:]
+    with open(tmp_path / "evals" / "stats_ckpt_0_val_unseen.json") as f:
+        stats = json.load(f)
+    assert sorted(stats) == MEASURES
+    assert "Loaded weights from checkpoint" in (tmp_path / "run.log").read_text()
 
 
 def test_default_device_is_the_card(tmp_path):

@@ -1,5 +1,7 @@
-"""Shared cases for the PyTorch port's parity tests: the RxR CMA policy at a
-small size, built in both packages with the same weights.
+"""Shared cases for the PyTorch port's parity tests: the RxR CMA policy and
+the R2R CMA policy with the progress monitor at a small size, built in both
+packages with the same weights, and episodes written into both packages'
+trajectory stores.
 
 The JAX policy is initialized, then its norm statistics, biases and head are
 perturbed from a numpy seed so that no parameter keeps a trivial value; the
@@ -23,6 +25,12 @@ from vlnce_torch.envs.spaces import action_space_from_config, observation_space_
 from vlnce_torch.models.cma_policy import CMAPolicy
 from vlnce_torch.models.convert import state_dict_from_jax_params
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_obs_space, get_active_obs_transforms
+
+# One intra-op thread for torch in the test processes: the suite runs in
+# several worker processes at once, and at these small sizes more threads per
+# process only make the workers fight over the cores (every worker imports
+# this module when it collects the tests).
+torch.set_num_threads(1)
 
 JAX_RXR_CMA = "vlnce_tpu/config/experiments/rxr_baselines/rxr_cma_en.yaml"
 RXR_CMA = "vlnce_torch/config/experiments/rxr_baselines/rxr_cma_en.yaml"
@@ -123,3 +131,103 @@ def observations(rng, B, task_config):
 
 def to_torch(obs):
     return {k: torch.from_numpy(v) for k, v in obs.items()}
+
+
+# ---------------------------------------------------------------------------
+# R2R CMA with the progress monitor (the DAgger training recipe), small
+# ---------------------------------------------------------------------------
+
+JAX_R2R_CMA = "vlnce_tpu/config/experiments/r2r_baselines/cma_pm_da_aug_tune.yaml"
+R2R_CMA = "vlnce_torch/config/experiments/r2r_baselines/cma_pm_da_aug_tune.yaml"
+
+# ResNet18 for both encoders, H=64, a 64-word vocabulary, 16x16 frames, no
+# obs transforms (R2R enables none)
+R2R_IMG = 16
+R2R_SMALL_OPTS = [
+    "MODEL.RGB_ENCODER.cnn_type", "TorchVisionResNet18",
+    "MODEL.DEPTH_ENCODER.backbone", "resnet18",
+    "MODEL.STATE_ENCODER.hidden_size", 64,
+    "MODEL.INSTRUCTION_ENCODER.hidden_size", 32,
+    "MODEL.INSTRUCTION_ENCODER.vocab_size", 64,
+    "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0",
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.HEIGHT", R2R_IMG,
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.WIDTH", R2R_IMG,
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT", R2R_IMG,
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH", R2R_IMG,
+    "TENSORBOARD_DIR", "",
+]
+
+
+def r2r_configs(extra=()):
+    """(jax config, port config) of the small R2R CMA, both f32, the port on
+    the CPU. `extra` must not name a TPU.* or CUDA.* key."""
+    jcfg = jax_get_config(JAX_R2R_CMA, R2R_SMALL_OPTS + ["TPU.PRECISION.compute_dtype", "float32", *extra])
+    cfg = get_config(R2R_CMA, R2R_SMALL_OPTS + ["CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32", *extra])
+    return jcfg, cfg
+
+
+def build_r2r_pair(seed=0, extra=()):
+    """The small R2R CMA policy with the progress monitor in both packages,
+    carrying the same perturbed weights: (jax policy, params), port policy,
+    (jax config, port config)."""
+    jcfg, cfg = r2r_configs(extra)
+    jax_space = jax_observation_space(jcfg.TASK_CONFIG)
+    jax_policy = JaxCMAPolicy.from_config(jcfg, jax_space, gym_spaces.Discrete(len(jcfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS)))
+    params = jax_policy.init_params(jax.random.PRNGKey(seed), batch_size=1)
+    params = _perturb(jax.tree_util.tree_map(np.asarray, params), np.random.RandomState(seed))
+    jax_policy.params = params
+    policy = CMAPolicy.from_config(cfg, observation_space_from_config(cfg.TASK_CONFIG), action_space_from_config(cfg.TASK_CONFIG))
+    policy.load_state_dict(state_dict_from_jax_params(params), strict=True)
+    return (jax_policy, params), policy, (jcfg, cfg)
+
+
+def r2r_observations(rng, B, task_config, max_tokens=12):
+    """Seeded R2R observations in the env's format: u8 rgb, f32 depth,
+    instruction tokens zero-padded past ragged lengths, oracle progress."""
+    sim = task_config.SIMULATOR
+    space = observation_space_from_config(task_config)
+    tokens = np.zeros((B,) + space["instruction"].shape, np.int32)
+    for b in range(B):
+        n = rng.randint(3, max_tokens + 1)
+        tokens[b, :n] = rng.randint(2, 32, n)
+    return {
+        "rgb": rng.randint(0, 256, (B, sim.RGB_SENSOR.HEIGHT, sim.RGB_SENSOR.WIDTH, 3)).astype(np.uint8),
+        "depth": rng.rand(B, sim.DEPTH_SENSOR.HEIGHT, sim.DEPTH_SENSOR.WIDTH, 1).astype(np.float32),
+        "instruction": tokens,
+        "progress": rng.rand(B, 1).astype(np.float32),
+    }
+
+
+def seeded_episodes(rng, policy, task_config, lengths):
+    """Episodes as DAgger stores them, `[obs, prev_actions, oracle_actions]`
+    with the frames replaced by frozen-encoder features of the right shapes
+    (seeded values, not encoder outputs)."""
+    rgb_c = policy.net.rgb_encoder.resnet_layer_size
+    depth_chw = policy.net.depth_encoder.visual_encoder.output_shape_chw()
+    episodes = []
+    for n in lengths:
+        obs = r2r_observations(rng, 1, task_config)
+        oracle = rng.randint(0, 4, n).astype(np.int64)
+        oracle[-1] = 0  # the expert ends with STOP
+        episodes.append([
+            {
+                "instruction": np.repeat(obs["instruction"], n, axis=0),
+                "progress": np.linspace(0.0, 1.0, n, dtype=np.float32).reshape(n, 1),
+                "rgb_features": rng.randn(n, rgb_c, 4, 4).astype(np.float32),
+                "depth_features": np.abs(rng.randn(n, *depth_chw)).astype(np.float32),
+            },
+            np.concatenate([[0], oracle[:-1]]).astype(np.int64),
+            oracle,
+        ])
+    return episodes
+
+
+def write_both_stores(episodes, jax_dir, torch_dir):
+    """One list of episodes into the JAX package's store and the port's."""
+    from vlnce_tpu.data.trajectory_store import TrajectoryStoreWriter as JaxWriter
+    from vlnce_torch.data.trajectory_store import TrajectoryStoreWriter
+
+    for writer in (JaxWriter(str(jax_dir), drop_existing=True), TrajectoryStoreWriter(str(torch_dir), drop_existing=True)):
+        for ep in episodes:
+            writer.put(ep)
+        writer.close()

@@ -75,6 +75,18 @@ _C.CUDA.DEVICE = "cuda"
 _C.CUDA.PRECISION = CN()
 _C.CUDA.PRECISION.compute_dtype = "bfloat16"  # visual encoders' activations/convs
 _C.CUDA.PRECISION.param_dtype = "float32"  # master weights
+# DAgger collection in two env groups: while one group's simulators step, the
+# card runs the other group's collect step
+_C.CUDA.PIPELINED_COLLECTION = False
+# torch.save + rename of a checkpoint on a background thread (the snapshot to
+# host memory stays synchronous)
+_C.CUDA.ASYNC_CHECKPOINT = True
+_C.CUDA.PROFILE_DIR = ""  # if set, training writes a torch.profiler trace here
+# device-resident DAgger (on-device collection, trajectory bank on the card,
+# fused epoch scan): keys kept so configs merge; not ported yet
+_C.CUDA.ON_DEVICE_DAGGER = False
+_C.CUDA.DAGGER_RESIDENT = False
+_C.CUDA.RESIDENT_EPOCH_SCAN = False
 
 # ---------------------------------------------------------------------------
 # EVAL

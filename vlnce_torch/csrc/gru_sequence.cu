@@ -1,4 +1,4 @@
-// Masked GRU over a whole sequence, forward only, f32 in and out.
+// Masked GRU over a whole sequence, forward and backward, f32 in and out.
 //
 // Replaces the Pallas kernel vlnce_tpu/ops/pallas_rnn.py:gru_sequence
 // (body _gru_step_kernel). Each step t, for every batch row b:
@@ -45,6 +45,32 @@
 // wrote it) times mask[t]. No scratch buffer is needed. The grid must be
 // co-resident, so the launcher gives a block more units until the
 // occupancy the runtime reports covers the grid.
+//
+// Backward (gru_sequence_backward_f32; the Pallas kernel has none, the JAX
+// package differentiates a lax.scan instead). It walks t = T-1 .. 0 with the
+// forward's partition and the forward's slice of w_hh in shared memory, and
+// uses that slice for both recurrent products:
+//   - the gates are recomputed from h_prev = out[t-1] * mask[t] (h0 at t = 0)
+//     by the forward's register-tile dot products, so nothing but `out` is
+//     kept from the forward;
+//   - the lane that ends with a row's and unit's sums turns the incoming
+//     dh[b, j] into da_r, da_z, da_n, writes d_xi[t] and d_gh[t] = (da_r,
+//     da_z, da_n * r), and leaves d_gh in shared memory;
+//   - d_gh[t] . w_hh sums over all 3H rows, that is over all blocks. A block
+//     owns rows, not columns, so it forms the part of the sum that its own
+//     rows give, for every column k (thread k reads w_s[row][k]: the rows lie
+//     along k, no transposed copy is needed), adds dh * z for the columns it
+//     owns, and writes the part to scratch[t & 1][block][b][k];
+//   - after the grid-wide barrier the next step's block sums, for its own
+//     columns only, the parts of all blocks (a warp per value, past L1),
+//     times mask[t+1], plus d_out[t]. Two scratch planes alternate, so one
+//     barrier per step is enough: a plane is overwritten two steps later.
+// A second, ordinary launch sums the parts of step 0 into d_h0, so T = 1
+// needs no barrier and stays capturable. d_w_hh and d_b_hh are sums over all
+// steps at once, outside the recurrence: the wrapper takes them from d_gh.
+// What bounds it: per step one barrier and two dependent passes (about three
+// times the forward's step); bytes (xi, out, d_out, d_xi, d_gh once, w_hh
+// once) are far below that, as in the forward.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -102,6 +128,73 @@ __device__ __forceinline__ void reduce_over_lanes(float (&v)[kSums], int lane) {
   }
 }
 
+// h_prev * mask[t] for a tile of batch rows into shared memory, a warp per
+// row; rows past nb are zero. h_prev is h0 at t = 0 and out[t-1] after; out
+// is read past L1, since in the forward other SMs wrote it.
+__device__ __forceinline__ void load_h_tile(float* h_s, const float* h0, long long h0_stride, int h0_aligned,
+                                            const float* out, const float* masks, int t, int b0, int nb,
+                                            int nb_padded, int B, int H, int warp, int lane) {
+  const int H4 = H >> 2;
+  for (int r = warp; r < nb_padded; r += kWarps) {
+    const int b = b0 + r;
+    float4* row = reinterpret_cast<float4*>(h_s + (size_t)r * H);
+    if (r >= nb) {
+      for (int k4 = lane; k4 < H4; k4 += 32) row[k4] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      continue;
+    }
+    const float* prev = t == 0 ? h0 + (size_t)b * h0_stride : out + ((size_t)(t - 1) * B + b) * H;
+    const float m = masks[(size_t)t * B + b];
+    if (t > 0 || h0_aligned) {
+      const float4* prev4 = reinterpret_cast<const float4*>(prev);
+      for (int k4 = lane; k4 < H4; k4 += 32) {
+        float4 v = __ldcg(prev4 + k4);
+        v.x *= m, v.y *= m, v.z *= m, v.w *= m;
+        row[k4] = v;
+      }
+    } else {
+      for (int k = lane; k < H; k += 32) h_s[(size_t)r * H + k] = __ldcg(prev + k) * m;
+    }
+  }
+}
+
+// A warp's task: the dot products of kRows rows of h_s (from row_group *
+// kRows) with the three gates' rows of w_s for kUnits units (from
+// unit_first), lane l taking every 32nd float4 of their length, then summed
+// over the lanes: lane l ends with the three gates of row l / (kUnits *
+// kSharers), unit (l / kSharers) % kUnits in acc[0..2].
+__device__ __forceinline__ void warp_dot_products(const float* w_s, const float* h_s, int unit_first, int row_group,
+                                                  int units_per_block, int H4, int lane, float (&acc)[kSums]) {
+  const float4* w4 = reinterpret_cast<const float4*>(w_s) + (size_t)unit_first * H4;
+  const float4* h4 = reinterpret_cast<const float4*>(h_s) + (size_t)row_group * kRows * H4;
+#pragma unroll
+  for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
+  for (int k4 = lane; k4 < H4; k4 += 32) {
+    float4 w[kUnits * 3];
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) w[u * 3 + g] = w4[(size_t)(g * units_per_block + u) * H4 + k4];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const float4 hv = h4[i * H4 + k4];
+#pragma unroll
+      for (int c = 0; c < kUnits * 3; ++c) acc[i * kUnits * 3 + c] = dot4(w[c], hv, acc[i * kUnits * 3 + c]);
+    }
+  }
+  reduce_over_lanes<kSums, 16>(acc, lane);
+}
+
+// Thread 0 starts the bulk copies of the block's slice of w_hh (three runs of
+// my_units rows) into w_s; every thread waits on w_arrived before reading it.
+__device__ __forceinline__ void start_w_copies(uint64_t* w_arrived, float* w_s, const float* w_hh, int unit0,
+                                               int my_units, int units_per_block, int H) {
+  const uint32_t bytes = (uint32_t)(my_units * H * (int)sizeof(float));
+  async_copy::barrier_init(w_arrived, 1);
+  async_copy::barrier_expect(w_arrived, 3 * bytes);
+  for (int g = 0; g < 3; ++g)
+    async_copy::bulk_copy(w_s + (size_t)g * units_per_block * H, w_hh + ((size_t)g * H + unit0) * H, bytes, w_arrived);
+}
+
 // Dynamic shared memory: [0, 16) the barrier; w_hh's slice
 // [3][units_per_block][H]; h [batch_tile][H], batch_tile a multiple of kRows.
 // kSteps: T > 1, launched cooperatively. h0_aligned: h0's rows can be read as
@@ -121,41 +214,14 @@ __global__ void __launch_bounds__(kThreads) gru_sequence_kernel(
   const int unit0 = blockIdx.x * units_per_block;
   const int my_units = min(units_per_block, H - unit0);
 
-  if (tid == 0) {
-    const uint32_t bytes = (uint32_t)(my_units * H * (int)sizeof(float));
-    async_copy::barrier_init(w_arrived, 1);
-    async_copy::barrier_expect(w_arrived, 3 * bytes);
-    for (int g = 0; g < 3; ++g)
-      async_copy::bulk_copy(w_s + (size_t)g * units_per_block * H, w_hh + ((size_t)g * H + unit0) * H, bytes, w_arrived);
-  }
+  if (tid == 0) start_w_copies(w_arrived, w_s, w_hh, unit0, my_units, units_per_block, H);
   bool w_ready = false;
 
   for (int t = 0; t < T; ++t) {
     for (int b0 = 0; b0 < B; b0 += batch_tile) {
       const int nb = min(batch_tile, B - b0);
       const int nb_padded = (nb + kRows - 1) / kRows * kRows;
-      // h * mask[t] for this tile of batch rows; rows past B are zero
-      for (int r = warp; r < nb_padded; r += kWarps) {
-        const int b = b0 + r;
-        float4* row = reinterpret_cast<float4*>(h_s + (size_t)r * H);
-        if (r >= nb) {
-          for (int k4 = lane; k4 < H4; k4 += 32) row[k4] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          continue;
-        }
-        // out[t-1] was written by other SMs: read it past L1
-        const float* prev = t == 0 ? h0 + (size_t)b * h0_stride : out + ((size_t)(t - 1) * B + b) * H;
-        const float m = masks[(size_t)t * B + b];
-        if (t > 0 || h0_aligned) {
-          const float4* prev4 = reinterpret_cast<const float4*>(prev);
-          for (int k4 = lane; k4 < H4; k4 += 32) {
-            float4 v = __ldcg(prev4 + k4);
-            v.x *= m, v.y *= m, v.z *= m, v.w *= m;
-            row[k4] = v;
-          }
-        } else {
-          for (int k = lane; k < H; k += 32) h_s[(size_t)r * H + k] = __ldcg(prev + k) * m;
-        }
-      }
+      load_h_tile(h_s, h0, h0_stride, h0_aligned, out, masks, t, b0, nb, nb_padded, B, H, warp, lane);
       __syncthreads();  // also orders the barrier's initialisation before the wait
       if (!w_ready) {
         async_copy::barrier_wait(w_arrived, 0);
@@ -181,26 +247,8 @@ __global__ void __launch_bounds__(kThreads) gru_sequence_kernel(
           b_r = __ldg(b_hh + j), b_z = __ldg(b_hh + H + j), b_n = __ldg(b_hh + 2 * H + j);
         }
 
-        // lane l takes every 32nd float4 of the dot products' length
-        const float4* w4 = reinterpret_cast<const float4*>(w_s) + (size_t)unit_first * H4;
-        const float4* h4 = reinterpret_cast<const float4*>(h_s) + (size_t)row_group * kRows * H4;
         float acc[kSums];  // [row][unit][gate]
-#pragma unroll
-        for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
-        for (int k4 = lane; k4 < H4; k4 += 32) {
-          float4 w[kUnits * 3];
-#pragma unroll
-          for (int u = 0; u < kUnits; ++u)
-#pragma unroll
-            for (int g = 0; g < 3; ++g) w[u * 3 + g] = w4[(size_t)(g * units_per_block + u) * H4 + k4];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            const float4 hv = h4[i * H4 + k4];
-#pragma unroll
-            for (int c = 0; c < kUnits * 3; ++c) acc[i * kUnits * 3 + c] = dot4(w[c], hv, acc[i * kUnits * 3 + c]);
-          }
-        }
-        reduce_over_lanes<kSums, 16>(acc, lane);
+        warp_dot_products(w_s, h_s, unit_first, row_group, units_per_block, H4, lane, acc);
         if (finishes) {
           const float gate_r = sigmoid(x_r + (acc[0] + b_r));
           const float gate_z = sigmoid(x_z + (acc[1] + b_z));
@@ -218,23 +266,32 @@ __global__ void __launch_bounds__(kThreads) gru_sequence_kernel(
 
 __global__ void empty_kernel() {}
 
+// The current device, its SM count and the most dynamic shared memory a block
+// may ask for; the two attributes are asked once per device.
+cudaError_t device_limits(int* device, int* sm_count, int* smem_limit) {
+  static int sms[kMaxDevices], smem[kMaxDevices];
+  cudaError_t err = cudaGetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (*device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem[*device] == 0) {
+    err = cudaDeviceGetAttribute(&sms[*device], cudaDevAttrMultiProcessorCount, *device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&smem[*device], cudaDevAttrMaxSharedMemoryPerBlockOptin, *device);
+    if (err != cudaSuccess) return err;
+  }
+  *sm_count = sms[*device], *smem_limit = smem[*device];
+  return cudaSuccess;
+}
+
 template <bool kSteps>
 int launch(const float* xi, const float* masks, const float* h0, long long h0_stride,
            const float* w_hh, const float* b_hh, float* out, int T, int B, int H,
            cudaStream_t stream) {
   auto kernel = gru_sequence_kernel<kSteps>;
   static int configured[kMaxDevices];  // dynamic shared memory granted so far, per device
-  static int sm_count[kMaxDevices], smem_limit[kMaxDevices];  // asked once per device
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  int device = 0, sm_count = 0, smem_limit = 0;
+  cudaError_t err = device_limits(&device, &sm_count, &smem_limit);
   if (err != cudaSuccess) return (int)err;
-  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (smem_limit[device] == 0) {
-    err = cudaDeviceGetAttribute(&sm_count[device], cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&smem_limit[device], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err != cudaSuccess) return (int)err;
-  }
   int h0_aligned = reinterpret_cast<uintptr_t>(h0) % 16 == 0 && h0_stride % 4 == 0;
 
   // T = 1 takes the smallest slice (most blocks). T > 1 must have every block
@@ -243,7 +300,7 @@ int launch(const float* xi, const float* masks, const float* h0, long long h0_st
   const long long row_bytes = (long long)H * sizeof(float);
   for (int units_per_block = kBlockUnits; units_per_block <= H; units_per_block += kBlockUnits) {
     const long long w_bytes = 3LL * units_per_block * row_bytes;
-    const long long room = (long long)smem_limit[device] - 16 - w_bytes;
+    const long long room = (long long)smem_limit - 16 - w_bytes;
     long long batch_tile = room / row_bytes / kRows * kRows;
     if (batch_tile < kRows) break;  // H too large for shared memory
     if (batch_tile > B) batch_tile = (B + kRows - 1) / kRows * kRows;
@@ -263,12 +320,210 @@ int launch(const float* xi, const float* masks, const float* h0, long long h0_st
       int per_sm = 0;
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem_bytes);
       if (err != cudaSuccess) return (int)err;
-      if (per_sm * sm_count[device] < blocks) continue;
+      if (per_sm * sm_count < blocks) continue;
       void* args[] = {&xi, &masks, &h0, &h0_stride, &h0_aligned, &w_hh, &b_hh, &out,
                       &T,  &B,     &H,  &units_per_block, &tile};
       return (int)cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(blocks), dim3(kThreads),
                                               args, smem_bytes, stream);
     }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+constexpr int kBackwardRowFloats = 5;  // per batch row and owned unit: d_gh (3), dh, dh * z
+
+// Dynamic shared memory: the forward's (barrier, w_hh's slice, h_prev's
+// tile), then per batch row of the tile d_gh [3][units_per_block], dh
+// [units_per_block] and dh * z [units_per_block] of the block's own units.
+// scratch [2][gridDim.x][B][H]: every block's part of dh_prev, two planes.
+template <bool kSteps>
+__global__ void __launch_bounds__(kThreads) gru_sequence_backward_kernel(
+    const float* __restrict__ d_out, const float* __restrict__ xi, const float* __restrict__ masks,
+    const float* __restrict__ h0, long long h0_stride, int h0_aligned, const float* __restrict__ w_hh,
+    const float* __restrict__ b_hh, const float* __restrict__ out, float* __restrict__ d_xi,
+    float* __restrict__ d_gh, float* scratch, int T, int B, int H, int units_per_block, int batch_tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* w_arrived = reinterpret_cast<uint64_t*>(smem);
+  float* w_s = reinterpret_cast<float*>(smem + 16);
+  float* h_s = w_s + (size_t)3 * units_per_block * H;
+  float* dgh_s = h_s + (size_t)batch_tile * H;
+  float* dh_s = dgh_s + (size_t)batch_tile * 3 * units_per_block;
+  float* dhz_s = dh_s + (size_t)batch_tile * units_per_block;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H4 = H >> 2;
+  const int unit0 = blockIdx.x * units_per_block;
+  const int my_units = min(units_per_block, H - unit0);
+  const int blocks = gridDim.x;
+  const size_t plane = (size_t)blocks * B * H;
+
+  if (tid == 0) start_w_copies(w_arrived, w_s, w_hh, unit0, my_units, units_per_block, H);
+  bool w_ready = false;
+
+  for (int t = T - 1; t >= 0; --t) {
+    float* mine = scratch + (size_t)(t & 1) * plane + (size_t)blockIdx.x * B * H;
+    const float* parts = scratch + (size_t)((t + 1) & 1) * plane;  // of step t + 1, all blocks
+    for (int b0 = 0; b0 < B; b0 += batch_tile) {
+      const int nb = min(batch_tile, B - b0);
+      const int nb_padded = (nb + kRows - 1) / kRows * kRows;
+      load_h_tile(h_s, h0, h0_stride, h0_aligned, out, masks, t, b0, nb, nb_padded, B, H, warp, lane);
+
+      // dh[b, j] of the block's own units, a warp per value: the parts that
+      // all blocks wrote at step t + 1 (past L1), times mask[t + 1], plus
+      // d_out[t]
+      for (int v = warp; v < nb * my_units; v += kWarps) {
+        const int r = v / my_units, u = v - r * my_units;
+        const int b = b0 + r, j = unit0 + u;
+        float sum = 0.0f;
+        if (t + 1 < T) {
+          for (int blk = lane; blk < blocks; blk += 32) sum += __ldcg(parts + ((size_t)blk * B + b) * H + j);
+#pragma unroll
+          for (int offset = 16; offset > 0; offset >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, offset);
+          sum *= masks[(size_t)(t + 1) * B + b];
+        }
+        if (lane == 0) dh_s[r * units_per_block + u] = sum + d_out[((size_t)t * B + b) * H + j];
+      }
+      __syncthreads();  // also orders the barrier's initialisation before the wait
+      if (!w_ready) {
+        async_copy::barrier_wait(w_arrived, 0);
+        w_ready = true;
+      }
+
+      // the forward's tasks recompute the gates; the finishing lane goes on
+      // to the gradients of its row and unit
+      const int unit_sets = my_units / kUnits;
+      const int tasks = nb_padded / kRows * unit_sets;
+      for (int task = warp; task < tasks; task += kWarps) {
+        const int row_group = task / unit_sets;
+        const int unit_first = (task - row_group * unit_sets) * kUnits;
+        const int r = row_group * kRows + lane / (kUnits * kSharers);
+        const int unit = unit_first + lane / kSharers % kUnits;
+        const bool finishes = lane % kSharers == 0 && r < nb;
+        const int b = b0 + r, j = unit0 + unit;
+        float x_r = 0.0f, x_z = 0.0f, x_n = 0.0f, b_r = 0.0f, b_z = 0.0f, b_n = 0.0f;
+        if (finishes) {
+          const float* x = xi + ((size_t)t * B + b) * 3 * H;
+          x_r = __ldg(x + j), x_z = __ldg(x + H + j), x_n = __ldg(x + 2 * H + j);
+          b_r = __ldg(b_hh + j), b_z = __ldg(b_hh + H + j), b_n = __ldg(b_hh + 2 * H + j);
+        }
+
+        float acc[kSums];  // [row][unit][gate]
+        warp_dot_products(w_s, h_s, unit_first, row_group, units_per_block, H4, lane, acc);
+        if (finishes) {
+          const float hh_n = acc[2] + b_n;
+          const float gate_r = sigmoid(x_r + (acc[0] + b_r));
+          const float gate_z = sigmoid(x_z + (acc[1] + b_z));
+          const float n = tanhf(x_n + gate_r * hh_n);
+          const float h_prev = h_s[(size_t)r * H + j];
+          const float dh = dh_s[r * units_per_block + unit];
+          const float da_n = dh * (1.0f - gate_z) * (1.0f - n * n);
+          const float da_r = da_n * hh_n * gate_r * (1.0f - gate_r);
+          const float da_z = dh * (h_prev - n) * gate_z * (1.0f - gate_z);
+          const size_t at = ((size_t)t * B + b) * 3 * H + j;
+          d_xi[at] = da_r, d_xi[at + H] = da_z, d_xi[at + 2 * H] = da_n;
+          d_gh[at] = da_r, d_gh[at + H] = da_z, d_gh[at + 2 * H] = da_n * gate_r;
+          float* row = dgh_s + (size_t)r * 3 * units_per_block;
+          row[unit] = da_r, row[units_per_block + unit] = da_z, row[2 * units_per_block + unit] = da_n * gate_r;
+          dhz_s[r * units_per_block + unit] = dh * gate_z;
+        }
+      }
+      __syncthreads();
+
+      // the block's part of dh_prev = dh * z + d_gh . w_hh: thread k sums its
+      // column over the block's rows of w_hh, kRows batch rows at a time
+      for (int k = tid; k < H; k += kThreads) {
+        const bool own = k >= unit0 && k < unit0 + my_units;
+        for (int r0 = 0; r0 < nb; r0 += kRows) {
+          float part[kRows];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) part[i] = 0.0f;
+          for (int g = 0; g < 3; ++g)
+            for (int u = 0; u < my_units; ++u) {
+              const int row = g * units_per_block + u;
+              const float w = w_s[(size_t)row * H + k];
+#pragma unroll
+              for (int i = 0; i < kRows; ++i)
+                part[i] = fmaf(dgh_s[(size_t)(r0 + i) * 3 * units_per_block + row], w, part[i]);
+            }
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            if (r0 + i >= nb) break;  // rows past nb hold nothing
+            if (own) part[i] += dhz_s[(r0 + i) * units_per_block + (k - unit0)];
+            mine[(size_t)(b0 + r0 + i) * H + k] = part[i];
+          }
+        }
+      }
+      __syncthreads();  // the tile's shared memory is overwritten by the next tile or step
+    }
+    if constexpr (kSteps) {
+      if (t > 0) cg::this_grid().sync();  // every block's part of step t is complete and visible
+    }
+  }
+}
+
+// d_h0[b, k] = mask[0, b] * the sum over the blocks of their parts of step 0
+// (plane 0 of scratch).
+__global__ void gru_sequence_backward_h0_kernel(const float* __restrict__ scratch, const float* __restrict__ masks,
+                                                float* __restrict__ d_h0, int blocks, int B, int H) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // b * H + k
+  if (i >= B * H) return;
+  float sum = 0.0f;
+  for (int blk = 0; blk < blocks; ++blk) sum += scratch[(size_t)blk * B * H + i];
+  d_h0[i] = sum * masks[i / H];
+}
+
+template <bool kSteps>
+int launch_backward(const float* d_out, const float* xi, const float* masks, const float* h0, long long h0_stride,
+                    const float* w_hh, const float* b_hh, const float* out, float* d_xi, float* d_h0, float* d_gh,
+                    float* scratch, int T, int B, int H, cudaStream_t stream) {
+  auto kernel = gru_sequence_backward_kernel<kSteps>;
+  static int configured[kMaxDevices];  // dynamic shared memory granted so far, per device
+  int device = 0, sm_count = 0, smem_limit = 0;
+  cudaError_t err = device_limits(&device, &sm_count, &smem_limit);
+  if (err != cudaSuccess) return (int)err;
+  int h0_aligned = reinterpret_cast<uintptr_t>(h0) % 16 == 0 && h0_stride % 4 == 0;
+
+  // as the forward's launcher, with kBackwardRowFloats more floats per batch
+  // row and owned unit
+  const long long row_bytes = (long long)H * sizeof(float);
+  for (int units_per_block = kBlockUnits; units_per_block <= H; units_per_block += kBlockUnits) {
+    const long long w_bytes = 3LL * units_per_block * row_bytes;
+    const long long tile_row_bytes = row_bytes + (long long)kBackwardRowFloats * units_per_block * sizeof(float);
+    const long long room = (long long)smem_limit - 16 - w_bytes;
+    long long batch_tile = room / tile_row_bytes / kRows * kRows;
+    if (batch_tile < kRows) break;  // H too large for shared memory
+    if (batch_tile > B) batch_tile = (B + kRows - 1) / kRows * kRows;
+    const int smem_bytes = (int)(16 + w_bytes + batch_tile * tile_row_bytes);
+    int blocks = (H + units_per_block - 1) / units_per_block;
+    if (smem_bytes > 48 * 1024 && smem_bytes > configured[device]) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (err != cudaSuccess) return (int)err;
+      configured[device] = smem_bytes;
+    }
+    int tile = (int)batch_tile;
+    if constexpr (!kSteps) {
+      kernel<<<blocks, kThreads, smem_bytes, stream>>>(d_out, xi, masks, h0, h0_stride, h0_aligned, w_hh, b_hh, out,
+                                                      d_xi, d_gh, scratch, T, B, H, units_per_block, tile);
+      err = cudaGetLastError();
+    } else {
+      int per_sm = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem_bytes);
+      if (err != cudaSuccess) return (int)err;
+      if (per_sm * sm_count < blocks) continue;
+      void* args[] = {&d_out, &xi,  &masks, &h0,   &h0_stride, &h0_aligned, &w_hh, &b_hh, &out,
+                      &d_xi,  &d_gh, &scratch, &T, &B,         &H,          &units_per_block, &tile};
+      err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(blocks), dim3(kThreads), args,
+                                        smem_bytes, stream);
+    }
+    if (err != cudaSuccess) return (int)err;
+    const int threads = 256;
+    gru_sequence_backward_h0_kernel<<<(B * H + threads - 1) / threads, threads, 0, stream>>>(scratch, masks, d_h0,
+                                                                                           blocks, B, H);
+    return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -288,6 +543,24 @@ extern "C" int gru_sequence_f32(const float* xi, const float* masks, const float
   if (T < 1 || B < 1 || H < 4 || H % 4) return (int)cudaErrorInvalidValue;
   return T > 1 ? launch<true>(xi, masks, h0, h0_stride, w_hh, b_hh, out, T, B, H, stream)
                : launch<false>(xi, masks, h0, h0_stride, w_hh, b_hh, out, T, B, H, stream);
+}
+
+// The gradient of gru_sequence_f32 for d_out [T, B, H]: d_xi [T, B, 3H], d_h0
+// [B, H] and d_gh [T, B, 3H] (the gradient of h_prev . w_hh^T + b_hh at every
+// step, from which the caller sums d_w_hh and d_b_hh over all steps). `out` is
+// the forward's output; scratch holds 2 * (H / 4) * B * H floats. All buffers
+// are contiguous f32 but h0, as in the forward. The recurrence is one
+// ordinary launch for T = 1 and one cooperative launch for T > 1, followed by
+// one small ordinary launch that sums d_h0. Error codes as the forward's.
+extern "C" int gru_sequence_backward_f32(const float* d_out, const float* xi, const float* masks, const float* h0,
+                                         long long h0_stride, const float* w_hh, const float* b_hh,
+                                         const float* out, float* d_xi, float* d_h0, float* d_gh, float* scratch,
+                                         int T, int B, int H, cudaStream_t stream) {
+  if (T < 1 || B < 1 || H < 4 || H % 4) return (int)cudaErrorInvalidValue;
+  return T > 1 ? launch_backward<true>(d_out, xi, masks, h0, h0_stride, w_hh, b_hh, out, d_xi, d_h0, d_gh, scratch,
+                                       T, B, H, stream)
+               : launch_backward<false>(d_out, xi, masks, h0, h0_stride, w_hh, b_hh, out, d_xi, d_h0, d_gh, scratch,
+                                        T, B, H, stream);
 }
 
 // One launch of a kernel that does nothing: timed beside gru_sequence_f32, it

@@ -16,7 +16,7 @@ once.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -42,10 +42,12 @@ class CMANet(nn.Module):
         )
         self.depth_encoder = VlnResnetDepthEncoder(
             input_hw=depth_input_hw, backbone=mc.DEPTH_ENCODER.backbone, compute_dtype=compute_dtype,
+            trainable=mc.DEPTH_ENCODER.trainable,
         )
         self.rgb_encoder = TorchVisionResNetEncoder(
             version="resnet50" if mc.RGB_ENCODER.cnn_type == "TorchVisionResNet50" else "resnet18",
             normalize_visual_inputs=mc.normalize_rgb, compute_dtype=compute_dtype,
+            trainable=mc.RGB_ENCODER.trainable,
         )
         self.prev_action_embedding = nn.Embedding(num_actions + 1, 32)
 
@@ -83,9 +85,21 @@ class CMANet(nn.Module):
         if self.model_config.PROGRESS_MONITOR.use:
             variance_scaling_(self.progress_monitor.weight, 2.0, self.output_size, generator)
 
-    def forward(self, observations, rnn_states, prev_actions, masks):
+    def forward(self, observations, rnn_states, prev_actions, masks, seq_len: Optional[int] = None):
+        """Single-step mode (seq_len None): every tensor has leading dim B.
+        Sequence mode (seq_len = T): observations, prev_actions and masks are
+        time-major flattened [T*N, ...], rnn_states is [N, L, H]; the
+        encoders and attention run per flattened sample and the two
+        recurrent encoders over [T, N, D]."""
         mc = self.model_config
         H = mc.STATE_ENCODER.hidden_size
+
+        def run_rnn(rnn, x, states, m):
+            if seq_len is None:
+                return rnn(x, states, m)
+            N = x.shape[0] // seq_len
+            out, s = rnn(x.reshape(seq_len, N, -1), states, m.reshape(seq_len, N, 1))
+            return out.reshape(seq_len * N, -1), s
 
         instruction_embedding = self.instruction_encoder(observations)  # [B, C_t, T_text]
         depth_embedding = self.depth_encoder(observations).flatten(2)  # [B, C_d, P]
@@ -108,7 +122,7 @@ class CMANet(nn.Module):
         state_in = torch.cat([rgb_in, depth_in, prev_actions_emb], dim=1)
 
         L1 = self.state_encoder.num_recurrent_layers
-        state, rnn1_out = self.state_encoder(state_in, rnn_states[:, :L1], masks)
+        state, rnn1_out = run_rnn(self.state_encoder, state_in, rnn_states[:, :L1], masks)
 
         scale = 1.0 / ((H // 2) ** 0.5)
         text_state_q = self.state_q(state)
@@ -127,7 +141,7 @@ class CMANet(nn.Module):
 
         x = torch.cat([state, text_embedding, rgb_attended, depth_attended, prev_actions_emb], dim=1)
         x = self.second_state_compress(x)
-        x, rnn2_out = self.second_state_encoder(x, rnn_states[:, L1:], masks)
+        x, rnn2_out = run_rnn(self.second_state_encoder, x, rnn_states[:, L1:], masks)
 
         rnn_states_out = torch.cat([rnn1_out, rnn2_out], dim=1)
 
@@ -157,8 +171,8 @@ class CMAPolicy(ILPolicy):
         self.net.reset_parameters(generator)
         self.action_distribution.reset_parameters(generator)
 
-    def forward(self, observations, rnn_states, prev_actions, masks):
-        features, rnn_states_out, aux = self.net(observations, rnn_states, prev_actions, masks)
+    def forward(self, observations, rnn_states, prev_actions, masks, seq_len: Optional[int] = None):
+        features, rnn_states_out, aux = self.net(observations, rnn_states, prev_actions, masks, seq_len)
         return self.action_distribution(features), rnn_states_out, aux
 
     @classmethod

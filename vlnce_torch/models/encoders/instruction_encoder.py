@@ -44,7 +44,8 @@ class InstructionEncoder(nn.Module):
 
     def __init__(self, vocab_size: int = 2504, embedding_size: int = 50, hidden_size: int = 128,
                  rnn_type: str = "LSTM", final_state_only: bool = True, bidirectional: bool = False,
-                 sensor_uuid: str = "instruction", input_size: int = None):
+                 sensor_uuid: str = "instruction", input_size: int = None,
+                 use_pretrained_embeddings: bool = True, fine_tune_embeddings: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.rnn_type = rnn_type
@@ -53,6 +54,11 @@ class InstructionEncoder(nn.Module):
         self.sensor_uuid = sensor_uuid
         if sensor_uuid == "instruction":
             self.embedding_layer = nn.Embedding(vocab_size, embedding_size, padding_idx=0)
+            # reference semantics (instruction_encoder.py:35-45): only a
+            # pretrained table is frozen (unless fine-tuned); a fresh
+            # Gaussian-initialized table always trains
+            if use_pretrained_embeddings and not fine_tune_embeddings:
+                self.embedding_layer.weight.requires_grad_(False)
             input_size = embedding_size
         rnn_cls = {"LSTM": nn.LSTM, "GRU": nn.GRU}[rnn_type]
         self.encoder_rnn = rnn_cls(input_size, hidden_size, batch_first=True, bidirectional=bidirectional)
@@ -77,10 +83,13 @@ class InstructionEncoder(nn.Module):
         B, T, _ = x.shape
         params = [getattr(self.encoder_rnn, f"{n}_l0{suffix}") for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
         h0 = x.new_zeros(1, B, self.hidden_size)
+        # the `train` flag changes no value (dropout is 0): cuDNN keeps what its
+        # backward needs only when it is set
+        train = torch.is_grad_enabled()
         if self.rnn_type == "LSTM":
-            outs = torch.lstm(x, (h0, h0), params, True, 1, 0.0, False, False, True)[0]
+            outs = torch.lstm(x, (h0, h0), params, True, 1, 0.0, train, False, True)[0]
         else:
-            outs = torch.gru(x, h0, params, True, 1, 0.0, False, False, True)[0]
+            outs = torch.gru(x, h0, params, True, 1, 0.0, train, False, True)[0]
         valid = (torch.arange(T, device=x.device)[None, :] < lengths[:, None]).to(outs.dtype)
         last = (lengths - 1).clamp(min=0)
         final = outs[torch.arange(B, device=x.device), last] * (lengths > 0).to(outs.dtype)[:, None]
@@ -116,6 +125,8 @@ class InstructionEncoder(nn.Module):
             bidirectional=config.bidirectional,
             sensor_uuid=config.sensor_uuid,
             input_size=input_size,
+            use_pretrained_embeddings=config.use_pretrained_embeddings,
+            fine_tune_embeddings=config.fine_tune_embeddings,
         )
         kw.update(overrides)
         return cls(**kw)

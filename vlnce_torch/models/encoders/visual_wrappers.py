@@ -6,7 +6,11 @@ vlnce_baselines/models/encoders/resnet_encoders.py:17-229).
 Observations are NHWC ([B, H, W, C]); outputs follow the reference's
 channel-first convention ([B, C, h, w], flattened to [B, C, P] by callers).
 `depth_features` / `rgb_features` in the obs dict bypass the backbones
-(DAgger's frozen-encoder caching rides on it).
+(DAgger's frozen-encoder caching rides on it). A backbone that is not
+`trainable` has `requires_grad` off and runs under `torch.no_grad()` (the
+JAX wrappers' `stop_gradient`). After a forward that ran the backbone, its
+output is left in `cached_features` for the caller to read (the JAX wrappers
+`sow` it); after a forward that took the bypass it is None.
 """
 
 from __future__ import annotations
@@ -39,12 +43,16 @@ class VlnResnetDepthEncoder(nn.Module):
     head of Seq2Seq comes with its slice."""
 
     def __init__(self, input_hw: Tuple[int, int] = (256, 256), backbone: str = "resnet50",
-                 resnet_baseplanes: int = 32, compute_dtype: torch.dtype = torch.float32):
+                 resnet_baseplanes: int = 32, compute_dtype: torch.dtype = torch.float32, trainable: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.trainable = trainable
+        self.cached_features = None
         self.visual_encoder = GNResNetEncoder(
             input_hw, 1, resnet_baseplanes, resnet_baseplanes // 2, backbone
         )
+        if not trainable:
+            self.visual_encoder.requires_grad_(False)
         _, h, w = self.visual_encoder.output_shape_chw()
         self.spatial_embeddings = nn.Embedding(h * w, 64)
 
@@ -56,9 +64,12 @@ class VlnResnetDepthEncoder(nn.Module):
     def forward(self, observations):
         if "depth_features" in observations:
             x = observations["depth_features"]  # [B, C, h, w] (cached)
+            self.cached_features = None
         else:
             depth = _nhwc_to_nchw(observations["depth"].to(self.compute_dtype))
-            x = self.visual_encoder(depth)
+            with torch.set_grad_enabled(self.trainable and torch.is_grad_enabled()):
+                x = self.visual_encoder(depth)
+            self.cached_features = x
         return _spatial(x, self.spatial_embeddings)
 
 
@@ -69,7 +80,8 @@ class TorchVisionResNetEncoder(nn.Module):
     (reference:182-192)."""
 
     def __init__(self, version: str = "resnet50", normalize_visual_inputs: bool = False,
-                 single_spatial_filter: bool = True, compute_dtype: torch.dtype = torch.float32):
+                 single_spatial_filter: bool = True, compute_dtype: torch.dtype = torch.float32,
+                 trainable: bool = False):
         super().__init__()
         self.normalize_visual_inputs = normalize_visual_inputs
         # reference quirk (resnet_encoders.py:160-162): with
@@ -77,7 +89,11 @@ class TorchVisionResNetEncoder(nn.Module):
         # adaptive pool then just broadcasts the pooled vector spatially
         self.single_spatial_filter = single_spatial_filter
         self.compute_dtype = compute_dtype
+        self.trainable = trainable
+        self.cached_features = None
         self.cnn, self.resnet_layer_size = tv_resnet(version)
+        if not trainable:
+            self.cnn.requires_grad_(False)
         self.spatial_embeddings = nn.Embedding(16, 64)
 
     @property
@@ -87,6 +103,7 @@ class TorchVisionResNetEncoder(nn.Module):
     def forward(self, observations):
         if "rgb_features" in observations:
             x = observations["rgb_features"]  # [B, C, h, w] (cached)
+            self.cached_features = None
         else:
             dt = self.compute_dtype
             rgb = observations["rgb"].to(dt) / 255.0  # [B, H, W, 3]
@@ -94,9 +111,11 @@ class TorchVisionResNetEncoder(nn.Module):
                 mean = torch.tensor([0.485, 0.456, 0.406], dtype=dt, device=rgb.device)
                 std = torch.tensor([0.229, 0.224, 0.225], dtype=dt, device=rgb.device)
                 rgb = (rgb - mean) / std
-            feats = self.cnn(_nhwc_to_nchw(rgb))
+            with torch.set_grad_enabled(self.trainable and torch.is_grad_enabled()):
+                feats = self.cnn(_nhwc_to_nchw(rgb))
             if self.single_spatial_filter:
                 x = F.adaptive_avg_pool2d(feats, (4, 4))
             else:
                 x = feats.mean(dim=(2, 3), keepdim=True).expand(-1, -1, 4, 4)
+            self.cached_features = x
         return _spatial(x, self.spatial_embeddings)

@@ -4,7 +4,8 @@ reference vlnce_baselines/models/policy.py:10-58).
 The policy is an `nn.Module`: `forward(observations, rnn_states,
 prev_actions, masks)` returns (logits, new rnn_states, aux), and `act` draws
 the action from those logits. It runs eagerly; a CUDA graph of the act step
-is later work.
+is later work. With `seq_len=T` the forward takes time-major flattened
+[T*N, ...] inputs (`build_distribution_logits`, the IL train step).
 """
 
 from __future__ import annotations
@@ -62,6 +63,10 @@ class ILPolicy(nn.Module):
         policy = policy.to(device)
         if device.type == "cuda":
             policy = policy.to(memory_format=torch.channels_last)
+        # the policy stays in eval() while it trains as well: no module of it
+        # has a training mode (BatchNorm is frozen to its running statistics,
+        # GroupNorm has none, dropout is absent), so train() would change
+        # nothing, and eval() says so
         return policy.eval()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -94,3 +99,24 @@ class ILPolicy(nn.Module):
         dist = Categorical(logits)
         action = dist.mode() if deterministic else dist.sample(generator)
         return action, rnn_states_out, logits
+
+    @torch.no_grad()
+    def act_with_features(self, observations, rnn_states, prev_actions, masks, deterministic: bool = False,
+                          generator: Optional[torch.Generator] = None):
+        """`act` that also hands back the visual backbones' outputs of this
+        forward as {"rgb_features", "depth_features"} (each [B, C, h, w]; a
+        key is absent where the observations bypassed that backbone): what
+        DAgger collection stores in place of the frames. Returns (action,
+        new rnn_states, features)."""
+        action, rnn_states_out, _ = self.act(observations, rnn_states, prev_actions, masks, deterministic, generator)
+        feats = {}
+        for encoder, key in ((self.net.rgb_encoder, "rgb_features"), (self.net.depth_encoder, "depth_features")):
+            if encoder.cached_features is not None:
+                feats[key] = encoder.cached_features
+        return action, rnn_states_out, feats
+
+    def build_distribution_logits(self, observations_flat, rnn_states, prev_actions, masks, T: int):
+        """observations_flat: [T*N, ...] time-major flattened; returns
+        (logits [T*N, A], rnn_states_out, aux). Eager PyTorch needs no cache
+        of compiled programs per T."""
+        return self(observations_flat, rnn_states, prev_actions, masks, seq_len=T)

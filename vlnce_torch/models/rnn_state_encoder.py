@@ -9,7 +9,9 @@ Two call modes:
 
 The input projection for all timesteps is one matmul; the recurrence of a
 GRU runs as the `gru_sequence` kernel in both modes (the single step is the
-kernel at T=1). The LSTM, which no kernel covers, runs as a plain loop.
+kernel at T=1) and is differentiable: on the card its gradient is the
+kernel's own backward kernel, on the CPU autograd through the plain loop. The
+LSTM, which no kernel covers, runs as a plain loop.
 
 Hidden-state layout is habitat's [B, L, H] with L = num_recurrent_layers
 (2 for LSTM: h then c). Parameters use torch's names and layout under

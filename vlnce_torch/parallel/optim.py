@@ -1,0 +1,104 @@
+"""Optimizer construction for the IL trainers (port of
+vlnce_tpu/parallel/optim.py).
+
+Frozen-parameter masking: the reference hands ALL policy parameters to torch
+Adam (reference base_il_trainer.py:69-70), and torch skips parameters whose
+.grad is None, i.e. the frozen ResNets (resnet_encoders.py:45-46,141-143) and
+the frozen instruction-embedding table never get optimizer state or update
+traffic. `masked_adam` makes that explicit: `torch.optim.Adam` is built over
+the trainable parameters only, so the frozen ones (about 90% of the CMA
+policy's bytes) hold no moment buffers and are bit-equal after any number of
+steps.
+
+`restore_optim_state` of the JAX package migrates flax checkpoints written
+before it masked its optimizer. The port has no such files: its checkpoints
+hold `optimizer.state_dict()`, which `load_state_dict` restores as it is, so
+there is nothing to migrate and no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+# Frozen subtrees are matched by state_dict PREFIX anchors (the JAX package's
+# (parent key, child key) path anchors), not by bare names at any depth: a
+# future module that happens to reuse "cnn" or "visual_encoder" under another
+# parent cannot be frozen silently.
+_FROZEN_ANCHORS = {
+    "depth": "net.depth_encoder.visual_encoder.",
+    "rgb": "net.rgb_encoder.cnn.",
+    "embedding": "net.instruction_encoder.embedding",
+}
+
+
+def trainable_mask(policy, model_config) -> Dict[str, bool]:
+    """{parameter name: True where Adam updates it} over
+    `policy.named_parameters()`.
+
+    `model_config=None` (a stub policy with no config) means no freezing
+    information: every parameter trains, matching plain Adam.
+
+    Fails LOUDLY when the config freezes an encoder whose anchored prefix
+    matches no parameter (a renamed module would otherwise silently train
+    weights the reference keeps frozen)."""
+    names = [name for name, _ in policy.named_parameters()]
+    if model_config is None:
+        return {name: True for name in names}
+
+    want = {}
+    if not bool(model_config.DEPTH_ENCODER.trainable):
+        want["depth"] = _FROZEN_ANCHORS["depth"]
+    if not bool(model_config.RGB_ENCODER.trainable):
+        want["rgb"] = _FROZEN_ANCHORS["rgb"]
+    # only a PRETRAINED embedding table is frozen (reference
+    # instruction_encoder.py:35-45); a fresh Gaussian table always trains.
+    # An encoder of precomputed features (sensor_uuid rxr_instruction) has no
+    # table, so there is nothing to freeze and nothing to miss: the JAX
+    # package's mask raises for such a config, which keeps its trainers from
+    # building an RxR policy; the port serves RxR and must not.
+    ie = model_config.INSTRUCTION_ENCODER
+    has_table = getattr(ie, "sensor_uuid", "instruction") == "instruction"
+    if has_table and bool(getattr(ie, "use_pretrained_embeddings", False)) and not bool(getattr(ie, "fine_tune_embeddings", True)):
+        want["embedding"] = _FROZEN_ANCHORS["embedding"]
+
+    mask = {name: not any(name.startswith(prefix) for prefix in want.values()) for name in names}
+    missing = [prefix for prefix in want.values() if not any(name.startswith(prefix) for name in names)]
+    if missing:
+        raise ValueError(
+            f"trainable_mask: config freezes {sorted(missing)} but no parameter has such a prefix "
+            f"(top-level modules: {sorted({n.split('.')[0] for n in names})[:8]}): a renamed module would "
+            f"silently train weights the reference keeps frozen (resnet_encoders.py:45-46,141-143)"
+        )
+    return mask
+
+
+def clip_by_global_norm_(parameters, max_norm: float) -> torch.Tensor:
+    """Scale the gradients in place by max_norm / max(norm, max_norm), norm
+    being the l2 norm over all of them (optax's clip_by_global_norm); returns
+    the norm before scaling."""
+    grads = [p.grad for p in parameters if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    scale = max_norm / torch.clamp(norm, min=max_norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+def masked_adam(lr: float, policy, model_config, eps: float = 1e-8,
+                max_grad_norm: Optional[float] = None) -> torch.optim.Adam:
+    """Adam over the policy's trainable parameters only. The frozen ones get
+    `requires_grad_(False)`, so backward computes no gradient for them and
+    they hold no optimizer state. With max_grad_norm, every `step()` first
+    clips the gradients by their global norm (the frozen parameters have
+    none, so the norm is the trainable-only norm)."""
+    mask = trainable_mask(policy, model_config)
+    trainable = []
+    for name, p in policy.named_parameters():
+        p.requires_grad_(mask[name])
+        if mask[name]:
+            trainable.append(p)
+    optimizer = torch.optim.Adam(trainable, lr=lr, eps=eps)
+    if max_grad_norm is not None:
+        optimizer.register_step_pre_hook(lambda opt, args, kwargs: clip_by_global_norm_(trainable, max_grad_norm) and None)
+    return optimizer

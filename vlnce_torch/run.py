@@ -5,7 +5,9 @@
 
 The flags are those of the JAX package's run.py (reference run.py:22-43).
 Everything runs on `CUDA.DEVICE` (default `cuda`); pass `CUDA.DEVICE cpu
-CUDA.PRECISION.compute_dtype float32` to run on the CPU.
+CUDA.PRECISION.compute_dtype float32` to run on the CPU. `train` is DAgger
+(`TRAINER_NAME dagger`, the r2r_baselines/cma*.yaml experiments); the
+recollect trainer's `train` raises NotImplementedError.
 """
 
 from __future__ import annotations

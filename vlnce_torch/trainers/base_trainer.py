@@ -13,9 +13,11 @@ pinned buffers of `envs.batch.ObsSlots`), one upload of the [N, 1] masks, and
 one download of the actions, which is the loop's only synchronisation with
 the card. `prev_actions` and the recurrent state stay on the card.
 
-Training, the device-resident loops (`EVAL.ON_DEVICE_SCAN`,
-`INFERENCE.ON_DEVICE_SCAN`) and videos (`VIDEO_OPTION`) are not ported yet
-and raise NotImplementedError.
+`_initialize_policy` also builds the optimizer (Adam over the trainable
+parameters only) and, for a requeued job, restores it. DAgger training is
+`trainers/dagger_trainer.py`. The recollect trainer's training loop, the
+device-resident loops (`EVAL.ON_DEVICE_SCAN`, `INFERENCE.ON_DEVICE_SCAN`) and
+videos (`VIDEO_OPTION`) are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,12 +43,14 @@ from vlnce_torch.ops.obs_transforms import (
     apply_obs_transforms_obs_space,
     get_active_obs_transforms,
 )
+from vlnce_torch.parallel.optim import masked_adam
 from vlnce_torch.registry import registry
 from vlnce_torch.utils.checkpoints import (
     config_from_checkpoint,
     load_checkpoint,
     poll_checkpoint_folder,
     save_checkpoint,
+    wait_for_pending,
 )
 from vlnce_torch.utils.logging import logger
 from vlnce_torch.utils.tensorboard import TensorboardWriter
@@ -130,7 +134,10 @@ class BaseVLNCETrainer:
     def __init__(self, config):
         self.config = config
         self.policy = None
+        self.optimizer: Optional[torch.optim.Optimizer] = None
         self.obs_transforms = []
+        self.start_epoch = 0
+        self.step_id = 0
         # one generator on the policy's device, seeded from TASK_CONFIG.SEED,
         # draws every sampled action; made by _initialize_policy
         self.generator: Optional[torch.Generator] = None
@@ -168,10 +175,21 @@ class BaseVLNCETrainer:
             load_ddppo_depth_checkpoint(self.policy, load_checkpoint(ddppo_ckpt))
             logger.info(f"Loaded DDPPO depth encoder weights from {ddppo_ckpt}")
 
+        # Adam over the trainable parameters only: the frozen ResNets and the
+        # frozen token table get no gradient and hold no moments (the
+        # reference's torch-Adam-skips-None-grads, base_il_trainer.py:69-70)
+        self.optimizer = masked_adam(config.IL.lr, self.policy, config.MODEL)
+
         if load_from_ckpt:
             ckpt_path = config.IL.ckpt_to_load
             ckpt = load_checkpoint(ckpt_path)
             load_policy_state_dict(self.policy, ckpt["state_dict"])
+            if config.IL.is_requeue and "optim_state" in ckpt:
+                # load_state_dict moves the moments to their parameters' device
+                self.optimizer.load_state_dict(ckpt["optim_state"])
+                extra = ckpt.get("extra_state") or {}
+                self.start_epoch = int(extra.get("epoch", -1)) + 1
+                self.step_id = int(extra.get("step_id", 0))
             logger.info(f"Loaded weights from checkpoint: {ckpt_path}")
         logger.info(
             f"Initialized policy {config.MODEL.policy_name} on {self.policy.device}: {self.policy.num_params()} params"
@@ -179,10 +197,19 @@ class BaseVLNCETrainer:
 
     def save_checkpoint(self, file_name: str, extra_state: Optional[Dict] = None) -> None:
         path = os.path.join(self.config.CHECKPOINT_FOLDER, file_name)
-        save_checkpoint(path, self.policy.state_dict(), config=self.config, extra_state=extra_state)
+        save_checkpoint(
+            path, self.policy.state_dict(), config=self.config,
+            optim_state=self.optimizer.state_dict() if self.optimizer is not None else None,
+            extra_state=extra_state,
+            # torch.save and the rename overlap the next train steps; the
+            # snapshot to host memory is synchronous (the next step changes
+            # the parameters in place)
+            async_write=bool(self.config.CUDA.ASYNC_CHECKPOINT),
+        )
 
     @staticmethod
     def load_checkpoint(checkpoint_path: str, **kwargs) -> Dict:
+        wait_for_pending()  # a checkpoint this process has just saved may still be on its way to the disk
         return load_checkpoint(checkpoint_path)
 
     # -- entry points ---------------------------------------------------------
@@ -445,11 +472,6 @@ class _ServingOnlyTrainer(BaseVLNCETrainer):
 
     def train(self) -> None:
         raise _not_ported(f"--run-type train of TRAINER_NAME {self.config.TRAINER_NAME}", self.training_slice)
-
-
-@registry.register_trainer(name="dagger")
-class DaggerTrainer(_ServingOnlyTrainer):
-    training_slice = "'IL training and DAgger'"
 
 
 @registry.register_trainer(name="recollect_trainer")

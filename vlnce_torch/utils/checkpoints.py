@@ -3,20 +3,27 @@
 Format: one `torch.save` file holding
 
     {"state_dict": {reference key: tensor on the CPU}, "config_yaml": str,
-     "extra_state": {...}}
+     "optim_state": optimizer.state_dict() on the CPU, "extra_state": {...}}
 
 with the config dumped as YAML: the config-in-checkpoint behaviour that eval
 and inference rely on (EVAL.USE_CKPT_CONFIG, reference
 base_il_trainer.py:117-132,235-237,439-445). Files are written to a temp name
 and renamed, so the eval-many poller (`poll_checkpoint_folder`) never sees a
-torn checkpoint. Optimizer state and the asynchronous writer of the JAX
-package come with the training slice. The JAX package's msgpack files cannot
-be read here (that takes flax); weights cross between the packages through
+torn checkpoint. The JAX package's msgpack files cannot be read here (that
+takes flax); weights cross between the packages through
 `models/convert.state_dict_from_jax_params`.
+
+The snapshot to host memory is synchronous and copies (the next train step
+changes the parameters in place). With `async_write=True`
+(CUDA.ASYNC_CHECKPOINT) `torch.save` and the rename run on a background
+thread while training goes on: one write in flight at a time; an error
+surfaces on the next save or at `wait_for_pending()`, which trainers call
+when their train loop ends (an atexit hook covers aborts).
 """
 
 from __future__ import annotations
 
+import atexit
 import os
 import threading
 from typing import Any, Dict, Mapping, Optional
@@ -28,18 +35,21 @@ from vlnce_torch.config.node import Config
 CHECKPOINT_SUFFIXES = (".ckpt", ".pth")
 
 
-def save_checkpoint(
-    path: str,
-    state_dict: Mapping[str, torch.Tensor],
-    config=None,
-    extra_state: Optional[Dict[str, Any]] = None,
-) -> None:
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    payload: Dict[str, Any] = {"state_dict": {k: v.detach().cpu() for k, v in state_dict.items()}}
-    if extra_state is not None:
-        payload["extra_state"] = extra_state
-    if config is not None:
-        payload["config_yaml"] = config.dump()
+def _host_snapshot(obj):
+    """A copy of a nest of dicts, lists and tensors with every tensor in host
+    memory. Tensors that are on the CPU already are cloned: an aliased
+    snapshot handed to the writer thread would race the live training state."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach()
+        return t.clone() if t.device.type == "cpu" else t.cpu()
+    if isinstance(obj, Mapping):
+        return {k: _host_snapshot(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_snapshot(v) for v in obj)
+    return obj
+
+
+def _write_atomic(path: str, payload: Dict[str, Any]) -> None:
     # unique temp name: two writers of one path must not rename each other's
     # half-written file away
     tmp = f"{path}.tmp.{os.getpid()}-{threading.get_ident()}"
@@ -48,6 +58,69 @@ def save_checkpoint(
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)  # atomic: pollers never see a torn file
+
+
+class _AsyncWriter:
+    """At most one checkpoint write in flight; exceptions are re-raised on
+    the next submit/wait so a failing disk cannot silently drop epochs."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._exc: Optional[BaseException] = None
+
+    def _run(self, path: str, payload: Dict[str, Any]) -> None:
+        try:
+            _write_atomic(path, payload)
+        except BaseException as e:  # surfaced on the next submit/wait
+            self._exc = e
+
+    def submit(self, path: str, payload: Dict[str, Any]) -> None:
+        self.wait()
+        self._thread = threading.Thread(target=self._run, args=(path, payload), name="ckpt-writer", daemon=False)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise RuntimeError("async checkpoint write failed") from exc
+
+
+_WRITER = _AsyncWriter()
+atexit.register(_WRITER.wait)
+
+
+def wait_for_pending() -> None:
+    """Block until any in-flight async checkpoint write completes (raises if
+    it failed). Trainers call this when their train loop ends, so a caller
+    that loads the last checkpoint right after train() can never race the
+    writer."""
+    _WRITER.wait()
+
+
+def save_checkpoint(
+    path: str,
+    state_dict: Mapping[str, torch.Tensor],
+    config=None,
+    optim_state: Optional[Dict[str, Any]] = None,
+    extra_state: Optional[Dict[str, Any]] = None,
+    async_write: bool = False,
+) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload: Dict[str, Any] = {"state_dict": _host_snapshot(state_dict)}
+    if optim_state is not None:
+        payload["optim_state"] = _host_snapshot(optim_state)
+    if extra_state is not None:
+        payload["extra_state"] = extra_state
+    if config is not None:
+        payload["config_yaml"] = config.dump()
+    if async_write:
+        _WRITER.submit(path, payload)
+    else:
+        _WRITER.wait()  # keep ordering if a prior async write is in flight
+        _write_atomic(path, payload)
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

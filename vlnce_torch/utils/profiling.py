@@ -1,0 +1,117 @@
+"""Profiling: torch.profiler traces, the reference's wall-clock split, and
+the train step's split on the card (port of vlnce_tpu/utils/profiling.py).
+
+The reference logs pth_time (device compute) vs env_time (sim stepping) per
+rollout (reference ddppo_waypoint_trainer.py:154-157,187-188,222-225);
+trainers here keep that split and can additionally capture a device trace
+into CUDA.PROFILE_DIR (a chrome trace, readable by tensorboard's profile
+plugin or chrome://tracing).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from collections import defaultdict, deque
+from typing import Deque, Dict, Iterator, Optional, Tuple
+
+import torch
+
+
+class SectionTimers:
+    """Named wall-clock accumulators (pth_time / env_time / update_time)."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def time(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def summary(self) -> str:
+        return " ".join(f"{k}={v:.1f}s" for k, v in sorted(self.totals.items()))
+
+    def reset(self) -> None:
+        self.totals.clear()
+        self.counts.clear()
+
+
+class StepClock:
+    """Splits a repeated step into named segments by the device's clock.
+    `start()` opens a step and `mark(name)` ends the segment `name`; on a
+    CUDA device each is one event record on the current stream (no
+    synchronisation), on the CPU a host clock reading. Segments whose end
+    the device has passed are folded into the sums as the steps go, so a
+    long run holds few events. `totals()` synchronises once and returns
+    {name: ms summed over all steps}; `first` holds the first step's share
+    of them (it carries the libraries' warm-up), and `steps` counts the
+    `start()` calls."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.steps = 0
+        self._last = None
+        self._segments: Deque[Tuple[str, int, object, object]] = deque()
+        self._totals: Dict[str, float] = defaultdict(float)
+        self.first: Dict[str, float] = defaultdict(float)
+
+    def _now(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def _fold(self, wait: bool) -> None:
+        while self._segments and (wait or not self.cuda or self._segments[0][3].query()):
+            name, step, begin, end = self._segments.popleft()
+            ms = begin.elapsed_time(end) if self.cuda else 1e3 * (end - begin)
+            self._totals[name] += ms
+            if step == 1:
+                self.first[name] += ms
+
+    def start(self) -> None:
+        self.steps += 1
+        self._fold(wait=False)
+        self._last = self._now()
+
+    def mark(self, name: str) -> None:
+        now = self._now()
+        self._segments.append((name, self.steps, self._last, now))
+        self._last = now
+
+    def totals(self) -> Dict[str, float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+        self._fold(wait=True)
+        return dict(self._totals)
+
+
+@contextlib.contextmanager
+def maybe_profile(profile_dir: Optional[str]) -> Iterator[None]:
+    """Capture a torch.profiler trace (host and, where there is a card,
+    device activity) into profile_dir/trace.json when profile_dir is set."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Named region in profiler traces."""
+    with torch.profiler.record_function(name):
+        yield
