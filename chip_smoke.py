@@ -33,15 +33,23 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    kernel's launch counter must have risen by exactly 2 per act step of each
    loop; then where an env step's time goes (render, pipe, upload, act,
    download), each measured apart;
-6. B1's backward kernel (the gradient of gru_sequence) against its plain
-   version at the training shape (T=32, B=5, H=512) and at T=1, B=8, with
-   times beside the plain loop's, autograd through cuDNN's GRU, and the bound;
+6. B1's backward (the gradient of gru_sequence) by both routes, the cluster
+   route that reads the training forward's gates and the grid route that
+   recomputes them, and its weight-gradient kernel, each against its plain
+   version at the training shapes (T in {16, 32, 48}, B=5, H=512) and at
+   T=1 (B=8 takes the grid route, B=5 the cluster route); the cluster size
+   granted and the card's most active clusters; device times by graph replay
+   of each route's recurrence alone, the weight gradient and the wrapper,
+   beside the plain loop's, autograd through cuDNN's GRU, the torch ops the
+   weight-gradient kernel replaced, and each launch's bound from the work it
+   does (the recurrence: one product, given the gates);
 7. training: `run_exp(cma_pm_da_aug_tune.yaml, "train")` at full width in
    bf16 over 8 forked workers (synthetic scenes, 224x224 / 256x256 frames):
    2 DAgger iterations (beta 1.0, then 0.5) of 16 episodes and 2 epochs at
    batch size 5, then `run_exp(..., "eval")` of the last checkpoint; B1 must
    be launched exactly twice forward per collection step and twice forward
-   and twice backward per train step, B2 never; frozen weights must not
+   and twice backward (on the cluster route, each with one weight-gradient
+   launch) per train step, B2 never; frozen weights must not
    move, the others must; the optimizer holds state for the trainable ones
    only; the action loss must fall; then the train step alone on a seeded
    batch at T=32, N=5 for its warm split (forward, backward, optimizer);
@@ -244,13 +252,23 @@ def phase_gru(dev):
     seq[2] = strided(seq[2])
     seq_ms = graph_ms(lambda: gru_sequence(*seq), reps=10)
     seq_plain_ms = graph_ms(lambda: gru_sequence_plain(*seq), reps=10)
+    # the training forward: one launch at the training shape, storing the gates for the backward or not
+    from vlnce_torch.ops.rnn import _forward_launch
+
+    train = inputs(TRAIN_T, TRAIN_B, 512, 416, 11)[:5]
+    train[2] = strided(train[2])
+    bare_ms = graph_ms(lambda: _forward_launch(*train), reps=10)
+    reserve_ms = graph_ms(lambda: _forward_launch(*train, reserve=True), reps=10)
+    reserve_bytes = TRAIN_T * TRAIN_B * 4 * 512 * 4
     print(f"B1 floor: two empty launches {floor_ms:.4f} ms by the same replay; "
-          f"T=16 B=4 H=512, one launch: kernel {seq_ms:.4f} ms, plain {seq_plain_ms:.4f} ms")
+          f"T=16 B=4 H=512, one launch: kernel {seq_ms:.4f} ms, plain {seq_plain_ms:.4f} ms; "
+          f"T={TRAIN_T} B={TRAIN_B} H=512, one launch: {bare_ms:.4f} ms, storing the gates ({reserve_bytes / 1e6:.2f} MB) {reserve_ms:.4f} ms")
     return {
         "name": "gru_sequence", "route": "cuda", "source": "vlnce_torch/csrc/gru_sequence.cu",
         "replaces": "vlnce_tpu/ops/pallas_rnn.py:55", "max_abs_err": max(errs),  # over every shape above
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         "eager_ms": eager_ms, "empty_launch_ms": floor_ms, "seq_T16_B4_ms": seq_ms,
+        "train_T32_B5_ms": bare_ms, "train_T32_B5_reserve_ms": reserve_ms, "reserve_bytes_T32_B5": reserve_bytes,
     }
 
 
@@ -262,8 +280,16 @@ TRAIN_T, TRAIN_B = 32, 5  # one R2R CMA DAgger batch: IL.batch_size 5, padded to
 
 
 def phase_gru_backward(dev):
-    from vlnce_torch.ops.rnn import (_BLOCK_UNITS, _backward_launch, gru_sequence_backward, gru_sequence_backward_plain,
-                                     gru_sequence_plain)
+    """B1's gradient: the recurrence by both routes (the cluster route, which
+    reads the training forward's gates, and the grid route, which recomputes
+    them) and the weight-gradient kernel, each against its plain version at
+    the training shapes and at T=1, then device times by CUDA-graph replay.
+    Returns the kernels-line entries of the backward and of the weight
+    gradient."""
+    from vlnce_torch.ops.rnn import (_backward_launch, _BLOCK_UNITS, _cluster_launch, _forward_launch,
+                                     _weight_gradient_launch, backward_cluster_plan, gru_sequence_backward,
+                                     gru_sequence_backward_plain, gru_sequence_plain, gru_weight_gradient,
+                                     gru_weight_gradient_plain)
 
     g = torch.Generator(device="cpu").manual_seed(4)
     H = 512
@@ -280,74 +306,141 @@ def phase_gru_backward(dev):
         d_out = torch.randn(Bn, T, H, generator=g)
         xi, masks, states, w_hh, b_hh, d_out = (t.to(dev) for t in (xi, masks, states, w_hh, b_hh, d_out))
         h0 = states[:, 0]  # rows 2H apart
-        out = gru_sequence_plain(xi, masks, h0, w_hh, b_hh)
-        return d_out.transpose(0, 1), xi, masks, h0, w_hh, b_hh, out
+        out, gates = gru_sequence_plain(xi, masks, h0, w_hh, b_hh, return_gates=True)
+        return d_out.transpose(0, 1), xi, masks, h0, w_hh, b_hh, out, gates
+
+    cluster, active = backward_cluster_plan(dev.index, TRAIN_B, H)
+    print(f"B1 backward cluster route at B={TRAIN_B} H={H}: cluster of {cluster} blocks granted, "
+          f"cudaOccupancyMaxActiveClusters {active}")
+    assert cluster > 0 and active >= 1, "the cluster route does not take the training shape"
 
     names = ("d_xi", "d_h0", "d_w_hh", "d_b_hh")
-    shapes = {"train": inputs(TRAIN_T, TRAIN_B, 11), "step": inputs(1, N_ENVS, 0), "long": inputs(48, TRAIN_B, 20)}
+    shapes = {"train": inputs(TRAIN_T, TRAIN_B, 11), "T16": inputs(16, TRAIN_B, 7), "long": inputs(48, TRAIN_B, 20),
+              "step": inputs(1, N_ENVS, 0), "step_B5": inputs(1, TRAIN_B, 0)}
     worst = {}
-    for label, args in shapes.items():
-        got = gru_sequence_backward(*args)
-        ref = gru_sequence_backward_plain(*args)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, a, b in zip(names, got, ref):
-            scale = max(1.0, float(b.abs().max()))  # d_w_hh sums T * B rows: held relative to its scale
-            errs[name] = float((a - b).abs().max())
-            assert a.shape == b.shape and errs[name] <= 1e-5 * scale, f"B1 backward {label} {name}: {errs[name]} at scale {scale}"
-        T, Bn = args[1].shape[:2]
-        print(f"B1 backward T={T} B={Bn} H={H}, strided h0, transposed d_out: max_abs_err "
-              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + " (atol 1e-5 x max(1, scale))")
-        worst[label] = errs
+    for label, (*args, gates) in shapes.items():
+        for route, given in (("cluster", gates), ("grid", None)):
+            T, Bn = args[1].shape[:2]
+            if route == "cluster" and not backward_cluster_plan(dev.index, Bn, H)[0]:
+                continue  # B=8 at H=512: the two planes do not fit beside w_hh's slice; the grid route serves it
+            before = gru_sequence_backward.cluster_launches
+            got = gru_sequence_backward(*args, gates=given)
+            ref = gru_sequence_backward_plain(*args, gates=given)
+            torch.cuda.synchronize()
+            assert gru_sequence_backward.cluster_launches - before == (route == "cluster"), route
+            errs = {}
+            for name, a, b in zip(names, got, ref):
+                scale = max(1.0, float(b.abs().max()))  # d_w_hh sums T * B rows: held relative to its scale
+                errs[name] = float((a - b).abs().max())
+                assert a.shape == b.shape and errs[name] <= 1e-5 * scale, f"B1 backward {route} {label} {name}: {errs[name]} at scale {scale}"
+            print(f"B1 backward {route} route T={T} B={Bn} H={H}, strided h0, transposed d_out: max_abs_err "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + " (atol 1e-5 x max(1, scale))")
+            worst[f"{route}_{label}"] = errs
 
-    # the training shape: a cooperative launch, timed by CUDA events around
-    # back-to-back calls of the wrapper (its kernels take longer than the
-    # host needs to launch them); the plain loop is bound by the host
+    # the whole route on the card: the forward kernel's own reserve into the cluster route
+    *args, _ = shapes["train"]
+    d_out, xi, masks, h0, w_hh, b_hh, _ = args
+    out, reserve = _forward_launch(xi, masks, h0, w_hh, b_hh, reserve=True)
+    got = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out, gates=reserve)
+    ref = gru_sequence_backward_plain(d_out, xi, masks, h0, w_hh, b_hh, out)
+    torch.cuda.synchronize()
+    chain = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for a, b in zip(got, ref))
+    print(f"B1 forward kernel's reserve -> cluster route at T={TRAIN_T} B={TRAIN_B}, against the recomputing plain "
+          f"backward on the kernel's out: max err relative to max(1, scale) {chain:.3e} (1e-4: the reserve is the forward kernel's)")
+    assert chain <= 1e-4
+
+    # device times at the training shape by CUDA-graph replay: each route's
+    # recurrence alone into buffers allocated once, the weight gradient alone,
+    # and the wrapper (allocations, d_out's copy, recurrence, weight gradient)
     train = tuple(t.contiguous() if i == 0 else t for i, t in enumerate(shapes["train"]))
-    d_out, xi, masks, h0, w_hh, b_hh, out = train
-    ms = cuda_ms(lambda: gru_sequence_backward(*train), iters=50)
-    # the kernel's launches alone (the recurrence and the d_h0 sum), into buffers allocated once
+    d_out, xi, masks, h0, w_hh, b_hh, out, gates = train
     d_xi, d_gh, d_h0 = torch.empty_like(xi), torch.empty_like(xi), torch.empty(TRAIN_B, H, device=dev)
+    d_w_hh, d_b_hh = torch.empty_like(w_hh), torch.empty_like(b_hh)
     scratch = torch.empty(2, H // _BLOCK_UNITS, TRAIN_B, H, device=dev)
-    kernel_ms = cuda_ms(lambda: _backward_launch(*train, d_xi, d_h0, d_gh, scratch), iters=50)
-    plain_ms = cuda_ms(lambda: gru_sequence_backward_plain(*train), iters=5, warmup=1)
-
-    def weight_gradient():  # the wrapper's torch ops after the kernel: d_w_hh and d_b_hh from d_gh
-        h_prev = torch.cat([h0[None], out[:-1]]) * masks
-        return xi.reshape(-1, 3 * H).T @ h_prev.reshape(-1, H), xi.sum(dim=(0, 1))
-
-    weight_ms = cuda_ms(weight_gradient, iters=50)
+    gru_sequence_backward(*train)  # d_gh for the weight gradient's own timing
+    cluster_kernel_ms = graph_ms(lambda: _cluster_launch(d_out, gates, masks, h0, w_hh, out, d_xi, d_h0, d_gh, cluster))
+    grid_kernel_ms = graph_ms(lambda: _backward_launch(d_out, xi, masks, h0, w_hh, b_hh, out, d_xi, d_h0, d_gh, scratch))
+    weight_ms = graph_ms(lambda: _weight_gradient_launch(d_gh, masks, h0, out, d_w_hh, d_b_hh))
+    cluster_ms = graph_ms(lambda: gru_sequence_backward(*train))
+    grid_ms = graph_ms(lambda: gru_sequence_backward(*train[:-1]))
+    # the plain version is the torch ops the weight-gradient kernel replaced (cat, multiply, matmul, sum); the
+    # yardstick is the one matmul on h_prev formed beforehand
+    weight_plain_ms = graph_ms(lambda: gru_weight_gradient_plain(d_gh, masks, h0, out))
+    h_prev = torch.cat([h0[None], out[:-1]]) * masks
+    matmul_ms = graph_ms(lambda: d_gh.reshape(-1, 3 * H).T @ h_prev.reshape(-1, H))
+    plain_ms = cuda_ms(lambda: gru_sequence_backward_plain(*train[:-1]), iters=5, warmup=1)
     # yardstick only, the port never calls it: autograd through cuDNN's GRU on
     # [T, B, H] inputs (no resets, and it also differentiates the input
-    # projection, which B1 leaves to a matmul outside)
+    # projection, which B1 leaves to a matmul outside); autograd's calls
+    # cannot be captured, so CUDA events around back-to-back calls
     gru = torch.nn.GRU(H, H).to(dev)
     x = torch.randn(TRAIN_T, TRAIN_B, H, device=dev, requires_grad=True)
     y, _ = gru(x, h0[None].contiguous())
     lib_ms = cuda_ms(lambda: torch.autograd.grad(y, [x] + list(gru.parameters()), d_out, retain_graph=True), iters=50)
     rows = TRAIN_T * TRAIN_B
-    moved = nbytes(*train) + nbytes(xi, h0, w_hh, b_hh)  # inputs once, d_xi, d_h0, d_w_hh and d_b_hh once
-    flops = rows * (3 * 2 * 3 * H * H + 40 * H)  # h_prev . w_hh^T, d_gh . w_hh and d_gh^T . h_prev, and the gates
-    b_ms, b_by = bound_ms(moved, flops)
-    print(f"B1 backward at T={TRAIN_T} B={TRAIN_B} H={H} (one cooperative launch + d_h0 + the weight gradient's torch ops), "
-          f"CUDA events around 50 back-to-back calls: wrapper {ms:.4f} ms, of which the kernel's launches alone {kernel_ms:.4f} ms "
-          f"({1e3 * kernel_ms / TRAIN_T:.2f} us per step) and d_w_hh and d_b_hh by torch {weight_ms:.4f} ms; plain loop {plain_ms:.4f} ms (host-bound); autograd through "
-          f"cuDNN GRU {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    product = 2 * rows * 3 * H * H  # the FLOPs of one [rows, 3H] x [3H, H] product
+    # the recurrence (the cluster launch): reads d_out, the gates, masks, h0,
+    # out and w_hh, writes d_xi, d_gh and d_h0; one product, d_gh . w_hh, and
+    # about 20 operations per (row, unit) for the gates' gradients
+    moved = nbytes(d_out, gates, masks, h0, out, w_hh) + nbytes(d_xi, d_gh, d_h0)
+    b_ms, b_by = bound_ms(moved, product + rows * 20 * H)
+    # the weight gradient's launch: reads d_gh, masks, h0 and out, writes d_w_hh and d_b_hh; d_gh^T . h_prev
+    w_moved = nbytes(d_gh, masks, h0, out, d_w_hh, d_b_hh)
+    wb_ms, wb_by = bound_ms(w_moved, product + rows * 3 * H)
+    # for comparison only: the whole gradient given the gates (the wrapper's work: two products, d_gh not
+    # stored), and PR 4's figure for a kernel that recomputed the gates (a third product, h_prev . w_hh^T)
+    whole_ms, _ = bound_ms(nbytes(d_out, gates, masks, h0, out, w_hh) + nbytes(d_xi, d_h0, d_w_hh, d_b_hh),
+                           2 * product + rows * 23 * H)
+    recompute_ms, _ = bound_ms(nbytes(*train[:-1]) + nbytes(xi, h0, w_hh, b_hh), 3 * product + rows * 40 * H)
+    print(f"B1 backward at T={TRAIN_T} B={TRAIN_B} H={H}, device time by graph replay: cluster route (cluster of {cluster}) "
+          f"recurrence alone {cluster_kernel_ms:.4f} ms "
+          f"({1e3 * cluster_kernel_ms / TRAIN_T:.2f} us per step), wrapper {cluster_ms:.4f} ms; grid route recurrence alone "
+          f"{grid_kernel_ms:.4f} ms ({1e3 * grid_kernel_ms / TRAIN_T:.2f} us per step), wrapper {grid_ms:.4f} ms; "
+          f"weight gradient kernel {weight_ms:.4f} ms against its plain torch ops {weight_plain_ms:.4f} ms (torch.matmul alone {matmul_ms:.4f}, "
+          f"bound {wb_ms:.4f} {wb_by}); plain loop {plain_ms:.4f} ms (CUDA events, host-bound); autograd through cuDNN GRU "
+          f"{lib_ms:.4f} ms (CUDA events); recurrence's bound {b_ms:.4f} ms ({b_by}, {moved / 1e6:.2f} MB, "
+          f"{(product + rows * 20 * H) / 1e9:.3f} GFLOP); the whole gradient's given the gates {whole_ms:.4f} ms; "
+          f"recomputing the gates (PR 4's definition) {recompute_ms:.4f} ms")
 
-    # T = 1: ordinary launches, device time by graph replay
+    # T = 1 by both routes
     step = tuple(t.contiguous() if i == 0 else t for i, t in enumerate(shapes["step"]))
-    step_ms = graph_ms(lambda: gru_sequence_backward(*step), reps=20)
-    step_plain_ms = graph_ms(lambda: gru_sequence_backward_plain(*step), reps=20)
-    print(f"B1 backward at T=1 B={N_ENVS} H={H}, device time by graph replay: wrapper {step_ms:.4f} ms, plain {step_plain_ms:.4f} ms")
-    return {
+    step5 = tuple(t.contiguous() if i == 0 else t for i, t in enumerate(shapes["step_B5"]))
+    step_ms = graph_ms(lambda: gru_sequence_backward(*step[:-1]))
+    step5_ms = graph_ms(lambda: gru_sequence_backward(*step5))
+    step_plain_ms = graph_ms(lambda: gru_sequence_backward_plain(*step[:-1]))
+    print(f"B1 backward at T=1, device time by graph replay: grid route B={N_ENVS} wrapper {step_ms:.4f} ms (plain "
+          f"{step_plain_ms:.4f}); cluster route B={TRAIN_B} wrapper {step5_ms:.4f} ms")
+    backward = {
         "name": "gru_sequence_backward", "route": "cuda", "source": "vlnce_torch/csrc/gru_sequence.cu",
         "replaces": "vlnce_tpu/ops/pallas_rnn.py:55",
         "note": "the gradient of B1; the JAX package differentiates the lax.scan of vlnce_tpu/models/rnn_state_encoder.py:133",
-        # max_abs_err: the largest over all four outputs at the training shape; ms: the wrapper (the kernel's
-        # launches, the allocations and torch's d_w_hh and d_b_hh); kernel_ms: the kernel's launches alone
-        "max_abs_err": max(worst["train"].values()), "max_abs_err_by_output": worst["train"],
-        "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms, "weight_gradient_ms": weight_ms, "step_T1_B8_ms": step_ms, "step_T1_B8_plain_ms": step_plain_ms,
+        # max_abs_err: the largest over all four outputs at the training shape on the cluster route; ms (and
+        # kernel_ms) and bound_ms: the recurrence's launch alone, the weight gradient has its own entry;
+        # wrapper_ms: the wrapper on that route (its launch, the allocations, d_out's copy and the weight
+        # gradient's launch) beside bound_ms_gradient; earlier_ms: the grid route's recurrence alone (the earlier
+        # design, recomputing the gates) beside bound_ms_recompute
+        "max_abs_err": max(worst["cluster_train"].values()), "max_abs_err_by_output": worst["cluster_train"],
+        "max_abs_err_grid": max(worst["grid_train"].values()),
+        "ms": cluster_kernel_ms, "kernel_ms": cluster_kernel_ms, "wrapper_ms": cluster_ms, "earlier_ms": grid_kernel_ms,
+        "grid_ms": grid_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms_gradient": whole_ms, "bound_ms_recompute": recompute_ms,
+        "library_ms": lib_ms, "weight_gradient_ms": weight_ms, "weight_gradient_torch_ms": weight_plain_ms,
+        "cluster": cluster, "max_active_clusters": active, "step_T1_B8_ms": step_ms, "step_T1_B8_plain_ms": step_plain_ms,
+        "step_T1_B5_ms": step5_ms,
     }
+    got = gru_weight_gradient(d_gh, masks, h0, out)
+    ref = gru_weight_gradient_plain(d_gh, masks, h0, out)
+    torch.cuda.synchronize()
+    w_err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for a, b in zip(got, ref))
+    assert w_err <= 1e-5, w_err
+    weight = {
+        "name": "gru_weight_gradient", "route": "cuda", "source": "vlnce_torch/csrc/gru_sequence.cu",
+        "replaces": "vlnce_tpu/ops/pallas_rnn.py:55",
+        "note": "d_w_hh and d_b_hh of B1's gradient over all T * B rows; max_abs_err relative to max(1, scale)",
+        "max_abs_err": w_err, "ms": weight_ms, "kernel_ms": weight_ms, "plain_ms": weight_plain_ms,
+        "bound_ms": wb_ms, "bound_by": wb_by, "library_ms": matmul_ms,
+    }
+    return backward, weight
 
 
 # ---------------------------------------------------------------------------
@@ -527,15 +620,21 @@ def plain_versions():
 
 def _counted():
     from vlnce_torch.ops.preprocess import fused_resize_normalize
-    from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_backward
+    from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_backward, gru_weight_gradient
 
     return {"gru_sequence": gru_sequence, "gru_sequence_backward": gru_sequence_backward,
-            "fused_resize_normalize": fused_resize_normalize}
+            "gru_weight_gradient": gru_weight_gradient, "fused_resize_normalize": fused_resize_normalize}
 
 
 def _reset_launches():
     for wrapper in _counted().values():
         wrapper.launches = 0
+    _counted()["gru_sequence_backward"].cluster_launches = 0
+
+
+def _cluster_launches():
+    """How many of B1's backward launches since the last reset took the cluster route."""
+    return _counted()["gru_sequence_backward"].cluster_launches
 
 
 def _read_launches():
@@ -562,7 +661,8 @@ def phase_main_path(dev):
     logits, states, actions = _run(act_step, policy, batches, dev, not cfg.EVAL.SAMPLE, sampler)
     launches = _read_launches()
     print(f"main path launches over {STEPS} act steps: {json.dumps(launches)}")
-    assert launches == {"gru_sequence": 2 * STEPS, "gru_sequence_backward": 0, "fused_resize_normalize": 2 * STEPS}, launches
+    assert launches == {"gru_sequence": 2 * STEPS, "gru_sequence_backward": 0, "gru_weight_gradient": 0,
+                        "fused_resize_normalize": 2 * STEPS}, launches
     assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(states).all()), "non-finite act outputs"
     assert tuple(logits.shape) == (STEPS, B, 6) and tuple(states.shape) == (STEPS, B, 2, 512)
     assert int(actions.min()) >= 0 and int(actions.max()) < 6, "action out of range"
@@ -605,10 +705,10 @@ def phase_main_path(dev):
 RXR_MEASURES = ("steps_taken", "path_length", "distance_to_goal", "success", "oracle_success", "spl", "ndtw")
 
 
-def _run_loop(run_type, opts, exp=EXP, per_act_step=(2, 0, 2)):
+def _run_loop(run_type, opts, exp=EXP, per_act_step=(2, 0, 0, 2)):
     """One `run_exp` with the launch counters set to 0 just before and read
-    just after; B1, its backward and B2 must have risen by exactly
-    `per_act_step` per act step of the loop."""
+    just after; B1, its backward, its weight gradient and B2 must have risen
+    by exactly `per_act_step` per act step of the loop."""
     from vlnce_torch.run import run_exp
 
     torch.cuda.reset_peak_memory_stats()
@@ -827,7 +927,9 @@ def phase_train_step(dev, steps: int = 10):
     totals = {k: v - warm_up[k] for k, v in clock.totals().items()}
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     launches = _read_launches()
-    assert launches == {"gru_sequence": 2 * steps, "gru_sequence_backward": 2 * steps, "fused_resize_normalize": 0}, launches
+    assert launches == {"gru_sequence": 2 * steps, "gru_sequence_backward": 2 * steps, "gru_weight_gradient": 2 * steps,
+                        "fused_resize_normalize": 0}, launches
+    assert _cluster_launches() == 2 * steps, "B1's backward did not take the cluster route on the train step"
     losses = torch.stack(losses).tolist()
     assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses  # one batch, repeated: the loss must fall
     print(f"train step alone at T={TRAIN_T} N={TRAIN_B}, batch on the card, {steps} warm steps: {wall_ms:.2f} ms per step by the host's clock; "
@@ -860,7 +962,9 @@ def phase_train_step_against_plain(dev):
     _reset_launches()
     k_losses, k_grads = losses_and_gradients()
     launches = _read_launches()
-    assert launches == {"gru_sequence": 2, "gru_sequence_backward": 2, "fused_resize_normalize": 0}, launches
+    assert launches == {"gru_sequence": 2, "gru_sequence_backward": 2, "gru_weight_gradient": 2,
+                        "fused_resize_normalize": 0}, launches
+    assert _cluster_launches() == 2, "B1's backward did not take the cluster route"
     with plain_versions():
         p_losses, p_grads = losses_and_gradients()
     assert _read_launches() == launches, "the plain run launched a kernel"
@@ -933,7 +1037,8 @@ def phase_training(dev):
         print(f"training launches over {collect_steps} collection steps and {train_steps} train steps: {json.dumps(launches)}")
         assert train_steps > 0 and collect_steps > 0
         assert launches == {"gru_sequence": 2 * collect_steps + 2 * train_steps, "gru_sequence_backward": 2 * train_steps,
-                            "fused_resize_normalize": 0}, launches
+                            "gru_weight_gradient": 2 * train_steps, "fused_resize_normalize": 0}, launches
+        assert _cluster_launches() == 2 * train_steps, "B1's backward did not take the cluster route in training"
         assert [r["beta"] for r in rounds] == [1.0, 0.5] and all(r["episodes"] >= TRAIN_EPISODES for r in rounds), rounds
         for r in rounds:
             print(f"collection round {r['data_it']} (beta {r['beta']}): {r['episodes']} episodes, {r['env_steps']} env steps in "
@@ -981,7 +1086,7 @@ def phase_training(dev):
         evaluator, eval_launches, eval_wall = _run_loop("eval", common + [
             "EVAL.EPISODE_COUNT", 8, "EVAL.USE_CKPT_CONFIG", False, "EVAL_CKPT_PATH_DIR", last,
             "RESULTS_DIR", os.path.join(tmp, "evals"),
-        ], exp=R2R_EXP, per_act_step=(2, 0, 0))
+        ], exp=R2R_EXP, per_act_step=(2, 0, 0, 0))
         head = "action_distribution.linear.weight"
         assert torch.equal(evaluator.policy.state_dict()[head], after[head]), "eval did not load the trained weights"
         with open(os.path.join(tmp, "evals", f"stats_ckpt_0_{cfg.EVAL.SPLIT}.json")) as f:
@@ -1002,7 +1107,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     name = phase_device()
     phase_build()
-    kernels = [phase_gru(dev), phase_gru_backward(dev), phase_resize(dev)]
+    kernels = [phase_gru(dev), *phase_gru_backward(dev), phase_resize(dev)]
     paths = {"act_phase": phase_main_path(dev)[0]}
     paths["eval"], paths["inference"] = phase_serving(dev)
     paths["training"], paths["training_eval"] = phase_training(dev)

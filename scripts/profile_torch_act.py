@@ -40,6 +40,7 @@ from chip_smoke import B, TRAIN_B, TRAIN_T, build_act_step, build_train_step, cu
 PROFILED_STEPS = 10
 FAMILIES = (  # first match wins
     ("gru_sequence backward (B1)", ("gru_sequence_backward",)),
+    ("gru weight gradient (B1 backward)", ("gru_weight_gradient",)),
     ("gru_sequence (B1)", ("gru_sequence",)),
     ("resize_normalize (B2)", ("resize_normalize",)),
     ("cuDNN LSTM", ("RNN", "LSTM", "lstm", "rnn")),

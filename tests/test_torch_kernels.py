@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from vlnce_torch.ops.preprocess import fused_resize_normalize, fused_resize_normalize_plain
-from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_backward, gru_sequence_backward_plain, gru_sequence_plain
+from vlnce_torch.ops.rnn import (_forward_launch, backward_cluster_plan, gru_sequence, gru_sequence_backward,
+                                 gru_sequence_backward_plain, gru_sequence_plain, gru_weight_gradient,
+                                 gru_weight_gradient_plain)
 
 
 def _card():
@@ -70,10 +72,11 @@ def _assert_gradients_close(got, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("H", [64, 512])
 @pytest.mark.parametrize("B", [1, 4, 5, 8, 32])
-@pytest.mark.parametrize("T", [1, 2, 16, 48])
+@pytest.mark.parametrize("T", [1, 2, 16, 32, 48])
 def test_gru_backward_kernel_matches_plain(T, B, H):
-    """The backward kernel against the explicit formula, with resets in the
-    middle, a strided h0 and a d_out that is a transposed view."""
+    """The grid route (no gates given: they are recomputed) against the
+    explicit formula, with resets in the middle, a strided h0 and a d_out
+    that is a transposed view."""
     dev = _card()
     xi, masks, h0, w_hh, b_hh = _gru_inputs(T, B, H, dev)
     h0 = _strided(h0)
@@ -81,15 +84,88 @@ def test_gru_backward_kernel_matches_plain(T, B, H):
     g = torch.Generator().manual_seed(T * 100 + B)
     d_out = torch.randn(B, T, H, generator=g).to(dev).transpose(0, 1)
     assert not d_out.is_contiguous() or T == 1 or B == 1
+    cluster_before = gru_sequence_backward.cluster_launches
     got = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out)
     ref = gru_sequence_backward_plain(d_out, xi, masks, h0, w_hh, b_hh, out)
     torch.cuda.synchronize()
-    assert tuple(got[1].shape) == (B, H)
+    assert tuple(got[1].shape) == (B, H) and gru_sequence_backward.cluster_launches == cluster_before
+    _assert_gradients_close(got, ref)
+
+
+def _expected_cluster(B, H):
+    """The cluster the route should take on an H100: H=64 fits one block;
+    H=512 spreads w_hh over 16 blocks, whose shared memory holds the two
+    planes of up to 7 rows."""
+    return 1 if H == 64 else (16 if B <= 7 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 512])
+@pytest.mark.parametrize("B", [1, 4, 5, 8])
+@pytest.mark.parametrize("T", [1, 2, 16, 32, 48])
+def test_gru_backward_cluster_route_matches_plain(T, B, H):
+    """With the gates given, the cluster route where the plan has a cluster
+    (else the grid route), against the explicit formula reading the same
+    gates: resets in the middle, a strided h0, a transposed d_out."""
+    dev = _card()
+    xi, masks, h0, w_hh, b_hh = _gru_inputs(T, B, H, dev, seed=1)
+    h0 = _strided(h0)
+    out, gates = gru_sequence_plain(xi, masks, h0, w_hh, b_hh, return_gates=True)
+    g = torch.Generator().manual_seed(T * 100 + B + 7)
+    d_out = torch.randn(B, T, H, generator=g).to(dev).transpose(0, 1)
+    cluster, active = backward_cluster_plan(dev.index, B, H)
+    assert cluster == _expected_cluster(B, H) and (active >= 1) == (cluster > 0)
+    before = gru_sequence_backward.cluster_launches
+    got = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out, gates=gates)
+    ref = gru_sequence_backward_plain(d_out, xi, masks, h0, w_hh, b_hh, out, gates=gates)
+    torch.cuda.synchronize()
+    assert gru_sequence_backward.cluster_launches == before + (cluster > 0)
     _assert_gradients_close(got, ref)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H", [(1, 8, 512), (16, 5, 512), (32, 5, 512), (6, 3, 64)])
+@pytest.mark.parametrize("T,B,H", [(1, 32, 512), (1, 8, 512), (16, 5, 512), (32, 5, 512), (48, 5, 512), (2, 3, 64),
+                                   (16, 4, 128)])
+def test_gru_forward_reserve_matches_plain_gates(T, B, H):
+    """The training forward's reserve (r, z, n, hh_n) against the plain
+    forward's gates at the forward's tolerance; storing it leaves out
+    bit-equal."""
+    dev = _card()
+    xi, masks, h0, w_hh, b_hh = _gru_inputs(T, B, H, dev, seed=2)
+    h0 = _strided(h0)
+    out, gates = _forward_launch(xi, masks, h0, w_hh, b_hh, reserve=True)
+    plain_out, plain_gates = gru_sequence_plain(xi, masks, h0, w_hh, b_hh, return_gates=True)
+    bare = _forward_launch(xi, masks, h0, w_hh, b_hh)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bare)
+    np.testing.assert_allclose(out.cpu().numpy(), plain_out.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(gates.cpu().numpy(), plain_gates.cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h0_rows", ["strided", "unaligned"])
+@pytest.mark.parametrize("T,B,H", [(32, 5, 512), (48, 5, 512), (1, 8, 512), (3, 7, 100), (5, 3, 64)])
+def test_gru_weight_gradient_kernel_matches_plain(T, B, H, h0_rows):
+    """The weight-gradient launch against d_gh^T @ h_prev: H=100 leaves
+    ragged tiles (3H and H no multiple of 64), an unaligned h0 has rows
+    H + 1 floats apart from an odd offset, so no float4 loads of it."""
+    dev = _card()
+    g = torch.Generator().manual_seed(T + B + H)
+    d_gh = torch.randn(T, B, 3 * H, generator=g).to(dev)
+    masks = (torch.rand(T, B, 1, generator=g) > 0.2).float().to(dev)
+    out = torch.randn(T, B, H, generator=g).to(dev)
+    rows = torch.randn(B, H + 1, generator=g).to(dev)
+    h0 = rows[:, 1:] if h0_rows == "unaligned" else _strided(rows[:, :H].contiguous())
+    got = gru_weight_gradient(d_gh, masks, h0, out)
+    ref = gru_weight_gradient_plain(d_gh, masks, h0, out)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d_w_hh", "d_b_hh"), got, ref):
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= 1e-5 * scale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(1, 8, 512), (16, 5, 512), (32, 5, 512), (6, 3, 64), (48, 5, 512), (1, 5, 512)])
 def test_gru_sequence_autograd_matches_plain_loop(T, B, H):
     """`gru_sequence` on the card (both kernels) against autograd through
     the plain loop, in f32 at atol 1e-5 (relative to scale above 1), for a
@@ -115,11 +191,34 @@ def test_gru_backward_counts_launches_and_leaves_no_grad_for_masks():
     dev = _card()
     xi, masks, h0, w_hh, b_hh = _gru_inputs(4, 5, 64, dev)
     masks.requires_grad_()
-    before = gru_sequence.launches, gru_sequence_backward.launches
+    counters = lambda: (gru_sequence.launches, gru_sequence_backward.launches, gru_sequence_backward.cluster_launches,
+                        gru_weight_gradient.launches)  # noqa: E731
+    before = counters()
     out = gru_sequence(xi.requires_grad_(), masks, h0, w_hh, b_hh)
     out.sum().backward()
-    assert (gru_sequence.launches, gru_sequence_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert counters() == tuple(n + 1 for n in before)  # the training forward's gates took the cluster route
     assert masks.grad is None and xi.grad is not None
+    with torch.no_grad():
+        gru_sequence(xi, masks, h0, w_hh, b_hh)
+    assert counters() == (before[0] + 2,) + tuple(n + 1 for n in before[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [5, 8])
+def test_gru_training_forward_stores_gates_only_for_the_cluster_route(B):
+    """At H=512 the cluster route takes B=5, not B=8: the training forward
+    saves the gates for the one and nothing for the other, whose backward
+    recomputes them on the grid route."""
+    dev = _card()
+    xi, masks, h0, w_hh, b_hh = _gru_inputs(3, B, 512, dev)
+    cluster = backward_cluster_plan(dev.index, B, 512)[0]
+    assert (cluster > 0) == (B == 5)
+    out = gru_sequence(xi.requires_grad_(), masks, h0, w_hh, b_hh)
+    gates = out.grad_fn.saved_tensors[-1]
+    assert (gates is None) == (cluster == 0)
+    before = gru_sequence_backward.cluster_launches
+    out.sum().backward()
+    assert gru_sequence_backward.cluster_launches == before + (cluster > 0)
 
 
 @pytest.mark.cuda
@@ -134,6 +233,25 @@ def test_gru_backward_step_is_graph_capturable():
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         got = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 32])
+def test_gru_backward_cluster_route_is_graph_capturable(T):
+    """The cluster launch and the weight gradient's launch capture into a
+    CUDA graph once the plan has been asked for."""
+    dev = _card()
+    xi, masks, h0, w_hh, b_hh = _gru_inputs(T, 5, 512, dev)
+    out, gates = gru_sequence_plain(xi, masks, h0, w_hh, b_hh, return_gates=True)
+    d_out = torch.ones_like(out)
+    want = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out, gates=gates)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out, gates=gates)
     graph.replay()
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -267,9 +385,24 @@ def test_gru_backward_wrapper_rejects_bad_inputs():
         gru_sequence_backward(out, xi, masks, h0, w_hh, b_hh, torch.empty(3, 2, 8, device="meta").transpose(0, 1))
     with pytest.raises(ValueError, match="contiguous along its rows"):
         gru_sequence_backward(out, xi, masks, h0.t().contiguous().t(), w_hh, b_hh, out)
+    with pytest.raises(ValueError, match="gates has shape"):
+        gru_sequence_backward(out, xi, masks, h0, w_hh, b_hh, out, gates=torch.empty(2, 3, 3 * 8, device="meta"))
     xi, masks, h0, w_hh, b_hh = _gru_inputs(2, 3, 6, "meta")
     with pytest.raises(ValueError, match="multiple of 4"):
         gru_sequence_backward(torch.empty(2, 3, 6, device="meta"), xi, masks, h0, w_hh, b_hh, torch.empty(2, 3, 6, device="meta"))
+
+
+def test_gru_weight_gradient_wrapper_rejects_bad_inputs():
+    _, masks, h0, _, _ = _gru_inputs(2, 3, 8, "meta")
+    d_gh, out = torch.empty(2, 3, 24, device="meta"), torch.empty(2, 3, 8, device="meta")
+    with pytest.raises(ValueError, match="d_gh has shape"):
+        gru_weight_gradient(d_gh[:, :, :16], masks, h0, out)
+    with pytest.raises(ValueError, match="float32"):
+        gru_weight_gradient(d_gh, masks.double(), h0, out)
+    with pytest.raises(ValueError, match="d_gh must be contiguous"):
+        gru_weight_gradient(torch.empty(3, 2, 24, device="meta").transpose(0, 1), masks, h0, out)
+    with pytest.raises(ValueError, match="contiguous along its rows"):
+        gru_weight_gradient(d_gh, masks, h0.t().contiguous().t(), out)
 
 
 def test_resize_wrapper_rejects_bad_inputs():

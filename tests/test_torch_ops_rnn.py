@@ -6,7 +6,9 @@ does. Tolerance: atol 1e-5 in f32, the same as that file (the two differ only
 in summation order). The gradient (`gru_sequence_backward_plain`, the explicit
 formula the backward kernel implements) is held against torch autograd
 through the plain loop and against `jax.vjp` of the JAX RNNStateEncoder's
-GRU scan, at the same tolerance.
+GRU scan, at the same tolerance, both recomputing the gates and reading
+those the forward saved; so is the weight gradient taken over all steps at
+once (`gru_weight_gradient_plain`, d_w_hh held relative to its scale).
 """
 
 import numpy as np
@@ -19,7 +21,8 @@ import jax.numpy as jnp
 from vlnce_tpu.models.rnn_state_encoder import RNNStateEncoder as JaxRNNStateEncoder
 from vlnce_tpu.ops.pallas_rnn import gru_sequence as jax_gru_sequence
 from vlnce_torch.models.rnn_state_encoder import RNNStateEncoder
-from vlnce_torch.ops.rnn import gru_sequence, gru_sequence_backward, gru_sequence_backward_plain, gru_sequence_plain
+from vlnce_torch.ops.rnn import (gru_sequence, gru_sequence_backward, gru_sequence_backward_plain, gru_sequence_plain,
+                                 gru_weight_gradient, gru_weight_gradient_plain)
 
 ATOL = 1e-5
 
@@ -145,11 +148,10 @@ def test_plain_gru_backward_matches_autograd(T):
     assert float(states.grad[:, 1].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("T", [1, 3, 16])
-def test_plain_gru_backward_matches_jax_vjp(T):
-    """The JAX encoder with an identity input projection (x is xi), so that
-    the cotangent of x is d_xi."""
-    d_out, xi, masks, h0, w_hh, b_hh = _backward_case(T)
+def _jax_gradients(d_out, xi, masks, h0, w_hh, b_hh):
+    """jax.vjp of the JAX encoder's GRU scan with an identity input
+    projection (x is xi), so that the cotangent of x is d_xi: (d_xi, d_h0,
+    d_w_hh, d_b_hh)."""
     B, H = h0.shape
     jax_enc = JaxRNNStateEncoder(input_size=3 * H, hidden_size=H, rnn_type="GRU")
     params = {"cell": {"weight_ih": jnp.eye(3 * H), "bias_ih": jnp.zeros(3 * H), "weight_hh": jnp.asarray(w_hh), "bias_hh": jnp.asarray(b_hh)}}
@@ -159,14 +161,80 @@ def test_plain_gru_backward_matches_jax_vjp(T):
 
     _, vjp = jax.vjp(outputs, params, jnp.asarray(xi), jnp.asarray(h0)[:, None, :])
     d_params, d_x, d_states = vjp(jnp.asarray(d_out))
-    ref = d_x, d_states[:, 0], d_params["cell"]["weight_hh"], d_params["cell"]["bias_hh"]
+    return d_x, d_states[:, 0], d_params["cell"]["weight_hh"], d_params["cell"]["bias_hh"]
 
+
+def _strided_args(xi, masks, h0, w_hh, b_hh):
+    """The plain functions' inputs with h0 as the strided `states[:, 0]`."""
     states = torch.from_numpy(np.stack([h0, np.full_like(h0, np.nan)], axis=1))
-    args = [torch.from_numpy(a) for a in (xi, masks)] + [states[:, 0]] + [torch.from_numpy(a) for a in (w_hh, b_hh)]
+    return [torch.from_numpy(a) for a in (xi, masks)] + [states[:, 0]] + [torch.from_numpy(a) for a in (w_hh, b_hh)]
+
+
+@pytest.mark.parametrize("T", [1, 3, 16])
+def test_plain_gru_backward_matches_jax_vjp(T):
+    d_out, xi, masks, h0, w_hh, b_hh = _backward_case(T)
+    ref = _jax_gradients(d_out, xi, masks, h0, w_hh, b_hh)
+    args = _strided_args(xi, masks, h0, w_hh, b_hh)
     out = gru_sequence_plain(*args)
     got = gru_sequence_backward_plain(torch.from_numpy(d_out), *args, out)
     for name, a, b in zip(("d_xi", "d_h0", "d_w_hh", "d_b_hh"), got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("T", [1, 3, 16])
+def test_saved_gates_rebuild_the_pallas_outputs(T):
+    """r, z, n and hh_n as the training forward saves them give back the
+    Pallas kernel's outputs, and n is tanh(xi_n + r * hh_n)."""
+    _, xi, masks, h0, w_hh, b_hh = _backward_case(T)
+    ref = np.asarray(jax_gru_sequence(*(jnp.asarray(a) for a in (xi, masks, h0, w_hh, b_hh)), interpret=True))
+    args = _strided_args(xi, masks, h0, w_hh, b_hh)
+    out, gates = gru_sequence_plain(*args, return_gates=True)
+    assert tuple(gates.shape) == (T, h0.shape[0], 4 * h0.shape[1]) and torch.equal(out, gru_sequence_plain(*args))
+    H = h0.shape[1]
+    r, z, n, hh_n = gates.split(H, dim=2)
+    h_prev = torch.cat([args[2][None], out[:-1]]) * args[1]
+    np.testing.assert_allclose(((1.0 - z) * n + z * h_prev).numpy(), ref, atol=ATOL)
+    np.testing.assert_allclose(n.numpy(), torch.tanh(args[0][..., 2 * H :] + r * hh_n).numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("T", [1, 3, 16])
+def test_plain_gru_backward_from_saved_gates_matches_jax_vjp(T):
+    d_out, xi, masks, h0, w_hh, b_hh = _backward_case(T)
+    ref = _jax_gradients(d_out, xi, masks, h0, w_hh, b_hh)
+    args = _strided_args(xi, masks, h0, w_hh, b_hh)
+    out, gates = gru_sequence_plain(*args, return_gates=True)
+    got = gru_sequence_backward(torch.from_numpy(d_out), *args, out, gates=gates)  # the plain version on the CPU
+    for name, a, b in zip(("d_xi", "d_h0", "d_w_hh", "d_b_hh"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("T", [1, 3, 16])
+def test_saved_gate_backward_equals_the_recomputing_one(T):
+    d_out, xi, masks, h0, w_hh, b_hh = _backward_case(T, seed=7)
+    args = _strided_args(xi, masks, h0, w_hh, b_hh)
+    out, gates = gru_sequence_plain(*args, return_gates=True)
+    recomputed = gru_sequence_backward_plain(torch.from_numpy(d_out), *args, out)
+    saved = gru_sequence_backward_plain(torch.from_numpy(d_out), *args, out, gates=gates)
+    for name, a, b in zip(("d_xi", "d_h0", "d_w_hh", "d_b_hh"), saved, recomputed):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("T", [1, 3, 16])
+def test_weight_gradient_over_all_steps_matches_jax_vjp(T):
+    """d_gh rebuilt from d_xi and the saved r (d_gh = d_xi but for the n
+    gate's r factor); the weight gradient over all T * B rows at once
+    against the JAX scan's, d_w_hh held relative to its scale."""
+    d_out, xi, masks, h0, w_hh, b_hh = _backward_case(T, seed=5)
+    ref = _jax_gradients(d_out, xi, masks, h0, w_hh, b_hh)
+    args = _strided_args(xi, masks, h0, w_hh, b_hh)
+    out, gates = gru_sequence_plain(*args, return_gates=True)
+    d_xi = gru_sequence_backward_plain(torch.from_numpy(d_out), *args, out, gates=gates)[0]
+    H = h0.shape[1]
+    d_gh = torch.cat([d_xi[..., : 2 * H], d_xi[..., 2 * H :] * gates[..., :H]], dim=2)
+    d_w_hh, d_b_hh = gru_weight_gradient(d_gh, args[1], args[2], out)  # the plain version on the CPU
+    assert torch.equal(d_w_hh, gru_weight_gradient_plain(d_gh, args[1], args[2], out)[0])
+    for name, a, b in (("d_w_hh", d_w_hh, ref[2]), ("d_b_hh", d_b_hh, ref[3])):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL * max(1.0, float(np.abs(b).max())), err_msg=name)
 
 
 def test_rnn_state_encoder_gru_is_differentiable_like_jax():
