@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch port: builds its CUDA kernels, holds each against
-its plain PyTorch version, and drives the RxR CMA act step, eval and inference
-and the R2R CMA DAgger training at full width.
+its plain PyTorch version, and drives the RxR CMA act step, eval and inference,
+the R2R CMA DAgger training, and the RxR CMA and Seq2Seq recollect training at
+full width.
 
     python3 chip_smoke.py
 
@@ -53,7 +54,32 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    move, the others must; the optimizer holds state for the trainable ones
    only; the action loss must fall; then the train step alone on a seeded
    batch at T=32, N=5 for its warm split (forward, backward, optimizer);
-8. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+8. the recollect trainer's shapes (`phase_recollect_shapes`): the cluster
+   granted at B in {1, 2, 3}; B1's forward storing the gates, its
+   cluster-route backward and weight gradient against their plain versions
+   at B in {1, 2, 3}, T in {1, 57, 250}; their device times at T=32, B=5
+   and T in {48, 256}, B=3 beside bound, plain loop and cuDNN's GRU; B2 over
+   one batch of 144 collated frames beside bound and F.interpolate;
+9. recollect training (`phase_recollect`): `run_exp(rxr_cma_en.yaml,
+   "train")` at full width over 3 forked workers (synthetic scenes, 480x640
+   frames, GT actions from the shortest-path oracle), IL.batch_size 3,
+   preload_size 3, 6 episodes of at most 40 steps, 2 epochs,
+   effective_batch_size 6 (two batches per Adam step); per train step B2
+   twice, B1 twice forward, twice backward on the cluster route and twice
+   the weight gradient; frozen weights bit-equal, losses finite, ckpt.1.ckpt
+   with its epoch and step, then eval of it over the forked pool; the train
+   step's split by CUDA events, the batches' T and the re-simulation's
+   env-steps/s;
+10. `phase_recollect_against_plain`: one seeded f32 accumulation step of RxR
+   CMA at T=32, N=3 from raw frames (TF32 off), through the kernels (B2 and
+   both B1 kernels), through the plain versions under autograd, and with B1
+   plain and B2 the kernel: the losses must agree, B2 within its u8
+   tolerance on those frames, and every gradient against the B1-plain run
+   (the same frames) at the tolerance of step 7's f32 check;
+11. `phase_seq2seq`: `run_exp(rxr_seq2seq.yaml, "train")` for one epoch
+   (one B1 forward, backward and weight gradient and two B2 launches per
+   train step), then eval of its checkpoint;
+12. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -602,16 +628,19 @@ def _run(act_step, policy, batches, dev, deterministic, generator=None):
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(resize: bool = True):
     """Swap the plain PyTorch versions in where the act step calls the
-    kernels' wrappers, for the whole-path reference run."""
+    kernels' wrappers, for the whole-path reference run; with `resize`
+    False B2 stays the kernel and only B1 is swapped."""
     import vlnce_torch.models.rnn_state_encoder as rse
     import vlnce_torch.ops.obs_transforms as ot
     from vlnce_torch.ops.preprocess import fused_resize_normalize_plain
     from vlnce_torch.ops.rnn import gru_sequence_plain
 
     saved = rse.gru_sequence, ot.fused_resize_normalize
-    rse.gru_sequence, ot.fused_resize_normalize = gru_sequence_plain, fused_resize_normalize_plain
+    rse.gru_sequence = gru_sequence_plain
+    if resize:
+        ot.fused_resize_normalize = fused_resize_normalize_plain
     try:
         yield
     finally:
@@ -1097,6 +1126,418 @@ def phase_training(dev):
     return launches, eval_launches
 
 
+# ---------------------------------------------------------------------------
+# the recollect trainer's shapes: B1 at B = IL.batch_size 3 up to the YAML's
+# longest episode, B2 over every collated frame of a batch
+# ---------------------------------------------------------------------------
+
+RECOLLECT_N = 3  # IL.batch_size of the RxR baselines
+RECOLLECT_T = 48  # the longest padded batch of phase_recollect (episodes of at most 40 steps)
+RECOLLECT_T_MAX = 256  # max_traj_len 250 of the YAMLs, padded to a multiple of 16
+
+
+def _gru_bound(T, Bn, H, reserve):
+    """The B1 forward's bound at [T, Bn, H]: it reads xi, masks, h0, w_hh and
+    b_hh once, writes out (and the gates with `reserve`); one product per
+    step and about 12 operations per (row, unit) for the gates."""
+    moved = 4 * (T * Bn * 3 * H + T * Bn + Bn * H + 3 * H * H + 3 * H + T * Bn * H + (T * Bn * 4 * H if reserve else 0))
+    return bound_ms(moved, T * (2 * 3 * H * H * Bn + 12 * H * Bn))
+
+
+def phase_recollect_shapes(dev):
+    """B1 at the recollect trainer's batch (B <= 3) and lengths up to the
+    YAMLs' 250 steps: the cluster granted at B in {1, 2, 3}; the forward
+    storing the gates, the cluster-route backward and the weight gradient
+    against their plain versions at T in {1, 57, 250}; device times at the
+    train step's shapes (T=32, B=5 and the recollect T in {48, 256}, B=3)
+    beside the bound and cuDNN's GRU. B2 over one batch of collated frames
+    (T=48 x N=3 = 144 RGB and depth frames at 480x640) against its plain
+    version, timed beside the bound and F.interpolate. Returns fields for the
+    kernels line of B1, its backward, its weight gradient and B2."""
+    import torch.nn.functional as F
+
+    from vlnce_torch.ops.preprocess import fused_resize_normalize, fused_resize_normalize_plain
+    from vlnce_torch.ops.rnn import (_forward_launch, backward_cluster_plan, gru_sequence_backward,
+                                     gru_sequence_backward_plain, gru_sequence_plain, gru_weight_gradient)
+
+    H = 512
+    g = torch.Generator(device="cpu").manual_seed(6)
+    for Bn in (1, 2, 3):
+        cluster, active = backward_cluster_plan(dev.index, Bn, H)
+        print(f"B1 backward cluster route at B={Bn} H={H}: cluster of {cluster} blocks granted, "
+              f"cudaOccupancyMaxActiveClusters {active}")
+        assert cluster > 0 and active >= 1, f"the cluster route does not take B={Bn}"
+
+    def inputs(T, Bn):
+        xi = torch.randn(T, Bn, 3 * H, generator=g)
+        masks = torch.ones(T, Bn, 1)
+        masks[T // 3, ::2] = 0.0
+        masks[(2 * T) // 3, 1::2] = 0.0
+        states = torch.stack([torch.randn(Bn, H, generator=g), torch.full((Bn, H), float("nan"))], dim=1)
+        w_hh = torch.randn(3 * H, H, generator=g) * H**-0.5
+        b_hh = torch.randn(3 * H, generator=g) * 0.1
+        d_out = torch.randn(T, Bn, H, generator=g)
+        xi, masks, states, w_hh, b_hh, d_out = (t.to(dev) for t in (xi, masks, states, w_hh, b_hh, d_out))
+        return d_out, xi, masks, states[:, 0], w_hh, b_hh
+
+    worst = {"forward": 0.0, "gates": 0.0, "backward": 0.0}
+    for T in (1, 57, 250):
+        for Bn in (1, 2, 3):
+            d_out, xi, masks, h0, w_hh, b_hh = inputs(T, Bn)
+            out, gates = _forward_launch(xi, masks, h0, w_hh, b_hh, reserve=True)
+            ref_out, ref_gates = gru_sequence_plain(xi, masks, h0, w_hh, b_hh, return_gates=True)
+            before = gru_sequence_backward.cluster_launches
+            got = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, ref_out, gates=ref_gates)
+            ref = gru_sequence_backward_plain(d_out, xi, masks, h0, w_hh, b_hh, ref_out, gates=ref_gates)
+            torch.cuda.synchronize()
+            assert gru_sequence_backward.cluster_launches == before + 1, "the backward left the cluster route"
+            errs = {"forward": float((out - ref_out).abs().max()), "gates": float((gates - ref_gates).abs().max())}
+            by_output = {}
+            for name, a, b in zip(("d_xi", "d_h0", "d_w_hh", "d_b_hh"), got, ref):
+                scale = max(1.0, float(b.abs().max()))
+                by_output[name] = float((a - b).abs().max()) / scale
+            errs["backward"] = max(by_output.values())
+            print(f"B1 at T={T} B={Bn} H={H}, strided h0, resets at T/3 and 2T/3: forward storing the gates max_abs_err "
+                  f"out {errs['forward']:.3e} gates {errs['gates']:.3e} (atol 1e-4); cluster-route backward and weight "
+                  f"gradient, max err relative to max(1, scale): " + ", ".join(f"{n} {e:.3e}" for n, e in by_output.items())
+                  + " (1e-5)")
+            assert errs["forward"] <= 1e-4 and errs["gates"] <= 1e-4 and errs["backward"] <= 1e-5, (T, Bn, errs)
+            worst = {k: max(worst[k], errs[k]) for k in worst}
+
+    # device times at the train steps' shapes
+    fields = {"forward": {}, "backward": {}, "weight": {}}
+    for T, Bn in ((TRAIN_T, TRAIN_B), (RECOLLECT_T, RECOLLECT_N), (RECOLLECT_T_MAX, RECOLLECT_N)):
+        d_out, xi, masks, h0, w_hh, b_hh = inputs(T, Bn)
+        out, gates = _forward_launch(xi, masks, h0, w_hh, b_hh, reserve=True)
+        fwd_ms = graph_ms(lambda: _forward_launch(xi, masks, h0, w_hh, b_hh, reserve=True), reps=5)
+        plain_ms = cuda_ms(lambda: gru_sequence_plain(xi, masks, h0, w_hh, b_hh), iters=3, warmup=1)
+        bwd_ms = graph_ms(lambda: gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out, gates=gates), reps=5)
+        _, _, d_w, _ = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out, gates=gates)
+        d_gh = torch.randn(T, Bn, 3 * H, device=dev)
+        w_ms = graph_ms(lambda: gru_weight_gradient(d_gh, masks, h0, out), reps=5)
+        # yardsticks only, the port never calls them: cuDNN's GRU over [T, Bn, H]
+        # (no resets), forward, and autograd's backward through it (CUDA events)
+        gru = torch.nn.GRU(H, H).to(dev)
+        x = torch.randn(T, Bn, H, device=dev, requires_grad=True)
+        h0c = h0[None].contiguous()
+        with torch.no_grad():
+            lib_fwd_ms = cuda_ms(lambda: gru(x, h0c), iters=20)
+        y, _ = gru(x, h0c)
+        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, [x] + list(gru.parameters()), d_out, retain_graph=True), iters=20)
+        fb_ms, fb_by = _gru_bound(T, Bn, H, reserve=True)
+        rows, product = T * Bn, 2 * T * Bn * 3 * H * H
+        # the wrapper's work given the gates: two products (d_gh . w_hh and the weight gradient), d_gh not stored
+        bb_ms, bb_by = bound_ms(nbytes(d_out, gates, masks, h0, out, w_hh) + nbytes(xi, h0, w_hh, b_hh), 2 * product + rows * 23 * H)
+        wb_ms, wb_by = bound_ms(nbytes(d_gh, masks, h0, out, w_hh, b_hh), product + rows * 3 * H)
+        tag = f"T{T}_B{Bn}"
+        print(f"B1 at T={T} B={Bn} H={H}, device time by graph replay: forward storing the gates {fwd_ms:.4f} ms (bound "
+              f"{fb_ms:.4f} {fb_by}; plain loop {plain_ms:.4f} by CUDA events; cuDNN nn.GRU forward, no resets, {lib_fwd_ms:.4f} "
+              f"by CUDA events); backward wrapper (cluster route + weight gradient) {bwd_ms:.4f} ms (its bound given the gates "
+              f"{bb_ms:.4f} {bb_by}; autograd through cuDNN nn.GRU {lib_bwd_ms:.4f} by CUDA events); weight gradient "
+              f"{w_ms:.4f} ms (bound {wb_ms:.4f} {wb_by}); |d_w_hh| max {float(d_w.abs().max()):.3e}")
+        fields["forward"].update({f"{tag}_ms": fwd_ms, f"{tag}_bound_ms": fb_ms, f"{tag}_plain_ms": plain_ms,
+                                  f"{tag}_library_ms": lib_fwd_ms})
+        fields["backward"].update({f"{tag}_wrapper_ms": bwd_ms, f"{tag}_bound_ms": bb_ms, f"{tag}_library_ms": lib_bwd_ms})
+        fields["weight"].update({f"{tag}_ms": w_ms, f"{tag}_bound_ms": wb_ms})
+    fields["forward"]["max_abs_err_recollect"] = max(worst["forward"], worst["gates"])
+    fields["backward"]["max_err_recollect"] = worst["backward"]
+
+    # B2 over one batch of collated frames, as the recollect train step runs it
+    frames = RECOLLECT_T * RECOLLECT_N
+    rgb = torch.randint(0, 256, (frames, 480, 640, 3), generator=g, dtype=torch.uint8).to(dev)
+    depth = torch.rand(frames, 480, 640, 1, generator=g).to(dev)
+    depth[-RECOLLECT_N:] = 1.0  # a padded step: collate fills it with ones
+    calls = [(rgb, dict(normalize=False, out_dtype=torch.uint8, scale_values=False)),
+             (depth, dict(normalize=False, out_dtype=torch.float32, scale_values=False))]
+    err = 0.0
+    for x, kw in calls:
+        out = fused_resize_normalize(x, (256, 341), **kw)
+        ref = fused_resize_normalize_plain(x, (256, 341), **kw)
+        torch.cuda.synchronize()
+        err = max(err, _resize_err(out, ref, kw["out_dtype"], False))
+    floats = [x.permute(0, 3, 1, 2).float() for x, _ in calls]
+
+    def kernel():
+        for x, kw in calls:
+            fused_resize_normalize(x, (256, 341), **kw)
+
+    def plain():
+        for x, kw in calls:
+            fused_resize_normalize_plain(x, (256, 341), **kw)
+
+    def library():  # yardstick only: the port never calls F.interpolate
+        for xf in floats:
+            F.interpolate(xf, size=(256, 341), mode="bilinear", align_corners=False, antialias=False)
+
+    ms, lib_ms = graph_ms(kernel, reps=3, replays=5), graph_ms(library, reps=3, replays=5)
+    plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    moved = sum(nbytes(x) + x.shape[0] * 256 * 341 * x.shape[3] * kw["out_dtype"].itemsize for x, kw in calls)
+    b_ms, b_by = bound_ms(moved, sum(11 * x.shape[0] * 256 * 341 * x.shape[3] for x, _ in calls))
+    print(f"B2 on a recollect batch (T={RECOLLECT_T} x N={RECOLLECT_N} = {frames} frames, rgb u8 + depth f32, 480x640 -> "
+          f"256x341), device time by graph replay: kernel {ms:.4f} ms, F.interpolate on f32 {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}, {moved / 1e6:.0f} MB); plain {plain_ms:.4f} ms (CUDA events); max_abs_err {err:.3e}")
+    del rgb, depth, floats
+    fields["resize"] = {"recollect_batch_frames": frames, "recollect_batch_ms": ms, "recollect_batch_bound_ms": b_ms,
+                        "recollect_batch_library_ms": lib_ms, "recollect_batch_plain_ms": plain_ms,
+                        "max_abs_err_recollect": err}
+    return fields
+
+
+# ---------------------------------------------------------------------------
+# the recollect trainer: RxR CMA over live re-simulated frames, through the
+# entry point, then eval of its checkpoint; Seq2Seq the same way
+# ---------------------------------------------------------------------------
+
+RECOLLECT_EPISODES, RECOLLECT_EPOCHS = 6, 2
+
+
+def _recollect_opts(tmp, epochs, effective_batch_size):
+    """Options of a recollect run at full width over RECOLLECT_N forked
+    workers: synthetic scenes at 480x640, RECOLLECT_EPISODES episodes of at
+    most 40 steps (GT actions from the shortest-path oracle: the repository
+    has no GT file), `preload_size` at the batch size."""
+    common = [
+        "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0",
+        "TASK_CONFIG.DATASET.NUM_SCENES", RECOLLECT_N,  # one scene per worker
+        "TASK_CONFIG.DATASET.NUM_EPISODES", RECOLLECT_EPISODES,
+        "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40,
+        "NUM_ENVIRONMENTS", RECOLLECT_N,
+        "TENSORBOARD_DIR", "", "VERBOSE", False, "LOG_FILE", os.path.join(tmp, "run.log"),
+        "CHECKPOINT_FOLDER", os.path.join(tmp, "checkpoints"),
+    ]
+    train = common + [
+        "IL.load_from_ckpt", False, "IL.epochs", epochs, "IL.batch_size", RECOLLECT_N,
+        "IL.RECOLLECT_TRAINER.preload_size", RECOLLECT_N,
+        "IL.RECOLLECT_TRAINER.effective_batch_size", effective_batch_size,
+        "IL.RECOLLECT_TRAINER.trajectories_file", os.path.join(tmp, "trajectories.json.gz"),
+        "IL.RECOLLECT_TRAINER.gt_file", os.path.join(tmp, "no_gt_{split}_{role}.json.gz"),
+    ]
+    return common, train
+
+
+def _run_recollect(exp, train_opts, per_step):
+    """`run_exp(exp, "train")` with the launch counters set to 0 just before
+    and read just after; each kernel must have risen by `per_step` (B1, its
+    backward, its weight gradient, B2) per train step, and every backward
+    must have taken the cluster route. Returns (trainer, launches, wall)."""
+    from vlnce_torch.run import run_exp
+    from vlnce_torch.trainers.recollect_trainer import RecollectTrainer
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    RecollectTrainer.time_train_steps = True  # the split of every train step by CUDA events
+    try:
+        trainer = run_exp(exp, "train", train_opts)
+    finally:
+        RecollectTrainer.time_train_steps = False
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    steps = len(trainer.loss_history)
+    print(f"{exp}: train launches over {steps} train steps: {json.dumps(launches)}")
+    assert steps > 0 and list(launches.values()) == [n * steps for n in per_step], (launches, steps)
+    assert _cluster_launches() == launches["gru_sequence_backward"], "B1's backward left the cluster route"
+    losses = np.array([h[1:] for h in trainer.loss_history])
+    assert np.isfinite(losses).all(), "non-finite training loss"
+
+    clock, first = trainer.step_clock.totals(), dict(trainer.step_clock.first)
+    order = ("upload", "forward", "backward", "optimizer")
+    assert sorted(clock) == sorted(order) and trainer.step_clock.steps == steps
+    warm = {k: (clock[k] - first[k]) / max(steps - 1, 1) for k in order}  # the first step warms the libraries up
+    sim = trainer.resimulation
+    print(f"{exp}: run_exp took {wall:.1f} s; train step by CUDA events, mean of the {steps - 1} steps after the first: "
+          f"{sum(warm.values()):.2f} ms = " + ", ".join(f"{k} {warm[k]:.2f}" for k in order) + " ms; the first step "
+          + ", ".join(f"{k} {first[k]:.1f}" for k in order) + f" ms; T values seen {json.dumps(trainer.train_lengths, sort_keys=True)}"
+          f" at N={RECOLLECT_N}; losses (loss, action, aux) first {losses[0].round(4).tolist()}, last {losses[-1].round(4).tolist()}; "
+          f"re-simulation {sim['env_steps']} env steps, {sim['episodes']} episodes in {sim['seconds']:.2f} s on the prefetch thread, "
+          f"{sim['env_steps'] / sim['seconds']:.1f} env-steps/s; peak card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return trainer, launches, wall
+
+
+def phase_recollect(dev):
+    """`run_exp(rxr_cma_en.yaml, "train")` at full width: the recollect
+    trainer over RECOLLECT_N forked workers, IL.batch_size 3, 2 epochs,
+    effective_batch_size 6 so that two batches accumulate per Adam step. Per
+    train step B2 twice (RGB and depth of every collated frame), B1 twice
+    forward (storing the gates), twice backward on the cluster route, twice
+    the weight gradient. Frozen weights stay bit-equal; `ckpt.1.ckpt` is
+    written, then evaluated over the forked pool."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
+    from vlnce_torch.models.cma_policy import CMAPolicy
+    from vlnce_torch.ops.obs_transforms import apply_obs_transforms_obs_space, get_active_obs_transforms
+    from vlnce_torch.parallel.optim import trainable_mask
+    from vlnce_torch.utils.checkpoints import load_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        common, train_opts = _recollect_opts(tmp, RECOLLECT_EPOCHS, 2 * RECOLLECT_N)
+        # the seeded weights the trainer starts from: the same config gives the same draw
+        cfg = get_config(EXP, train_opts)
+        space = apply_obs_transforms_obs_space(observation_space_from_config(cfg.TASK_CONFIG), get_active_obs_transforms(cfg))
+        start = CMAPolicy.from_config(cfg, space, action_space_from_config(cfg.TASK_CONFIG))
+        mask = trainable_mask(start, cfg.MODEL)
+        start = {k: v.cpu() for k, v in start.state_dict().items()}
+
+        trainer, launches, _ = _run_recollect(EXP, train_opts, per_step=(2, 2, 2, 2))
+        steps = len(trainer.loss_history)
+        assert steps == RECOLLECT_EPOCHS * math.ceil(RECOLLECT_EPISODES / RECOLLECT_N), steps
+        after = trainer.policy.state_dict()
+        frozen = {k for k, trains in mask.items() if not trains}
+        moved = {k for k in mask if not torch.equal(after[k].cpu(), start[k])}
+        assert moved == set(mask) - frozen, (sorted(moved & frozen)[:3], sorted(set(mask) - frozen - moved)[:3])
+        assert all(torch.equal(after[k].cpu(), start[k]) for k in start if k not in mask), "a buffer moved"
+        print(f"recollect weights: {len(frozen)} frozen tensors and every buffer bit-equal to the seeded start, "
+              f"{len(moved)} trainable tensors changed; {steps // 2} Adam steps over {steps} batches")
+
+        last = os.path.join(tmp, "checkpoints", f"ckpt.{RECOLLECT_EPOCHS - 1}.ckpt")
+        saved = load_checkpoint(last)
+        assert saved["extra_state"] == {"epoch": RECOLLECT_EPOCHS - 1, "step_id": steps}, saved["extra_state"]
+        assert len(saved["optim_state"]["state"]) == len(set(mask) - frozen)
+        evaluator, eval_launches, eval_wall = _run_loop("eval", common + [
+            "TASK_CONFIG.DATASET.NUM_EPISODES", 2 * RECOLLECT_N, "EVAL.EPISODE_COUNT", 2 * RECOLLECT_N,
+            "EVAL.USE_CKPT_CONFIG", False, "EVAL_CKPT_PATH_DIR", last, "RESULTS_DIR", os.path.join(tmp, "evals"),
+        ])
+        head = "action_distribution.linear.weight"
+        assert torch.equal(evaluator.policy.state_dict()[head], after[head]), "eval did not load the trained weights"
+        with open(os.path.join(tmp, "evals", f"stats_ckpt_0_{cfg.EVAL.SPLIT}.json")) as f:
+            stats = json.load(f)
+        assert sorted(stats) == sorted(RXR_MEASURES) and all(math.isfinite(v) for v in stats.values()), stats
+        print(f"eval of {os.path.basename(last)} ({os.path.getsize(last) / 1e6:.1f} MB): "
+              f"{len(evaluator._last_eval_episode_stats)} episodes in {eval_wall:.1f} s, stats "
+              f"{json.dumps({k: round(v, 4) for k, v in stats.items()})}")
+    return launches, eval_launches
+
+
+def build_recollect_step(dev, dtype: str, T: int = RECOLLECT_T, N: int = RECOLLECT_N, seed: int = 21,
+                         apply: bool = True):
+    """The RxR CMA config at full width on `dev` in compute dtype `dtype`, its
+    policy with seeded weights, masked Adam, and one recollect train step
+    on a seeded [T, N] batch already on the card as the trainer uploads it:
+    raw frames (u8 RGB, f32 depth at 480x640, BERT-feature instructions of
+    the env's format), time-major [T*N, ...], with prev actions, masks,
+    oracle actions and inflection weights [T, N]. The step runs the obs
+    transforms (B2 twice) and the accumulation step at scale 2, stepping
+    Adam with `apply`; it returns (loss, action_loss, aux_loss). Returns
+    (cfg, policy, optimizer, step, batch)."""
+    from vlnce_torch.envs.batch import stack_obs
+    from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms
+    from vlnce_torch.parallel.il_step import build_il_accum_step
+    from vlnce_torch.parallel.optim import masked_adam
+
+    cfg, policy, _ = build_act_step(dev, dtype)
+    transforms = get_active_obs_transforms(cfg)
+    optimizer = masked_adam(cfg.IL.lr, policy, cfg.MODEL)
+    rng = np.random.RandomState(seed)
+    raw = stack_obs([o for step in episode_observations(cfg.TASK_CONFIG, seed=seed + 1, steps=1) for o in step][:N])
+    frames = {k: np.concatenate([v] * T) for k, v in raw.items()}  # time-major [T*N]: each env's instruction over T
+    frames["rgb"] = rng.randint(0, 256, frames["rgb"].shape, dtype=np.uint8)
+    frames["depth"] = rng.rand(*frames["depth"].shape).astype(np.float32)
+    frames = {k: torch.from_numpy(v).to(dev) for k, v in frames.items()}
+    masks = torch.ones(T, N, device=dev)
+    masks[0] = 0.0
+    weights = torch.from_numpy(np.where(rng.rand(T, N) < 0.3, 1.9, 1.0).astype(np.float32)).to(dev)
+    weights[T - 5:, 0] = 0.0  # one episode shorter than the batch
+    prev, corrected = (torch.from_numpy(rng.randint(0, 6, (T, N))).to(dev) for _ in range(2))
+    accum_step = build_il_accum_step(policy, optimizer, apply)
+
+    def step():
+        obs = apply_obs_transforms_batch(frames, transforms)
+        obs = {k: v.reshape((T, N) + tuple(v.shape[1:])) for k, v in obs.items()}
+        return accum_step(2.0, obs, prev, masks, corrected, weights)
+
+    return cfg, policy, optimizer, step, (frames, prev, masks, corrected, weights)
+
+
+def phase_recollect_against_plain(dev, T: int = 32, N: int = RECOLLECT_N):
+    """One seeded f32 accumulation step of RxR CMA at [T, N] from raw frames
+    (TF32 off): through the kernels (B2 twice, B1 forward, backward and
+    weight gradient twice), through the plain versions under ordinary
+    autograd, and with only B1 plain (B2 the kernel). The losses of all
+    three must agree within 1e-5 relative. B2's u8 RGB output may round a .5
+    tie the other way from its plain version (its stated tolerance: 1 on at
+    most 0.01% of values, held here on these frames), and every gradient of
+    the step follows those pixels; so the gradients are held at the
+    tolerance of phase_train_step_against_plain (1e-5 of their own scale
+    plus 1e-8 of the largest) against the B1-plain run, which reads the same
+    frames, and their distance from the all-plain run is printed beside the
+    B1-plain run's own."""
+    from vlnce_torch.ops.preprocess import fused_resize_normalize, fused_resize_normalize_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, policy, optimizer, step, (frames, *_) = build_recollect_step(dev, "float32", T, N, apply=False)
+
+    def losses_and_gradients():
+        optimizer.zero_grad(set_to_none=True)
+        return torch.stack(step()), {k: p.grad.clone() for k, p in policy.named_parameters() if p.requires_grad}
+
+    _reset_launches()
+    k_losses, k_grads = losses_and_gradients()
+    launches = _read_launches()
+    assert launches == {"gru_sequence": 2, "gru_sequence_backward": 2, "gru_weight_gradient": 2,
+                        "fused_resize_normalize": 2}, launches
+    assert _cluster_launches() == 2, "B1's backward did not take the cluster route"
+    with plain_versions():
+        p_losses, p_grads = losses_and_gradients()
+    assert _read_launches() == launches, "the plain run launched a kernel"
+    with plain_versions(resize=False):
+        b_losses, b_grads = losses_and_gradients()
+    assert _read_launches()["gru_sequence"] == 2, "the B1-plain run launched B1"
+    assert sorted(k_grads) == sorted(p_grads) == sorted(b_grads) and len(p_grads) > 0
+    rgb = frames["rgb"].reshape(-1, 480, 640, 3)
+    flips = int((fused_resize_normalize(rgb, (256, 341), out_dtype=torch.uint8, scale_values=False).int()
+                 - fused_resize_normalize_plain(rgb, (256, 341), out_dtype=torch.uint8, scale_values=False).int()).abs().sum())
+    err_l = max(float(((k_losses - ref).abs() / ref.abs().clamp(min=1e-30)).max()) for ref in (p_losses, b_losses))
+    largest = max(float(ref.abs().max()) for ref in p_grads.values())
+    values = rgb.shape[0] * 256 * 341 * 3
+    ratios = {}
+    for name, ref in p_grads.items():
+        tol = 1e-5 * float(b_grads[name].abs().max()) + 1e-8 * largest
+        against_b1 = float((k_grads[name] - b_grads[name]).abs().max())
+        ratios[name] = (against_b1 / tol, against_b1, float((k_grads[name] - ref).abs().max()),
+                        float((b_grads[name] - ref).abs().max()), float(ref.abs().max()))
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1][0])[:3]
+    print(f"f32 recollect accumulation step at T={T} N={N} from raw 480x640 frames (TF32 off): losses through the kernels "
+          f"{k_losses.tolist()}, plain {p_losses.tolist()}, B1 plain {b_losses.tolist()} (max relative diff {err_l:.3e}, "
+          f"held at 1e-5); B2's u8 RGB kernel vs plain: {flips} of {values} values differ by 1 (held at 0.01%); "
+          f"{len(p_grads)} gradients, the largest max |plain| {largest:.3e}; nearest to the tolerance against the B1-plain "
+          f"run (1e-5 x max |B1 plain| + 1e-8 x that): "
+          + "; ".join(f"{name} at {r:.3f} of it (|diff| {a:.3e}; against the all-plain run {c:.3e}, the B1-plain run's "
+                      f"own {d:.3e}, max |plain| {e:.3e})" for name, (r, a, c, d, e) in worst))
+    assert all(bool(torch.isfinite(g).all()) for g in k_grads.values()), "non-finite gradient"
+    assert flips <= 1e-4 * values, "B2 differs from its plain version beyond its tolerance"
+    assert err_l <= 1e-5 and worst[0][1][0] <= 1.0, "the f32 recollect step through the kernels disagrees with the plain versions"
+    torch.backends.cudnn.allow_tf32 = True  # the default of the later phases
+
+
+SEQ2SEQ_EXP = "vlnce_torch/config/experiments/rxr_baselines/rxr_seq2seq.yaml"
+
+
+def phase_seq2seq(dev):
+    """`run_exp(rxr_seq2seq.yaml, "train")` for one short epoch at full
+    width (one GRU: per train step one B1 forward, backward and weight
+    gradient, and B2 twice), then eval of `ckpt.0.ckpt` (per act step one B1
+    launch, two of B2)."""
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        common, train_opts = _recollect_opts(tmp, 1, -1)
+        trainer, launches, _ = _run_recollect(SEQ2SEQ_EXP, train_opts, per_step=(1, 1, 1, 2))
+        assert type(trainer.policy).__name__ == "Seq2SeqPolicy"
+        last = os.path.join(tmp, "checkpoints", "ckpt.0.ckpt")
+        evaluator, eval_launches, eval_wall = _run_loop("eval", common + [
+            "TASK_CONFIG.DATASET.NUM_EPISODES", RECOLLECT_N, "EVAL.EPISODE_COUNT", RECOLLECT_N,
+            "EVAL.USE_CKPT_CONFIG", False, "EVAL_CKPT_PATH_DIR", last, "RESULTS_DIR", os.path.join(tmp, "evals"),
+        ], exp=SEQ2SEQ_EXP, per_act_step=(1, 0, 0, 2))
+        head = "action_distribution.linear.weight"
+        assert torch.equal(evaluator.policy.state_dict()[head], trainer.policy.state_dict()[head])
+        with open(os.path.join(tmp, "evals", "stats_ckpt_0_val_unseen.json")) as f:
+            stats = json.load(f)
+        assert sorted(stats) == sorted(RXR_MEASURES) and all(math.isfinite(v) for v in stats.values()), stats
+        print(f"eval of the Seq2Seq {os.path.basename(last)}: {len(evaluator._last_eval_episode_stats)} episodes in "
+              f"{eval_wall:.1f} s, stats {json.dumps({k: round(v, 4) for k, v in stats.items()})}")
+    return launches, eval_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1113,6 +1554,12 @@ def main() -> int:
     paths["training"], paths["training_eval"] = phase_training(dev)
     paths["train_step"] = phase_train_step(dev)
     phase_train_step_against_plain(dev)
+    shapes = phase_recollect_shapes(dev)
+    paths["recollect"], paths["recollect_eval"] = phase_recollect(dev)
+    phase_recollect_against_plain(dev)
+    paths["seq2seq"], paths["seq2seq_eval"] = phase_seq2seq(dev)
+    for k, extra in zip(kernels, (shapes["forward"], shapes["backward"], shapes["weight"], shapes["resize"])):
+        k.update(extra)
     for k in kernels:
         for path, launches in paths.items():
             k[f"launches_{path}"] = launches[k["name"]]

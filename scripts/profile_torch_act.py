@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of the port's RxR CMA act step, or of its R2R CMA train
-step, goes on one CUDA card.
+"""Where the time of the port's RxR CMA act step, of its R2R CMA train step,
+or of its RxR CMA recollect train step goes on one CUDA card.
 
-    python3 scripts/profile_torch_act.py            # the act step
-    python3 scripts/profile_torch_act.py --train    # the IL train step
+    python3 scripts/profile_torch_act.py              # the act step
+    python3 scripts/profile_torch_act.py --train      # the IL train step
+    python3 scripts/profile_torch_act.py --recollect  # the recollect train step
 
 Act mode builds the act step that chip_smoke.py drives (the RxR CMA policy of
 rxr_cma_en.yaml at full width in bf16, seeded weights, B=32, the same seeded
@@ -22,6 +23,13 @@ Train mode builds the train step that chip_smoke.py times
 at T=32, N=5 on the card) and reports the step's time, its device busy time
 and idle share, the busy time of the forward alone (the rest is backward and
 optimizer), and device time by kernel family and name.
+
+Recollect mode builds the recollect train step that chip_smoke.py holds
+against the plain versions (rxr_cma_en.yaml at full width in bf16, one seeded
+batch of raw 480x640 frames at T=48, N=3 already on the card: the obs
+transforms, then the accumulation step, Adam applied) and reports the same,
+with the busy time of the obs transforms and of the frozen encoders apart,
+and the upload of that batch from pinned host memory.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import B, TRAIN_B, TRAIN_T, build_act_step, build_train_step, cuda_ms, episode_observations  # noqa: E402
+from chip_smoke import (B, RECOLLECT_N, RECOLLECT_T, TRAIN_B, TRAIN_T, build_act_step, build_recollect_step,  # noqa: E402
+                        build_train_step, cuda_ms, episode_observations)
 
 PROFILED_STEPS = 10
 FAMILIES = (  # first match wins
@@ -104,12 +113,52 @@ def profile_train_step(dev) -> int:
     return 0
 
 
+def profile_recollect_step(dev) -> int:
+    from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms
+
+    cfg, policy, _, step, (frames, *_) = build_recollect_step(dev, "bfloat16", RECOLLECT_T, RECOLLECT_N)
+    name = torch.cuda.get_device_name(0)
+    T, N = RECOLLECT_T, RECOLLECT_N
+    print(f"device: {name}; recollect train step at T={T}, N={N} ({T * N} raw 480x640 frames on the card), bf16 "
+          f"encoders, {policy.num_params() / 1e6:.1f}M weights")
+    total = cuda_ms(step, iters=10, warmup=3)
+    busy, kernels = device_ms(step, PROFILED_STEPS)
+    transforms = get_active_obs_transforms(cfg)
+    net = policy.net
+    with torch.no_grad():
+        obs = apply_obs_transforms_batch(frames, transforms)
+        parts = {
+            "obs transforms (B2 x2, crops)": device_ms(lambda: apply_obs_transforms_batch(frames, transforms), PROFILED_STEPS)[0],
+            "depth encoder (frozen GN-ResNet50)": device_ms(lambda: net.depth_encoder.visual_encoder(
+                obs["depth"].to(torch.bfloat16).permute(0, 3, 1, 2)), PROFILED_STEPS)[0],
+            "rgb encoder (frozen ResNet50)": device_ms(lambda: net.rgb_encoder(obs), PROFILED_STEPS)[0],
+        }
+    host = {k: v.cpu().numpy() for k, v in frames.items()}
+    from vlnce_torch.envs.batch import to_device
+
+    upload = cuda_ms(lambda: to_device(host, dev), iters=5, warmup=1)
+    nbytes = sum(v.nbytes for v in host.values())
+    print(f"recollect train step: {total:.3f} ms/step (CUDA events, batch on the card); device busy {busy:.3f} ms/step "
+          f"(profiler), idle share {max(0.0, 1 - busy / total):.1%}; upload of the batch's {nbytes / 1e6:.0f} MB of "
+          f"observations from host memory through pinned copies {upload:.3f} ms ({nbytes / upload / 1e6:.1f} GB/s)")
+    print("device busy of parts run alone:")
+    for k, v in parts.items():
+        print(f"  {k:38s} {v:8.3f} ms  {v / busy:6.1%}")
+    families = _print_kernels(kernels, busy)
+    print(json.dumps({"device": name, "T": T, "N": N, "recollect_step_ms": total, "device_busy_ms": busy,
+                      "parts_busy_ms": parts, "upload_ms": upload, "upload_bytes": nbytes,
+                      "families_ms": dict(families)}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_act: no CUDA card visible", file=sys.stderr)
         return 1
     if "--train" in sys.argv[1:]:
         return profile_train_step(torch.device("cuda", 0))
+    if "--recollect" in sys.argv[1:]:
+        return profile_recollect_step(torch.device("cuda", 0))
 
     from vlnce_torch.envs.batch import batch_obs
     from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms

@@ -222,6 +222,36 @@ def test_gru_training_forward_stores_gates_only_for_the_cluster_route(B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("T", [1, 57, 250])
+def test_gru_recollect_shapes_match_plain(T, B):
+    """The recollect trainer's batch (IL.batch_size 3 and below) up to the
+    YAMLs' max_traj_len of 250 at H=512: the training forward storing the
+    gates, the cluster-route backward reading them, and the weight gradient,
+    each against its plain version (resets at T/3, a strided h0, a
+    transposed d_out), at the tolerances of the shorter shapes."""
+    H = 512
+    dev = _card()
+    cluster, active = backward_cluster_plan(dev.index, B, H)
+    assert cluster == _expected_cluster(B, H) and active >= 1
+    xi, masks, h0, w_hh, b_hh = _gru_inputs(T, B, H, dev, seed=3)
+    masks[T // 3] = 0.0
+    h0 = _strided(h0)
+    out, gates = _forward_launch(xi, masks, h0, w_hh, b_hh, reserve=True)
+    plain_out, plain_gates = gru_sequence_plain(xi, masks, h0, w_hh, b_hh, return_gates=True)
+    g = torch.Generator().manual_seed(T * 10 + B)
+    d_out = torch.randn(B, T, H, generator=g).to(dev).transpose(0, 1)
+    before = gru_sequence_backward.cluster_launches
+    got = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, plain_out, gates=plain_gates)
+    ref = gru_sequence_backward_plain(d_out, xi, masks, h0, w_hh, b_hh, plain_out, gates=plain_gates)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), plain_out.cpu().numpy(), atol=1e-4)
+    np.testing.assert_allclose(gates.cpu().numpy(), plain_gates.cpu().numpy(), atol=1e-4)
+    assert gru_sequence_backward.cluster_launches == before + 1
+    _assert_gradients_close(got, ref)
+
+
+@pytest.mark.cuda
 def test_gru_backward_step_is_graph_capturable():
     """T = 1 is ordinary launches: the act step's backward can be captured."""
     dev = _card()
@@ -324,6 +354,25 @@ def test_resize_kernel_shapes(case):
     if case[0] == "identity":
         assert torch.equal(out, x.float())
     _assert_resize_close(out, ref, out_dtype, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sensor", ["rgb", "depth"])
+def test_resize_kernel_on_a_training_batch(sensor):
+    """One recollect train step's collated frames at once (T=40 x N=3 = 120
+    frames of 480x640), as ResizeShortestEdge(256) runs them: u8 RGB to u8,
+    f32 depth to f32; the padded steps are frames of ones."""
+    shape, dtype, out_dtype = ((120, 480, 640, 3), torch.uint8, torch.uint8) if sensor == "rgb" else \
+        ((120, 480, 640, 1), torch.float32, torch.float32)
+    x = _images(shape, dtype, 4).to(_card())
+    x[-9:] = 1
+    kw = dict(normalize=False, out_dtype=out_dtype, scale_values=False)
+    out = fused_resize_normalize(x, (256, 341), **kw)
+    ref = fused_resize_normalize_plain(x, (256, 341), **kw)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (120, 256, 341, shape[3])
+    _assert_resize_close(out, ref, out_dtype, False)
+    assert float((out[-9:].float() - 1.0).abs().max()) <= 1e-6
 
 
 @pytest.mark.cuda

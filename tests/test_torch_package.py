@@ -46,6 +46,8 @@ NEW_MODULES = [
     "vlnce_torch.trainers.dagger_trainer", "vlnce_torch.parallel.il_step", "vlnce_torch.parallel.optim",
     "vlnce_torch.data.collate", "vlnce_torch.data.prefetch", "vlnce_torch.data.trajectory_store",
     "vlnce_torch.models.aux_losses", "vlnce_torch.utils.profiling",
+    # the recollect slice
+    "vlnce_torch.models.seq2seq_policy", "vlnce_torch.data.recollection", "vlnce_torch.trainers.recollect_trainer",
 ]
 
 
@@ -89,22 +91,45 @@ def test_rxr_observation_space_after_transforms():
 
 
 def test_r2r_cma_configs_match_jax():
-    """The port's copies of the ten R2R CMA experiment YAMLs give the JAX
-    package's model and IL settings, and point at the port's task YAMLs."""
+    """The port's copies of the R2R experiment YAMLs (ten CMA, seven
+    Seq2Seq) give the JAX package's model and IL settings, and point at the
+    port's task YAMLs; the nonlearning ones are not ported yet."""
     names = sorted(f for f in os.listdir(os.path.join(REPO, "vlnce_torch/config/experiments/r2r_baselines")))
-    assert len(names) == 10 and all(n.startswith("cma") for n in names)
+    assert len(names) == 17 and sum(n.startswith("cma") for n in names) == 10
+    assert sum(n.startswith("seq2seq") for n in names) == 7
     for name in names:
         jcfg = jax_get_config(f"vlnce_tpu/config/experiments/r2r_baselines/{name}")
         cfg = get_config(f"vlnce_torch/config/experiments/r2r_baselines/{name}")
         assert cfg.BASE_TASK_CONFIG_PATH == jcfg.BASE_TASK_CONFIG_PATH.replace("vlnce_tpu/", "vlnce_torch/")
         assert cfg.TRAINER_NAME == jcfg.TRAINER_NAME == "dagger"
+        assert cfg.MODEL.policy_name == ("CMAPolicy" if name.startswith("cma") else "Seq2SeqPolicy")
         for section in ("MODEL", "IL", "EVAL"):
             assert json.dumps(cfg[section].to_dict(), sort_keys=True) == json.dumps(jcfg[section].to_dict(), sort_keys=True), (name, section)
         assert cfg.TASK_CONFIG.TASK.to_dict() == jcfg.TASK_CONFIG.TASK.to_dict()
         assert cfg.TASK_CONFIG.DATASET.to_dict() == jcfg.TASK_CONFIG.DATASET.to_dict()
 
 
+def test_rxr_and_synthetic_configs_match_jax():
+    """The four RxR baselines (the recollect trainer; English, Hindi and
+    Telugu task YAMLs) and the synthetic Seq2Seq smoke config equal the JAX
+    package's up to the package name, outside the CUDA / TPU sections."""
+    names = ["rxr_baselines/" + n for n in sorted(os.listdir(os.path.join(REPO, "vlnce_torch/config/experiments/rxr_baselines")))]
+    assert names == [f"rxr_baselines/{n}.yaml" for n in ("rxr_cma_en", "rxr_cma_hi", "rxr_cma_te", "rxr_seq2seq")]
+    for name in names + ["synthetic/smoke_seq2seq.yaml"]:
+        jcfg = jax_get_config(f"vlnce_tpu/config/experiments/{name}").to_dict()
+        cfg = get_config(f"vlnce_torch/config/experiments/{name}").to_dict()
+        jcfg.pop("TPU"), cfg.pop("CUDA")
+        jcfg["BASE_TASK_CONFIG_PATH"] = jcfg["BASE_TASK_CONFIG_PATH"].replace("vlnce_tpu/", "vlnce_torch/")
+        assert json.dumps(cfg, sort_keys=True) == json.dumps(jcfg, sort_keys=True), name
+        if name.startswith("rxr"):
+            assert cfg["TRAINER_NAME"] == "recollect_trainer"
+    languages = {n: get_config(f"vlnce_torch/config/experiments/rxr_baselines/{n}.yaml").TASK_CONFIG.DATASET.LANGUAGES
+                 for n in ("rxr_cma_hi", "rxr_cma_te")}
+    assert languages == {"rxr_cma_hi": ["hi-IN"], "rxr_cma_te": ["te-IN"]}
+
+
 def test_training_keys_of_the_cuda_section():
     cfg = get_config()
     assert cfg.CUDA.ASYNC_CHECKPOINT is True and cfg.CUDA.PIPELINED_COLLECTION is False and cfg.CUDA.PROFILE_DIR == ""
     assert not (cfg.CUDA.ON_DEVICE_DAGGER or cfg.CUDA.DAGGER_RESIDENT or cfg.CUDA.RESIDENT_EPOCH_SCAN)
+    assert not (cfg.CUDA.ON_DEVICE_RECOLLECT or cfg.CUDA.RECOLLECT_RESIDENT)

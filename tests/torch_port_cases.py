@@ -231,3 +231,52 @@ def write_both_stores(episodes, jax_dir, torch_dir):
         for ep in episodes:
             writer.put(ep)
         writer.close()
+
+
+# ---------------------------------------------------------------------------
+# Seq2Seq (R2R with the progress monitor and the prev-action embedding; RxR
+# on BERT features), small
+# ---------------------------------------------------------------------------
+
+JAX_R2R_SEQ2SEQ = "vlnce_tpu/config/experiments/r2r_baselines/seq2seq_pm.yaml"
+R2R_SEQ2SEQ = "vlnce_torch/config/experiments/r2r_baselines/seq2seq_pm.yaml"
+JAX_RXR_SEQ2SEQ = "vlnce_tpu/config/experiments/rxr_baselines/rxr_seq2seq.yaml"
+RXR_SEQ2SEQ = "vlnce_torch/config/experiments/rxr_baselines/rxr_seq2seq.yaml"
+
+# the R2R sizes above at 32x32 frames, with the prev-action embedding on
+SEQ2SEQ_IMG = 32
+SEQ2SEQ_SMALL_OPTS = R2R_SMALL_OPTS + [
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.HEIGHT", SEQ2SEQ_IMG,
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.WIDTH", SEQ2SEQ_IMG,
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT", SEQ2SEQ_IMG,
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH", SEQ2SEQ_IMG,
+    "MODEL.SEQ2SEQ.use_prev_action", True,
+]
+
+
+def build_seq2seq_pair(seed=0, extra=(), rxr=False):
+    """The small Seq2Seq policy in both packages with the same perturbed
+    weights: (jax policy, params), port policy, (jax config, port config).
+    `rxr` takes rxr_seq2seq.yaml at the RxR CMA cases' sizes (BERT features,
+    obs transforms; the JAX config without pretrained embeddings, which its
+    optimizer mask requires) instead of seq2seq_pm.yaml."""
+    from vlnce_tpu.models.seq2seq_policy import Seq2SeqPolicy as JaxSeq2SeqPolicy
+    from vlnce_torch.models.seq2seq_policy import Seq2SeqPolicy
+
+    if rxr:
+        jcfg = jax_get_config(JAX_RXR_SEQ2SEQ, SMALL_OPTS + [
+            "TPU.PRECISION.compute_dtype", "float32", "MODEL.INSTRUCTION_ENCODER.use_pretrained_embeddings", False, *extra])
+        cfg = get_config(RXR_SEQ2SEQ, SMALL_OPTS + ["CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32", *extra])
+        jax_space = jax_apply_space(jax_observation_space(jcfg.TASK_CONFIG), jax_get_transforms(jcfg))
+        space = apply_obs_transforms_obs_space(observation_space_from_config(cfg.TASK_CONFIG), get_active_obs_transforms(cfg))
+    else:
+        jcfg = jax_get_config(JAX_R2R_SEQ2SEQ, SEQ2SEQ_SMALL_OPTS + ["TPU.PRECISION.compute_dtype", "float32", *extra])
+        cfg = get_config(R2R_SEQ2SEQ, SEQ2SEQ_SMALL_OPTS + ["CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32", *extra])
+        jax_space, space = jax_observation_space(jcfg.TASK_CONFIG), observation_space_from_config(cfg.TASK_CONFIG)
+    jax_policy = JaxSeq2SeqPolicy.from_config(jcfg, jax_space, gym_spaces.Discrete(len(jcfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS)))
+    params = jax_policy.init_params(jax.random.PRNGKey(seed), batch_size=1)
+    params = _perturb(jax.tree_util.tree_map(np.asarray, params), np.random.RandomState(seed))
+    jax_policy.params = params
+    policy = Seq2SeqPolicy.from_config(cfg, space, action_space_from_config(cfg.TASK_CONFIG))
+    policy.load_state_dict(state_dict_from_jax_params(params, "Seq2SeqPolicy"), strict=True)
+    return (jax_policy, params), policy, (jcfg, cfg)

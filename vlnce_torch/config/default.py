@@ -87,6 +87,10 @@ _C.CUDA.PROFILE_DIR = ""  # if set, training writes a torch.profiler trace here
 _C.CUDA.ON_DEVICE_DAGGER = False
 _C.CUDA.DAGGER_RESIDENT = False
 _C.CUDA.RESIDENT_EPOCH_SCAN = False
+# device-resident recollection (GT trajectories rendered on the card, the
+# batch kept there): keys kept so configs merge; not ported yet
+_C.CUDA.ON_DEVICE_RECOLLECT = False
+_C.CUDA.RECOLLECT_RESIDENT = False
 
 # ---------------------------------------------------------------------------
 # EVAL

@@ -2,7 +2,8 @@
 reference-keyed torch files.
 
 `state_dict_from_jax_params` turns the JAX package's parameter tree (nested
-dicts of numpy arrays, as flax holds them) into this package's state_dict,
+dicts of numpy arrays, as flax holds them) of the CMA or the Seq2Seq policy
+into this package's state_dict,
 which uses the reference's key names. It is the inverse of
 vlnce_tpu/models/convert.py:convert_policy_state_dict:
 
@@ -150,25 +151,26 @@ def _instruction_encoder(tree, sd, src: str, dst: str) -> None:
 
 
 def _encoders(tree, sd, src: str, dst: str) -> None:
+    """The instruction, depth and RGB encoders, each with its spatial
+    embedding (CMA) or its non-spatial head (Seq2Seq)."""
     _instruction_encoder(tree, sd, f"{src}/instruction_encoder", f"{dst}.instruction_encoder")
 
     de = f"{src}/depth_encoder"
     _gn_resnet_encoder(tree, sd, f"{de}/visual_encoder", f"{dst}.depth_encoder.visual_encoder")
-    sd[f"{dst}.depth_encoder.spatial_embeddings.weight"] = tree.get(f"{de}/spatial_embeddings")
+    if tree.has(f"{de}/visual_fc"):
+        _dense(tree, sd, f"{de}/visual_fc", f"{dst}.depth_encoder.visual_fc.1")
+    else:
+        sd[f"{dst}.depth_encoder.spatial_embeddings.weight"] = tree.get(f"{de}/spatial_embeddings")
 
     re_ = f"{src}/rgb_encoder"
     _tv_resnet(tree, sd, f"{re_}/cnn", f"{dst}.rgb_encoder.cnn")
-    sd[f"{dst}.rgb_encoder.spatial_embeddings.weight"] = tree.get(f"{re_}/spatial_embeddings")
+    if tree.has(f"{re_}/fc"):
+        _dense(tree, sd, f"{re_}/fc", f"{dst}.rgb_encoder.fc.1")
+    else:
+        sd[f"{dst}.rgb_encoder.spatial_embeddings.weight"] = tree.get(f"{re_}/spatial_embeddings")
 
 
-def state_dict_from_jax_params(params: Mapping, policy_name: str = "CMAPolicy") -> Dict[str, torch.Tensor]:
-    """JAX params (nested dicts of arrays) -> this package's state_dict."""
-    if policy_name != "CMAPolicy":
-        raise ValueError(f"state_dict_from_jax_params: {policy_name} is not ported yet")
-    tree = _Tree(params)
-    sd: Dict[str, np.ndarray] = {}
-    _encoders(tree, sd, "net", "net")
-    _dense(tree, sd, "action_distribution", "action_distribution.linear")
+def _cma(tree, sd) -> None:
     _rnn(tree, sd, "net/state_encoder/cell", "net.state_encoder.rnn")
     _rnn(tree, sd, "net/second_state_encoder/cell", "net.second_state_encoder.rnn")
     sd["net.prev_action_embedding.weight"] = tree.get("net/prev_action_embedding")
@@ -180,6 +182,27 @@ def state_dict_from_jax_params(params: Mapping, policy_name: str = "CMAPolicy") 
     _conv1d(tree, sd, "net/text_k", "net.text_k")
     _dense(tree, sd, "net/text_q", "net.text_q")
     _dense(tree, sd, "net/second_state_compress", "net.second_state_compress.0")
+
+
+def _seq2seq(tree, sd) -> None:
+    _rnn(tree, sd, "net/state_encoder/cell", "net.state_encoder.rnn")
+    if tree.has("net/prev_action_embedding"):
+        sd["net.prev_action_embedding.weight"] = tree.get("net/prev_action_embedding")
+
+
+_POLICIES = {"CMAPolicy": _cma, "Seq2SeqPolicy": _seq2seq}
+
+
+def state_dict_from_jax_params(params: Mapping, policy_name: str = "CMAPolicy") -> Dict[str, torch.Tensor]:
+    """JAX params (nested dicts of arrays) -> this package's state_dict, for
+    the CMA or the Seq2Seq policy."""
+    if policy_name not in _POLICIES:
+        raise ValueError(f"state_dict_from_jax_params: {policy_name} is not ported yet")
+    tree = _Tree(params)
+    sd: Dict[str, np.ndarray] = {}
+    _encoders(tree, sd, "net", "net")
+    _dense(tree, sd, "action_distribution", "action_distribution.linear")
+    _POLICIES[policy_name](tree, sd)
     if tree.has("net/progress_monitor"):
         _dense(tree, sd, "net/progress_monitor", "net.progress_monitor")
 

@@ -11,6 +11,13 @@ channel-first convention ([B, C, h, w], flattened to [B, C, P] by callers).
 JAX wrappers' `stop_gradient`). After a forward that ran the backbone, its
 output is left in `cached_features` for the caller to read (the JAX wrappers
 `sow` it); after a forward that took the bypass it is None.
+
+With `spatial_output` (CMA) an encoder returns its map with the learned
+spatial embedding appended as 64 channels; without it (Seq2Seq) it returns
+ReLU(Linear(flattened map)) of `output_size` in f32: the depth map as it is,
+the RGB map after a global average pool to [B, C, 1, 1]. What is cached is
+what precedes that head, so a DAgger store of Seq2Seq holds the unpooled
+depth map and the pooled RGB vector.
 """
 
 from __future__ import annotations
@@ -37,29 +44,40 @@ def _spatial(x: torch.Tensor, emb: nn.Embedding) -> torch.Tensor:
     return torch.cat([x, spatial], dim=1)
 
 
+def _head(in_features: int, out_features: int) -> nn.Sequential:
+    """The non-spatial head, by the reference's names (`<name>.1.weight`)."""
+    return nn.Sequential(nn.Flatten(), nn.Linear(in_features, out_features), nn.ReLU(True))
+
+
 class VlnResnetDepthEncoder(nn.Module):
-    """GroupNorm ResNet over depth with spatial output (reference
-    resnet_encoders.py:17-115): [B, C+64, h, w]. The pooled (non-spatial)
-    head of Seq2Seq comes with its slice."""
+    """GroupNorm ResNet over depth (reference resnet_encoders.py:17-115):
+    [B, C+64, h, w] with `spatial_output`, else [B, output_size]
+    (`visual_fc`)."""
 
     def __init__(self, input_hw: Tuple[int, int] = (256, 256), backbone: str = "resnet50",
-                 resnet_baseplanes: int = 32, compute_dtype: torch.dtype = torch.float32, trainable: bool = False):
+                 resnet_baseplanes: int = 32, compute_dtype: torch.dtype = torch.float32, trainable: bool = False,
+                 spatial_output: bool = True, output_size: int = 128):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.trainable = trainable
+        self.spatial_output = spatial_output
+        self.output_size = output_size
         self.cached_features = None
         self.visual_encoder = GNResNetEncoder(
             input_hw, 1, resnet_baseplanes, resnet_baseplanes // 2, backbone
         )
         if not trainable:
             self.visual_encoder.requires_grad_(False)
-        _, h, w = self.visual_encoder.output_shape_chw()
-        self.spatial_embeddings = nn.Embedding(h * w, 64)
+        c, h, w = self.visual_encoder.output_shape_chw()
+        if spatial_output:
+            self.spatial_embeddings = nn.Embedding(h * w, 64)
+        else:
+            self.visual_fc = _head(c * h * w, output_size)
 
     @property
     def output_shape(self):
         c, h, w = self.visual_encoder.output_shape_chw()
-        return (c + 64, h, w)
+        return (c + 64, h, w) if self.spatial_output else (self.output_size,)
 
     def forward(self, observations):
         if "depth_features" in observations:
@@ -70,18 +88,21 @@ class VlnResnetDepthEncoder(nn.Module):
             with torch.set_grad_enabled(self.trainable and torch.is_grad_enabled()):
                 x = self.visual_encoder(depth)
             self.cached_features = x
-        return _spatial(x, self.spatial_embeddings)
+        if self.spatial_output:
+            return _spatial(x, self.spatial_embeddings)
+        return self.visual_fc(x.float())
 
 
 class TorchVisionResNetEncoder(nn.Module):
-    """ImageNet ResNet over RGB with frozen eval-mode BatchNorm and spatial
-    output [B, C+64, 4, 4] (reference resnet_encoders.py:118-229). Inputs are
-    scaled to [0, 1] and, with normalize_visual_inputs, ImageNet-normalized
-    (reference:182-192)."""
+    """ImageNet ResNet over RGB with frozen eval-mode BatchNorm (reference
+    resnet_encoders.py:118-229): spatial output [B, C+64, 4, 4], or with
+    `spatial_output` off [B, output_size] (`fc` over the global average
+    pool). Inputs are scaled to [0, 1] and, with normalize_visual_inputs,
+    ImageNet-normalized (reference:182-192)."""
 
     def __init__(self, version: str = "resnet50", normalize_visual_inputs: bool = False,
                  single_spatial_filter: bool = True, compute_dtype: torch.dtype = torch.float32,
-                 trainable: bool = False):
+                 trainable: bool = False, spatial_output: bool = True, output_size: int = 256):
         super().__init__()
         self.normalize_visual_inputs = normalize_visual_inputs
         # reference quirk (resnet_encoders.py:160-162): with
@@ -91,14 +112,19 @@ class TorchVisionResNetEncoder(nn.Module):
         self.compute_dtype = compute_dtype
         self.trainable = trainable
         self.cached_features = None
+        self.spatial_output = spatial_output
+        self.output_size = output_size
         self.cnn, self.resnet_layer_size = tv_resnet(version)
         if not trainable:
             self.cnn.requires_grad_(False)
-        self.spatial_embeddings = nn.Embedding(16, 64)
+        if spatial_output:
+            self.spatial_embeddings = nn.Embedding(16, 64)
+        else:
+            self.fc = _head(self.resnet_layer_size, output_size)
 
     @property
     def output_shape(self):
-        return (self.resnet_layer_size + 64, 4, 4)
+        return (self.resnet_layer_size + 64, 4, 4) if self.spatial_output else (self.output_size,)
 
     def forward(self, observations):
         if "rgb_features" in observations:
@@ -113,9 +139,13 @@ class TorchVisionResNetEncoder(nn.Module):
                 rgb = (rgb - mean) / std
             with torch.set_grad_enabled(self.trainable and torch.is_grad_enabled()):
                 feats = self.cnn(_nhwc_to_nchw(rgb))
-            if self.single_spatial_filter:
+            if not self.spatial_output:
+                x = feats.mean(dim=(2, 3), keepdim=True)  # the global average pool
+            elif self.single_spatial_filter:
                 x = F.adaptive_avg_pool2d(feats, (4, 4))
             else:
                 x = feats.mean(dim=(2, 3), keepdim=True).expand(-1, -1, 4, 4)
             self.cached_features = x
-        return _spatial(x, self.spatial_embeddings)
+        if self.spatial_output:
+            return _spatial(x, self.spatial_embeddings)
+        return self.fc(x.float())

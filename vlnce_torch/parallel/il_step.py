@@ -87,18 +87,22 @@ def build_il_train_step(policy, optimizer, mark: Callable[[str], None] = _no_mar
     return train_step
 
 
-def build_il_accum_step(policy, optimizer, apply: bool) -> Callable:
+def build_il_accum_step(policy, optimizer, apply: bool, mark: Callable[[str], None] = _no_mark) -> Callable:
     """Gradient-accumulation variant (RecollectTrainer): adds grads /
     accum_scale into the parameters' `.grad`; with `apply` it then steps the
     optimizer and clears them. The caller clears the gradients before the
-    first step of a run (`optimizer.zero_grad()`)."""
+    first step of a run (`optimizer.zero_grad()`). `mark` as in
+    `build_il_train_step` ("optimizer" ends the step, applying or not)."""
 
     def accum_step(accum_scale, obs_tn, prev_tn, masks_tn, corrected, weights):
         loss, action_loss, aux_loss = il_losses(policy, obs_tn, prev_tn, masks_tn, corrected, weights)
+        mark("forward")
         (loss / accum_scale).backward()
+        mark("backward")
         if apply:
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
+        mark("optimizer")
         return loss.detach(), action_loss.detach(), aux_loss.detach()
 
     return accum_step

@@ -6,8 +6,8 @@
 The flags are those of the JAX package's run.py (reference run.py:22-43).
 Everything runs on `CUDA.DEVICE` (default `cuda`); pass `CUDA.DEVICE cpu
 CUDA.PRECISION.compute_dtype float32` to run on the CPU. `train` is DAgger
-(`TRAINER_NAME dagger`, the r2r_baselines/cma*.yaml experiments); the
-recollect trainer's `train` raises NotImplementedError.
+(`TRAINER_NAME dagger`, the r2r_baselines/*.yaml experiments) or the
+recollect trainer (`TRAINER_NAME recollect_trainer`, the rxr_baselines).
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ def run_exp(exp_config: str, run_type: str, opts=None):
     # populate registries
     import vlnce_torch.tasks  # noqa: F401
     import vlnce_torch.models.cma_policy  # noqa: F401
+    import vlnce_torch.models.seq2seq_policy  # noqa: F401
     from vlnce_torch.envs import ensure_registered
     from vlnce_torch.envs import rl_envs  # noqa: F401
     import vlnce_torch.trainers  # noqa: F401

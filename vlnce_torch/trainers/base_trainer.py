@@ -14,8 +14,8 @@ one download of the actions, which is the loop's only synchronisation with
 the card. `prev_actions` and the recurrent state stay on the card.
 
 `_initialize_policy` also builds the optimizer (Adam over the trainable
-parameters only) and, for a requeued job, restores it. DAgger training is
-`trainers/dagger_trainer.py`. The recollect trainer's training loop, the
+parameters only) and, for a requeued job, restores it. The training loops
+are `trainers/dagger_trainer.py` and `trainers/recollect_trainer.py`. The
 device-resident loops (`EVAL.ON_DEVICE_SCAN`, `INFERENCE.ON_DEVICE_SCAN`) and
 videos (`VIDEO_OPTION`) are not ported yet and raise NotImplementedError.
 """
@@ -31,7 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from vlnce_torch.envs.batch import ObsSlots
+from vlnce_torch.envs.batch import ObsSlots, to_device
 from vlnce_torch.envs.env_utils import construct_envs_auto_reset_false, get_env_class
 from vlnce_torch.models.convert import (
     load_ddppo_depth_checkpoint,
@@ -53,6 +53,7 @@ from vlnce_torch.utils.checkpoints import (
     wait_for_pending,
 )
 from vlnce_torch.utils.logging import logger
+from vlnce_torch.utils.profiling import annotate
 from vlnce_torch.utils.tensorboard import TensorboardWriter
 
 
@@ -143,6 +144,10 @@ class BaseVLNCETrainer:
         self.generator: Optional[torch.Generator] = None
         # clocks and counts of the last eval or inference loop (_ActLoop.timing)
         self.last_loop_timing: Dict[str, float] = {}
+        # the IL trainers' train step: its clock (a StepClock when the
+        # trainer times its steps, else None) and the padded lengths seen
+        self.step_clock = None
+        self.train_lengths: Dict[int, int] = {}
 
     # -- spaces ---------------------------------------------------------------
     def _get_spaces(self, config, envs=None) -> Tuple[Any, Any]:
@@ -194,6 +199,35 @@ class BaseVLNCETrainer:
         logger.info(
             f"Initialized policy {config.MODEL.policy_name} on {self.policy.device}: {self.policy.num_params()} params"
         )
+
+    def _il_update(self, step, observations, prev_actions, masks, corrected, weights) -> Tuple[float, float, float]:
+        """One IL step on a collated batch (numpy: observations [T*N, ...],
+        prev_actions and masks [T*N, 1], corrected and weights [T, N]): one
+        pinned, asynchronous upload per array, the obs transforms on the flat
+        [T*N, ...] observations, the reshape to time-major [T, N, ...], then
+        `step(obs_tn, prev, masks, corrected, weights)`, whose (loss,
+        action_loss, aux_loss) come back in the step's one synchronisation
+        with the device. `step_clock` (if any) gets the "upload" mark."""
+        clock = self.step_clock
+        T, N = corrected.shape
+        self.train_lengths[T] = self.train_lengths.get(T, 0) + 1
+        device = self.policy.device
+        if clock:
+            clock.start()
+        with annotate("il_upload"):
+            obs_dev = apply_obs_transforms_batch(to_device(observations, device), self.obs_transforms)
+            rest = to_device(
+                {"prev": prev_actions, "masks": masks, "corrected": corrected, "weights": weights}, device
+            )
+            if clock:
+                clock.mark("upload")
+        with annotate("il_step"):
+            losses = step(
+                {k: v.reshape((T, N) + tuple(v.shape[1:])) for k, v in obs_dev.items()},
+                rest["prev"].reshape(T, N), rest["masks"].reshape(T, N), rest["corrected"], rest["weights"],
+            )
+        loss, action_loss, aux_loss = torch.stack(losses).tolist()
+        return loss, action_loss, aux_loss
 
     def save_checkpoint(self, file_name: str, extra_state: Optional[Dict] = None) -> None:
         path = os.path.join(self.config.CHECKPOINT_FOLDER, file_name)
@@ -462,18 +496,3 @@ class BaseVLNCETrainer:
                 for entry in predictions_out:
                     f.write(json.dumps(entry) + "\n")
         logger.info(f"Predictions saved to: {out_path}")
-
-
-class _ServingOnlyTrainer(BaseVLNCETrainer):
-    """A trainer name of the experiment YAMLs whose eval and inference are
-    the base class's and whose training loop is not ported yet."""
-
-    training_slice = ""
-
-    def train(self) -> None:
-        raise _not_ported(f"--run-type train of TRAINER_NAME {self.config.TRAINER_NAME}", self.training_slice)
-
-
-@registry.register_trainer(name="recollect_trainer")
-class RecollectTrainer(_ServingOnlyTrainer):
-    training_slice = "'Seq2Seq, recollection'"

@@ -35,7 +35,7 @@ import torch
 from vlnce_torch.data.collate import TrajectoryBatchIterator
 from vlnce_torch.data.prefetch import PrefetchIterator
 from vlnce_torch.data.trajectory_store import TrajectoryStoreReader, TrajectoryStoreWriter, store_length
-from vlnce_torch.envs.batch import ObsSlots, to_device
+from vlnce_torch.envs.batch import ObsSlots
 from vlnce_torch.envs.env_utils import construct_envs, get_env_class
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms
 from vlnce_torch.parallel.il_step import build_il_train_step
@@ -84,11 +84,8 @@ class DaggerTrainer(BaseVLNCETrainer):
         self.features_dir = config.IL.DAGGER.lmdb_features_dir.format(split=config.TASK_CONFIG.DATASET.SPLIT)
         super().__init__(config)
         self._train_step = None  # built lazily once the policy exists
-        # the train step's clock (see `time_train_steps`), the padded
-        # lengths seen, every batch's (dagger_it, epoch, loss, action_loss,
-        # aux_loss), and each collection round's counts and clocks
-        self.step_clock: Optional[StepClock] = None
-        self.train_lengths: Dict[int, int] = {}
+        # every batch's (dagger_it, epoch, loss, action_loss, aux_loss), and
+        # each collection round's counts and clocks
         self.loss_history: List[Tuple[int, int, float, float, float]] = []
         self.collection_stats: List[Dict[str, float]] = []
 
@@ -173,32 +170,11 @@ class DaggerTrainer(BaseVLNCETrainer):
 
     # ------------------------------------------------------------- the update
     def _update_agent(self, observations, prev_actions, masks, corrected, weights) -> Tuple[float, float, float]:
-        """One IL step on a collated batch (numpy: observations [T*N, ...],
-        prev_actions and masks [T*N, 1], corrected and weights [T, N])."""
-        clock = self.step_clock
+        """One IL step on a collated batch (see `_il_update`)."""
         if self._train_step is None:
+            clock = self.step_clock
             self._train_step = build_il_train_step(self.policy, self.optimizer, **({"mark": clock.mark} if clock else {}))
-        T, N = corrected.shape
-        self.train_lengths[T] = self.train_lengths.get(T, 0) + 1
-        device = self.policy.device
-        if clock:
-            clock.start()
-        with annotate("il_upload"):
-            # pinned and copied asynchronously, one copy per array
-            obs_dev = apply_obs_transforms_batch(to_device(observations, device), self.obs_transforms)
-            rest = to_device(
-                {"prev": prev_actions, "masks": masks, "corrected": corrected, "weights": weights}, device
-            )
-            if clock:
-                clock.mark("upload")
-        with annotate("il_step"):
-            loss, action_loss, aux_loss = self._train_step(
-                {k: v.reshape((T, N) + tuple(v.shape[1:])) for k, v in obs_dev.items()},
-                rest["prev"].reshape(T, N), rest["masks"].reshape(T, N), rest["corrected"], rest["weights"],
-            )
-        # the step's one synchronisation with the device
-        loss, action_loss, aux_loss = torch.stack([loss, action_loss, aux_loss]).tolist()
-        return loss, action_loss, aux_loss
+        return self._il_update(self._train_step, observations, prev_actions, masks, corrected, weights)
 
     # --------------------------------------------------------- collection
     def _update_dataset(self, data_it: int) -> None:
