@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch port: builds its CUDA kernels, holds each against
 its plain PyTorch version, and drives the RxR CMA act step, eval and inference,
-the R2R CMA DAgger training, and the RxR CMA and Seq2Seq recollect training at
-full width.
+the R2R CMA DAgger training, the RxR CMA and Seq2Seq recollect training, and
+the DD-PPO training of the waypoint policy at full width.
 
     python3 chip_smoke.py
 
@@ -79,13 +79,35 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
 11. `phase_seq2seq`: `run_exp(rxr_seq2seq.yaml, "train")` for one epoch
    (one B1 forward, backward and weight gradient and two B2 launches per
    train step), then eval of its checkpoint;
-12. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+12. `phase_waypoint_shapes`: B1 at the waypoint configs' H=256: the cluster
+   granted at B in {1, 2, 4} (4 blocks); the forward at T=1, B in {2, 4}
+   with h0 either slice of a [B, 2, H] state; the forward storing the
+   gates, the cluster-route backward and the weight gradient at T=16, B in
+   {1, 2, 4}, each against its plain version; device times at the act
+   step's launch (T=1, B=4) and a PPO minibatch's (T=16, B=1) beside the
+   bound, the plain loop and cuDNN's GRU;
+13. `phase_waypoint`: `run_exp(r2r_waypoint/1-wpn-cc.yaml, "train")` at full
+   width in bf16 over 4 forked workers (12 pano RGB 224² and depth 256²
+   frames a step, episodes of at most 40 waypoints): 2 updates of 16 steps,
+   ppo_epoch 2, num_mini_batch 4; B1 exactly 2 forward launches per act step
+   and per bootstrap value, and per PPO minibatch 2 forward, 2 backward on
+   the cluster route and 2 weight gradients; B2 never; frozen weights
+   bit-equal, the others moved; then `run_exp(..., "eval")` of the last
+   checkpoint over 8 episodes with sampled actions (2 B1 launches per act
+   step); the rollout's env-steps/s, the act step's ms, the PPO minibatch
+   step's split by CUDA events, and one minibatch step alone with its
+   device idle share;
+14. `phase_waypoint_against_plain`: one seeded f32 PPO minibatch step at
+   T=16, n=1 (TF32 off) through B1's kernels and through the plain loop
+   under autograd: losses within 1e-5, gradients at step 7's tolerance;
+15. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import json
@@ -389,8 +411,9 @@ def phase_gru_backward(dev):
     weight_ms = graph_ms(lambda: _weight_gradient_launch(d_gh, masks, h0, out, d_w_hh, d_b_hh))
     cluster_ms = graph_ms(lambda: gru_sequence_backward(*train))
     grid_ms = graph_ms(lambda: gru_sequence_backward(*train[:-1]))
-    # the plain version is the torch ops the weight-gradient kernel replaced (cat, multiply, matmul, sum); the
-    # yardstick is the one matmul on h_prev formed beforehand
+    # the plain version is the torch ops that compute the weight gradient's function (cat, multiply, matmul,
+    # sum); no one PyTorch call does, so there is no library yardstick: the matmul on an h_prev formed
+    # beforehand is printed beside it, and does less than the kernel
     weight_plain_ms = graph_ms(lambda: gru_weight_gradient_plain(d_gh, masks, h0, out))
     h_prev = torch.cat([h0[None], out[:-1]]) * masks
     matmul_ms = graph_ms(lambda: d_gh.reshape(-1, 3 * H).T @ h_prev.reshape(-1, H))
@@ -462,9 +485,11 @@ def phase_gru_backward(dev):
     weight = {
         "name": "gru_weight_gradient", "route": "cuda", "source": "vlnce_torch/csrc/gru_sequence.cu",
         "replaces": "vlnce_tpu/ops/pallas_rnn.py:55",
-        "note": "d_w_hh and d_b_hh of B1's gradient over all T * B rows; max_abs_err relative to max(1, scale)",
+        "note": "d_w_hh and d_b_hh of B1's gradient over all T * B rows; max_abs_err relative to max(1, scale); no one "
+                "PyTorch call computes this function (library_ms null): plain_ms is the torch ops that do (gather of h0, "
+                "masking, matmul, sum), matmul_ready_h_prev_ms the product alone on an h_prev formed beforehand",
         "max_abs_err": w_err, "ms": weight_ms, "kernel_ms": weight_ms, "plain_ms": weight_plain_ms,
-        "bound_ms": wb_ms, "bound_by": wb_by, "library_ms": matmul_ms,
+        "bound_ms": wb_ms, "bound_by": wb_by, "library_ms": None, "matmul_ready_h_prev_ms": matmul_ms,
     }
     return backward, weight
 
@@ -1538,12 +1563,404 @@ def phase_seq2seq(dev):
     return launches, eval_launches
 
 
+# ---------------------------------------------------------------------------
+# DD-PPO waypoint RL: B1 at H=256 in two GRUs, the ddppo-waypoint trainer
+# through the entry point, one PPO minibatch step against the plain versions
+# ---------------------------------------------------------------------------
+
+WP_EXP = "vlnce_torch/config/experiments/r2r_waypoint/1-wpn-cc.yaml"
+WP_H = 256  # STATE_ENCODER.hidden_size of every r2r_waypoint/*.yaml
+WP_N = 4  # NUM_ENVIRONMENTS of the YAMLs
+WP_T = 16  # RL.PPO.num_steps: the T of a PPO minibatch
+WP_UPDATES = 2
+
+
+def device_ms(fn, steps):
+    """Device busy ms per call of fn (the sum of its kernels' times under
+    torch.profiler, over `steps` calls) and that time by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = collections.Counter()
+    for ev in prof.key_averages():
+        if ev.self_device_time_total > 0:
+            kernels[ev.key] += ev.self_device_time_total / 1e3 / steps
+    return sum(kernels.values()), kernels
+
+
+def phase_waypoint_shapes(dev):
+    """B1 at the waypoint configs' H=256: the cluster granted at B in {1, 2,
+    4}; the forward at T=1, B in {2, 4} with h0 either slice of a [B, 2, H]
+    state (the two GRUs' states), the forward storing the gates and the
+    cluster-route backward and weight gradient at T=16, B in {1, 2, 4}, each
+    against its plain version; then device times at the act step's shape
+    (T=1, B=4) and the PPO minibatch's (T=16, B=1) beside the bound, the
+    plain loop and cuDNN's GRU. Returns fields for the kernels line of B1,
+    its backward and its weight gradient."""
+    from vlnce_torch.ops.rnn import (_forward_launch, backward_cluster_plan, gru_sequence, gru_sequence_backward,
+                                     gru_sequence_backward_plain, gru_sequence_plain, gru_weight_gradient,
+                                     gru_weight_gradient_plain)
+
+    H = WP_H
+    g = torch.Generator(device="cpu").manual_seed(9)
+    clusters = {}
+    for Bn in (1, 2, 4):
+        clusters[Bn], active = backward_cluster_plan(dev.index, Bn, H)
+        print(f"B1 backward cluster route at B={Bn} H={H}: cluster of {clusters[Bn]} blocks granted, "
+              f"cudaOccupancyMaxActiveClusters {active}")
+        assert clusters[Bn] > 0 and active >= 1, f"the cluster route does not take B={Bn} at H={H}"
+
+    def inputs(T, Bn):
+        xi = torch.randn(T, Bn, 3 * H, generator=g)
+        masks = torch.ones(T, Bn, 1)
+        masks[T // 2, ::2] = 0.0
+        states = torch.randn(Bn, 2, H, generator=g)  # the policy's [B, 2, H] state: one slice per GRU
+        w_hh = torch.randn(3 * H, H, generator=g) * H**-0.5
+        b_hh = torch.randn(3 * H, generator=g) * 0.1
+        d_out = torch.randn(T, Bn, H, generator=g)
+        return tuple(t.to(dev) for t in (d_out, xi, masks, states, w_hh, b_hh))
+
+    worst = {"forward": 0.0, "gates": 0.0, "backward": 0.0}
+    for Bn in (2, 4):
+        _, xi, masks, states, w_hh, b_hh = inputs(1, Bn)
+        for layer in (0, 1):
+            h0 = states[:, layer]  # rows 2H apart; the second GRU's starts H floats in
+            err = float((gru_sequence(xi, masks, h0, w_hh, b_hh) - gru_sequence_plain(xi, masks, h0, w_hh, b_hh)).abs().max())
+            print(f"B1 T=1 B={Bn} H={H}, h0 = states[:, {layer}] of [B, 2, H]: max_abs_err {err:.3e} (atol 1e-5)")
+            assert err <= 1e-5, (Bn, layer, err)
+            worst["forward"] = max(worst["forward"], err)
+    for Bn in (1, 2, 4):
+        d_out, xi, masks, states, w_hh, b_hh = inputs(WP_T, Bn)
+        h0 = states[:, 1]
+        out, gates = _forward_launch(xi, masks, h0, w_hh, b_hh, reserve=True)
+        ref_out, ref_gates = gru_sequence_plain(xi, masks, h0, w_hh, b_hh, return_gates=True)
+        before = gru_sequence_backward.cluster_launches
+        got = gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, ref_out, gates=ref_gates)
+        ref = gru_sequence_backward_plain(d_out, xi, masks, h0, w_hh, b_hh, ref_out, gates=ref_gates)
+        torch.cuda.synchronize()
+        assert gru_sequence_backward.cluster_launches == before + 1, "the backward left the cluster route"
+        errs = {"forward": float((out - ref_out).abs().max()), "gates": float((gates - ref_gates).abs().max())}
+        by_output = {n: float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                     for n, a, b in zip(("d_xi", "d_h0", "d_w_hh", "d_b_hh"), got, ref)}
+        errs["backward"] = max(by_output.values())
+        print(f"B1 at T={WP_T} B={Bn} H={H}, h0 = states[:, 1]: forward storing the gates max_abs_err out "
+              f"{errs['forward']:.3e} gates {errs['gates']:.3e} (atol 1e-4); cluster-route backward and weight gradient, "
+              f"max err relative to max(1, scale): " + ", ".join(f"{n} {e:.3e}" for n, e in by_output.items()) + " (1e-5)")
+        assert errs["forward"] <= 1e-4 and errs["gates"] <= 1e-4 and errs["backward"] <= 1e-5, (Bn, errs)
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+
+    fields = {"forward": {"max_abs_err_waypoint": max(worst["forward"], worst["gates"])},
+              "backward": {"max_err_waypoint": worst["backward"], "cluster_waypoint": clusters},
+              "weight": {}}
+    # the act step's launch (T=1, B=N) and the PPO minibatch's (T=16, B=1)
+    _, xi, masks, states, w_hh, b_hh = inputs(1, WP_N)
+    h0 = states[:, 0]
+    act_ms = graph_ms(lambda: gru_sequence(xi, masks, h0, w_hh, b_hh), reps=50)
+    act_plain_ms = graph_ms(lambda: gru_sequence_plain(xi, masks, h0, w_hh, b_hh), reps=50)
+    act_b_ms, act_b_by = _gru_bound(1, WP_N, H, reserve=False)
+    x1 = torch.randn(WP_N, H, device=dev)
+    w_ih = torch.randn(3 * H, H, device=dev) * H**-0.5
+    act_lib_ms = graph_ms(lambda: torch.gru_cell(x1, h0 * masks[0], w_ih, w_hh, None, b_hh), reps=50)
+    print(f"B1 act step launch at T=1 B={WP_N} H={H}, device time by graph replay: kernel {act_ms:.4f} ms, plain "
+          f"{act_plain_ms:.4f} ms, torch.gru_cell {act_lib_ms:.4f} ms, bound {act_b_ms:.4f} ms ({act_b_by})")
+    fields["forward"].update({"wp_T1_B4_ms": act_ms, "wp_T1_B4_plain_ms": act_plain_ms, "wp_T1_B4_bound_ms": act_b_ms,
+                              "wp_T1_B4_library_ms": act_lib_ms})
+
+    d_out, xi, masks, states, w_hh, b_hh = inputs(WP_T, 1)
+    h0 = states[:, 1]
+    out, gates = _forward_launch(xi, masks, h0, w_hh, b_hh, reserve=True)
+    fwd_ms = graph_ms(lambda: _forward_launch(xi, masks, h0, w_hh, b_hh, reserve=True), reps=10)
+    fwd_plain_ms = cuda_ms(lambda: gru_sequence_plain(xi, masks, h0, w_hh, b_hh), iters=5, warmup=1)
+    bwd_ms = graph_ms(lambda: gru_sequence_backward(d_out, xi, masks, h0, w_hh, b_hh, out, gates=gates), reps=10)
+    bwd_plain_ms = cuda_ms(lambda: gru_sequence_backward_plain(d_out, xi, masks, h0, w_hh, b_hh, out, gates=gates), iters=5, warmup=1)
+    d_gh = torch.randn(WP_T, 1, 3 * H, device=dev)
+    w_ms = graph_ms(lambda: gru_weight_gradient(d_gh, masks, h0, out), reps=10)
+    w_plain_ms = graph_ms(lambda: gru_weight_gradient_plain(d_gh, masks, h0, out), reps=10)
+    got = gru_weight_gradient(d_gh, masks, h0, out)
+    ref = gru_weight_gradient_plain(d_gh, masks, h0, out)
+    w_err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for a, b in zip(got, ref))
+    assert w_err <= 1e-5, w_err
+    # yardsticks only, the port never calls them: cuDNN's GRU over [T, 1, H]
+    # (no resets), forward, and autograd's backward through it (CUDA events)
+    gru = torch.nn.GRU(H, H).to(dev)
+    x = torch.randn(WP_T, 1, H, device=dev, requires_grad=True)
+    h0c = h0[None].contiguous()
+    with torch.no_grad():
+        lib_fwd_ms = cuda_ms(lambda: gru(x, h0c), iters=20)
+    y, _ = gru(x, h0c)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, [x] + list(gru.parameters()), d_out, retain_graph=True), iters=20)
+    fb_ms, fb_by = _gru_bound(WP_T, 1, H, reserve=True)
+    rows, product = WP_T, 2 * WP_T * 3 * H * H
+    bb_ms, bb_by = bound_ms(nbytes(d_out, gates, masks, h0, out, w_hh) + nbytes(xi, h0, w_hh, b_hh), 2 * product + rows * 23 * H)
+    wb_ms, wb_by = bound_ms(nbytes(d_gh, masks, h0, out, w_hh, b_hh), product + rows * 3 * H)
+    print(f"B1 at T={WP_T} B=1 H={H} (a PPO minibatch), device time by graph replay: forward storing the gates {fwd_ms:.4f} ms "
+          f"(bound {fb_ms:.4f} {fb_by}; plain loop {fwd_plain_ms:.4f} by CUDA events; cuDNN nn.GRU forward, no resets, "
+          f"{lib_fwd_ms:.4f} by CUDA events); backward wrapper (cluster route + weight gradient) {bwd_ms:.4f} ms (its bound "
+          f"given the gates {bb_ms:.4f} {bb_by}; plain {bwd_plain_ms:.4f} by CUDA events; autograd through cuDNN nn.GRU "
+          f"{lib_bwd_ms:.4f} by CUDA events); weight gradient {w_ms:.4f} ms (bound {wb_ms:.4f} {wb_by}; its plain torch ops "
+          f"{w_plain_ms:.4f}); weight gradient max err relative to max(1, scale) {w_err:.3e}")
+    fields["forward"].update({"wp_T16_B1_ms": fwd_ms, "wp_T16_B1_bound_ms": fb_ms, "wp_T16_B1_plain_ms": fwd_plain_ms,
+                              "wp_T16_B1_library_ms": lib_fwd_ms})
+    fields["backward"].update({"wp_T16_B1_wrapper_ms": bwd_ms, "wp_T16_B1_bound_ms": bb_ms, "wp_T16_B1_plain_ms": bwd_plain_ms,
+                               "wp_T16_B1_library_ms": lib_bwd_ms})
+    fields["weight"].update({"wp_T16_B1_ms": w_ms, "wp_T16_B1_bound_ms": wb_ms, "wp_T16_B1_plain_ms": w_plain_ms,
+                             "max_err_waypoint": w_err})
+    return fields
+
+
+def waypoint_space(cfg):
+    """The observation space the ddppo-waypoint trainer hands the policy for
+    `cfg`: the 12 stacked pano frames of each sensor, the history frames,
+    the instruction tokens and the angle features."""
+    from vlnce_torch.envs import spaces
+
+    sim, P = cfg.TASK_CONFIG.SIMULATOR, int(cfg.TASK_CONFIG.TASK.PANO_ROTATIONS)
+    rgb = (sim.RGB_SENSOR.HEIGHT, sim.RGB_SENSOR.WIDTH, 3)
+    depth = (sim.DEPTH_SENSOR.HEIGHT, sim.DEPTH_SENSOR.WIDTH, 1)
+    return spaces.Dict({
+        "rgb": spaces.Box(0, 255, (P,) + rgb, np.uint8), "depth": spaces.Box(0.0, 1.0, (P,) + depth, np.float32),
+        "rgb_history": spaces.Box(0, 255, rgb, np.uint8), "depth_history": spaces.Box(0.0, 1.0, depth, np.float32),
+        "instruction": spaces.Box(0, 2**31 - 1, (200,), np.int32), "angle_features": spaces.Box(-1.0, 1.0, (P, 4), np.float32),
+    })
+
+
+def build_waypoint_ppo_step(dev, dtype: str, T: int = WP_T, n: int = 1, seed: int = 31):
+    """The 1-wpn-cc.yaml config at full width on `dev` in compute dtype
+    `dtype`, the WaypointPolicy with seeded weights, WDDPPO (masked Adam)
+    and one seeded host minibatch [T, n, ...] as the rollout storage yields
+    it: random frames, instructions and prev actions, stored actions drawn
+    in range, old log-probs near the policy's own (so that the surrogate is
+    not clipped everywhere). Returns (cfg, policy, agent, sample)."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.models.waypoint_policy import WaypointPolicy
+    from vlnce_torch.rl.ppo import WDDPPO
+
+    cfg = get_config(WP_EXP, ["CUDA.DEVICE", str(dev), "CUDA.PRECISION.compute_dtype", dtype])
+    space = waypoint_space(cfg)
+    policy = WaypointPolicy.from_config(cfg, space)
+    ppo = cfg.RL.PPO
+    agent = WDDPPO(policy, ppo, ppo.offset_regularize_coef, ppo.pano_entropy_coef, ppo.offset_entropy_coef,
+                   ppo.distance_entropy_coef, num_updates=int(cfg.RL.NUM_UPDATES))
+    rng = np.random.RandomState(seed)
+    obs = {}
+    for k, sp in space.spaces.items():
+        shape = (T, n) + tuple(sp.shape)
+        obs[k] = (rng.randint(0, 256, shape).astype(np.uint8) if sp.dtype == np.uint8 else rng.rand(*shape).astype(np.float32))
+    tokens = np.zeros((n, 200), np.int32)
+    for i in range(n):
+        length = rng.randint(20, 80)
+        tokens[i, :length] = rng.randint(2, 2000, length)
+    obs["instruction"] = np.broadcast_to(tokens, (T, n, 200)).copy()
+    obs["angle_features"] = np.broadcast_to(np.stack([[np.sin(a), np.cos(a), 0.0, 1.0] for a in np.arange(12) * np.pi / 6]),
+                                            (T, n, 12, 4)).astype(np.float32)
+    wc, lim = cfg.MODEL.WAYPOINT, np.pi / 12
+
+    def draws():
+        return {"pano": rng.randint(0, 13, (T, n, 1)).astype(np.float32),
+                "offset": rng.uniform(-lim, lim, (T, n, 1)).astype(np.float32),
+                "distance": rng.uniform(wc.min_distance_prediction, wc.max_distance_prediction, (T, n, 1)).astype(np.float32)}
+
+    actions, prev = draws(), draws()
+    masks = np.ones((T, n, 1), np.float32)
+    masks[0] = 0.0
+    masks[T // 2, ::2] = 0.0
+    hidden0 = (rng.randn(n, 2, WP_H) * 0.5).astype(np.float32)
+    value_preds = rng.randn(T, n, 1).astype(np.float32)
+    returns = (value_preds + rng.randn(T, n, 1) * 0.5).astype(np.float32)
+    adv = rng.randn(T, n, 1).astype(np.float32)
+    sample = [obs, hidden0, actions, prev, value_preds, returns, masks, np.zeros((T, n, 1), np.float32), adv]
+    with torch.no_grad():  # the stored log-probs: the policy's own, perturbed
+        obs_d, h_d, act_d, prev_d, _, _, masks_d, _, _ = agent.upload(sample)
+        flat = lambda v: v.reshape((T * n,) + tuple(v.shape[2:]))  # noqa: E731
+        _, logp, _, _ = policy.evaluate_actions({k: flat(v) for k, v in obs_d.items()}, h_d, {k: flat(v) for k, v in prev_d.items()},
+                                                flat(masks_d), {k: flat(v) for k, v in act_d.items()}, seq_len=T)
+    sample[7] = (logp.float().cpu().numpy().reshape(T, n, 1) + rng.randn(T, n, 1) * 0.1).astype(np.float32)
+    return cfg, policy, agent, sample
+
+
+def phase_waypoint(dev):
+    """`run_exp(1-wpn-cc.yaml, "train")` at full width in bf16 over WP_N
+    forked workers (synthetic scenes, 12 pano RGB 224² and depth 256² frames
+    a step, episodes of at most 40 waypoints): WP_UPDATES updates of
+    num_steps 16, ppo_epoch 2, num_mini_batch 4, a checkpoint each; then
+    `run_exp(..., "eval")` of the last checkpoint over 8 episodes. B1 must be
+    launched exactly 2 times per act step, 2 per bootstrap value, and per PPO
+    minibatch 2 forward, 2 backward on the cluster route and 2 weight
+    gradients; B2 never. Frozen weights bit-equal, the others moved; then the
+    rollout's env-steps/s, the act step's ms, the PPO minibatch step's split
+    by CUDA events, and the idle share of one minibatch step alone."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.models.waypoint_policy import WaypointPolicy
+    from vlnce_torch.parallel.optim import trainable_mask
+    from vlnce_torch.run import run_exp
+    from vlnce_torch.trainers.ddppo_waypoint_trainer import DDPPOWaypointTrainer
+    from vlnce_torch.utils.checkpoints import load_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        ckpts = os.path.join(tmp, "checkpoints")
+        common = [
+            "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0",
+            "TASK_CONFIG.DATASET.NUM_SCENES", WP_N,  # one scene per worker
+            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40,
+            "NUM_ENVIRONMENTS", WP_N,
+            "TENSORBOARD_DIR", "", "VERBOSE", False, "LOG_FILE", os.path.join(tmp, "run.log"),
+            "CHECKPOINT_FOLDER", ckpts,
+        ]
+        train_opts = common + ["RL.NUM_UPDATES", WP_UPDATES, "RL.CHECKPOINT_INTERVAL", 1, "RL.LOG_INTERVAL", 1]
+        # the seeded weights the trainer starts from: the same config gives the same draw
+        cfg = get_config(WP_EXP, train_opts)
+        start = {k: v.cpu() for k, v in WaypointPolicy.from_config(cfg, waypoint_space(cfg)).state_dict().items()}
+
+        torch.cuda.reset_peak_memory_stats()
+        DDPPOWaypointTrainer.time_train_steps = True
+        _reset_launches()
+        t0 = time.perf_counter()
+        try:
+            trainer = run_exp(WP_EXP, "train", train_opts)
+        finally:
+            DDPPOWaypointTrainer.time_train_steps = False
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        ppo = trainer.config.RL.PPO
+        minibatches = WP_UPDATES * ppo.ppo_epoch * ppo.num_mini_batch
+        act_steps = WP_UPDATES * ppo.num_steps
+        print(f"waypoint training: {WP_EXP} at full width ({trainer.policy.num_params() / 1e6:.1f}M weights), "
+              f"{WP_UPDATES} updates of {ppo.num_steps} steps at N={WP_N}, run_exp took {wall:.1f} s; launches "
+              f"{json.dumps(launches)} over {act_steps} act steps, {WP_UPDATES} bootstrap values, {minibatches} PPO minibatches")
+        assert trainer.rollout_stats["act_steps"] == act_steps, trainer.rollout_stats
+        assert launches == {"gru_sequence": 2 * act_steps + 2 * WP_UPDATES + 2 * minibatches,
+                            "gru_sequence_backward": 2 * minibatches, "gru_weight_gradient": 2 * minibatches,
+                            "fused_resize_normalize": 0}, launches
+        assert _cluster_launches() == 2 * minibatches, "B1's backward left the cluster route"
+
+        history = trainer.update_history
+        assert len(history) == WP_UPDATES and all(math.isfinite(v) for h in history for v in h.values()), history
+        print("PPO stats per update: " + "; ".join(json.dumps({k: round(v, 4) for k, v in h.items()}) for h in history))
+        mask = trainable_mask(trainer.policy, trainer.config.MODEL)
+        after = {k: v.detach().cpu() for k, v in trainer.policy.state_dict().items()}
+        frozen = {k for k, trains in mask.items() if not trains}
+        moved = {k for k in mask if not torch.equal(after[k], start[k])}
+        assert not moved & frozen and all(torch.equal(after[k], start[k]) for k in after if k not in mask), "a frozen tensor moved"
+        assert moved == set(mask) - frozen, sorted(set(mask) - frozen - moved)
+        named = dict(trainer.policy.named_parameters())
+        with_state = {k for k, p in named.items() if p in trainer.optimizer.state}
+        assert with_state == set(mask) - frozen
+        print(f"weights: {len(frozen)} frozen tensors and every buffer bit-equal to the seeded start, {len(moved)} trainable "
+              f"tensors changed, Adam state for {len(with_state)}")
+
+        r = trainer.rollout_stats
+        clock, first = trainer.step_clock.totals(), dict(trainer.step_clock.first)
+        order = ("upload", "forward", "backward", "optimizer")
+        assert sorted(clock) == sorted(order) and trainer.step_clock.steps == minibatches
+        warm = {k: (clock[k] - first[k]) / (minibatches - 1) for k in order}
+        warm_act_ms = 1e3 * (r["act_time"] - r["first_act_time"]) / (r["act_steps"] - 1)
+        print(f"rollout: {r['env_steps']} env steps in {r['rollout_time']:.2f} s, {r['env_steps'] / r['rollout_time']:.1f} env-steps/s "
+              f"(the first act step's warm-up included; {r['env_steps'] / (r['rollout_time'] - r['first_act_time']):.1f} without it); "
+              f"act step {warm_act_ms:.1f} ms after the first (host clock, B={WP_N}: upload of the state, act, download of the "
+              f"actions; the first {1e3 * r['first_act_time']:.0f} ms), env_time {1e3 * r['env_time'] / r['act_steps']:.1f} ms per "
+              f"step; PPO updates {r['update_time']:.2f} s")
+        print(f"PPO minibatch step (T={ppo.num_steps}, n={WP_N // ppo.num_mini_batch}) by CUDA events, mean of the "
+              f"{minibatches - 1} after the first: {sum(warm.values()):.2f} ms = " + ", ".join(f"{k} {warm[k]:.2f}" for k in order)
+              + " ms; the first " + ", ".join(f"{k} {first[k]:.1f}" for k in order) + f" ms; peak card memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        last = os.path.join(ckpts, f"ckpt.{WP_UPDATES - 1}.ckpt")
+        saved = load_checkpoint(last)
+        assert saved["extra_state"] == {"update": WP_UPDATES - 1, "count_steps": act_steps * WP_N}, saved["extra_state"]
+        assert len(saved["optim_state"]["state"]) == len(with_state)
+        evaluator, eval_launches, eval_wall = _run_loop("eval", common + [
+            # sampled actions: greedy ones of the seeded policy STOP at once
+            "TASK_CONFIG.DATASET.NUM_EPISODES", 16, "EVAL.EPISODE_COUNT", 8, "EVAL.SAMPLE", True, "EVAL_CKPT_PATH_DIR", last,
+            "RESULTS_DIR", os.path.join(tmp, "evals"),
+        ], exp=WP_EXP, per_act_step=(2, 0, 0, 0))
+        head = "critic.fc.weight"
+        assert torch.equal(evaluator.policy.state_dict()[head].cpu(), after[head]), "eval did not load the trained weights"
+        with open(os.path.join(tmp, "evals", f"stats_ckpt_0_{trainer.config.EVAL.SPLIT}.json")) as f:
+            stats = json.load(f)
+        assert "waypoint_reward_measure" in stats and "spl" in stats and all(math.isfinite(v) for v in stats.values()), stats
+        t = evaluator.last_loop_timing
+        print(f"waypoint eval of {os.path.basename(last)}: {len(evaluator._last_eval_episode_stats)} episodes, {t['act_steps']} "
+              f"act steps, {t['env_steps']} env steps in {t['total_time']:.2f} s ({t['env_steps'] / t['total_time']:.1f} "
+              f"env-steps/s; run_exp {eval_wall:.1f} s), stats {json.dumps({k: round(v, 4) for k, v in stats.items()})}")
+
+    # one PPO minibatch step alone, its minibatch on the host as the storage yields it
+    _, policy, agent, sample = build_waypoint_ppo_step(dev, "bfloat16")
+
+    def minibatch_step():
+        agent.optimizer.zero_grad(set_to_none=True)
+        total, _ = agent.loss(agent.upload(sample), agent.clip_param(0), WP_T)
+        total.backward()
+        agent.optimizer.step()
+
+    step_ms = cuda_ms(minibatch_step, iters=5, warmup=2)
+    busy, kernels = device_ms(minibatch_step, 3)
+    b1 = sum(v for k, v in kernels.items() if "gru_" in k)
+    print(f"PPO minibatch step alone (T={WP_T}, n=1, upload of {sum(v.nbytes for v in sample[0].values()) / 1e6:.1f} MB from "
+          f"the host included): {step_ms:.2f} ms by CUDA events, device busy {busy:.2f} ms (profiler), idle share "
+          f"{max(0.0, 1 - busy / step_ms):.1%}; B1's kernels {b1:.3f} ms of the busy time")
+    return launches, eval_launches
+
+
+def phase_waypoint_against_plain(dev):
+    """One seeded f32 PPO minibatch step of 1-wpn-cc at T=16, n=1 (TF32 off):
+    the loss and every trainable gradient through B1 (forward storing the
+    gates, cluster-route backward, weight gradient; 2 launches each) and
+    again with the plain loop under autograd. The losses must agree within
+    1e-5 relative, the gradients at the tolerance of
+    phase_train_step_against_plain (1e-5 of their own scale plus 1e-8 of
+    the largest)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, policy, agent, sample = build_waypoint_ppo_step(dev, "float32")
+    dev_sample = agent.upload(sample)
+
+    def losses_and_gradients():
+        policy.zero_grad(set_to_none=True)
+        total, stats = agent.loss(dev_sample, agent.clip_param(0), WP_T)
+        total.backward()
+        losses = torch.stack([total.detach()] + [stats[k].detach() for k in ("value_loss", "action_loss", "entropy_loss")])
+        return losses, {k: p.grad.clone() for k, p in policy.named_parameters() if p.requires_grad and p.grad is not None}
+
+    _reset_launches()
+    k_losses, k_grads = losses_and_gradients()
+    launches = _read_launches()
+    assert launches == {"gru_sequence": 2, "gru_sequence_backward": 2, "gru_weight_gradient": 2,
+                        "fused_resize_normalize": 0}, launches
+    assert _cluster_launches() == 2, "B1's backward did not take the cluster route"
+    with plain_versions():
+        p_losses, p_grads = losses_and_gradients()
+    assert _read_launches() == launches, "the plain run launched a kernel"
+    assert sorted(k_grads) == sorted(p_grads) and len(p_grads) > 0
+    err_l = float(((k_losses - p_losses).abs() / p_losses.abs().clamp(min=1e-30)).max())
+    largest = max(float(ref.abs().max()) for ref in p_grads.values())
+    ratios = {}
+    for name, ref in p_grads.items():
+        scale = float(ref.abs().max())
+        err = float((k_grads[name] - ref).abs().max())
+        ratios[name] = (err / (1e-5 * scale + 1e-8 * largest), err, scale)
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1][0])[:3]
+    print(f"f32 PPO minibatch step at T={WP_T} n=1 (TF32 off), B1 kernels vs plain loop under autograd: losses (total, value, "
+          f"action, entropy) {k_losses.tolist()} vs {p_losses.tolist()} (max relative diff {err_l:.3e}, held at 1e-5); "
+          f"{len(p_grads)} gradients, the largest max |plain| {largest:.3e}; nearest to the tolerance 1e-5 x max |plain| + "
+          f"1e-8 x that: " + "; ".join(f"{name} at {r:.3f} of it (|diff| {e:.3e}, max |plain| {sc:.3e})" for name, (r, e, sc) in worst))
+    assert all(bool(torch.isfinite(g).all()) for g in k_grads.values()), "non-finite gradient"
+    assert err_l <= 1e-5 and worst[0][1][0] <= 1.0, "the f32 PPO step through the kernels disagrees with the plain loop"
+    torch.backends.cudnn.allow_tf32 = True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     import vlnce_torch  # noqa: F401  (fails where the repository is absent)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     name = phase_device()
@@ -1558,13 +1975,19 @@ def main() -> int:
     paths["recollect"], paths["recollect_eval"] = phase_recollect(dev)
     phase_recollect_against_plain(dev)
     paths["seq2seq"], paths["seq2seq_eval"] = phase_seq2seq(dev)
-    for k, extra in zip(kernels, (shapes["forward"], shapes["backward"], shapes["weight"], shapes["resize"])):
+    wp_shapes = phase_waypoint_shapes(dev)
+    paths["waypoint"], paths["waypoint_eval"] = phase_waypoint(dev)
+    phase_waypoint_against_plain(dev)
+    for k, extra, wp in zip(kernels, (shapes["forward"], shapes["backward"], shapes["weight"], shapes["resize"]),
+                            (wp_shapes["forward"], wp_shapes["backward"], wp_shapes["weight"], {})):
         k.update(extra)
+        k.update(wp)
     for k in kernels:
         for path, launches in paths.items():
             k[f"launches_{path}"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]] for launches in paths.values())
     assert all(k["launches"] > 0 for k in kernels), "a kernel was launched on no path"
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s (the build included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

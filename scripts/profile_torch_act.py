@@ -5,6 +5,7 @@ or of its RxR CMA recollect train step goes on one CUDA card.
     python3 scripts/profile_torch_act.py              # the act step
     python3 scripts/profile_torch_act.py --train      # the IL train step
     python3 scripts/profile_torch_act.py --recollect  # the recollect train step
+    python3 scripts/profile_torch_act.py --waypoint   # the PPO minibatch step and act step of 1-wpn-cc
 
 Act mode builds the act step that chip_smoke.py drives (the RxR CMA policy of
 rxr_cma_en.yaml at full width in bf16, seeded weights, B=32, the same seeded
@@ -30,6 +31,12 @@ batch of raw 480x640 frames at T=48, N=3 already on the card: the obs
 transforms, then the accumulation step, Adam applied) and reports the same,
 with the busy time of the obs transforms and of the frozen encoders apart,
 and the upload of that batch from pinned host memory.
+
+Waypoint mode builds the PPO minibatch step that chip_smoke.py holds against
+the plain loop (1-wpn-cc.yaml at full width in bf16, one seeded minibatch at
+T=16, n=1 on the host, uploaded by the step as the trainer does) and reports
+the step's time, busy time, idle share, the busy time of the upload and the
+frozen encoders apart, then the act step at B=4 with its own breakdown.
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (B, RECOLLECT_N, RECOLLECT_T, TRAIN_B, TRAIN_T, build_act_step, build_recollect_step,  # noqa: E402
-                        build_train_step, cuda_ms, episode_observations)
+                        WP_N, WP_T, build_train_step, build_waypoint_ppo_step, cuda_ms, device_ms,
+                        episode_observations)
 
 PROFILED_STEPS = 10
 FAMILIES = (  # first match wins
@@ -59,24 +67,6 @@ FAMILIES = (  # first match wins
     ("pooling", ("pool",)),
     ("elementwise/other", ("",)),
 )
-
-
-def device_ms(fn, steps):
-    """Device busy ms per call of fn (the sum of its kernels' times under
-    torch.profiler, over `steps` calls) and that time by kernel name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = collections.Counter()
-    for ev in prof.key_averages():
-        if ev.self_device_time_total > 0:
-            kernels[ev.key] += ev.self_device_time_total / 1e3 / steps
-    return sum(kernels.values()), kernels
 
 
 def _print_kernels(kernels, busy):
@@ -151,6 +141,63 @@ def profile_recollect_step(dev) -> int:
     return 0
 
 
+def profile_waypoint(dev) -> int:
+    """The PPO minibatch step of 1-wpn-cc (T=16, n=1, its minibatch uploaded
+    from the host, as the trainer runs it) and the act step at B=4 on one
+    batch already on the card."""
+    cfg, policy, agent, sample = build_waypoint_ppo_step(dev, "bfloat16")
+    name = torch.cuda.get_device_name(0)
+    T = WP_T
+
+    def minibatch_step():
+        agent.optimizer.zero_grad(set_to_none=True)
+        total, _ = agent.loss(agent.upload(sample), agent.clip_param(0), T)
+        total.backward()
+        agent.optimizer.step()
+
+    dev_sample = agent.upload(sample)
+    flat = lambda v: v.reshape((T,) + tuple(v.shape[2:]))  # noqa: E731
+    obs, hidden0, actions, prev, _, _, masks, _, _ = dev_sample
+    obs, prev, actions = ({k: flat(v) for k, v in d.items()} for d in (obs, prev, actions))
+    masks = flat(masks)
+    total = cuda_ms(minibatch_step, iters=5, warmup=2)
+    busy, kernels = device_ms(minibatch_step, PROFILED_STEPS)
+    upload = cuda_ms(lambda: agent.upload(sample), iters=5, warmup=1)
+    nbytes = sum(v.nbytes for v in sample[0].values())
+    net = policy.net
+    with torch.no_grad():
+        parts = {
+            "upload (pinned copies)": device_ms(lambda: agent.upload(sample), PROFILED_STEPS)[0],
+            f"depth encoder (frozen GN-ResNet50, {13 * T} frames)": device_ms(lambda: net.depth_encoder(
+                {"depth": torch.cat([obs["depth"].flatten(0, 1), obs["depth_history"]])}), PROFILED_STEPS)[0],
+            f"rgb encoder (frozen ResNet18, {13 * T} frames)": device_ms(lambda: net.rgb_encoder(
+                {"rgb": torch.cat([obs["rgb"].flatten(0, 1), obs["rgb_history"]])}), PROFILED_STEPS)[0],
+            f"instruction biLSTM ({T} rows)": device_ms(lambda: net.instruction_encoder(obs), PROFILED_STEPS)[0],
+        }
+    print(f"device: {name}; PPO minibatch step of 1-wpn-cc at T={T}, n=1, bf16 encoders, {policy.num_params() / 1e6:.1f}M "
+          f"weights: {total:.3f} ms/step (CUDA events, upload of {nbytes / 1e6:.1f} MB included: {upload:.3f} ms, "
+          f"{nbytes / upload / 1e6:.1f} GB/s); device busy {busy:.3f} ms/step (profiler), idle share "
+          f"{max(0.0, 1 - busy / total):.1%}")
+    print("device busy of parts run alone:")
+    for k, v in parts.items():
+        print(f"  {k:46s} {v:8.3f} ms  {v / busy:6.1%}")
+    families = _print_kernels(kernels, busy)
+
+    B = WP_N
+    act_obs = {k: v[:B] for k, v in obs.items()}
+    rnn, act_prev, act_masks = hidden0.expand(B, -1, -1).contiguous(), {k: v[:B] for k, v in prev.items()}, masks[:B]
+    step = lambda: policy.act(act_obs, rnn, act_prev, act_masks, deterministic=True)  # noqa: E731
+    act_total = cuda_ms(step, iters=10, warmup=2)
+    act_busy, act_kernels = device_ms(step, PROFILED_STEPS)
+    print(f"act step at B={B} (batch on the card): {act_total:.3f} ms/step (CUDA events); device busy {act_busy:.3f} "
+          f"ms/step, idle share {max(0.0, 1 - act_busy / act_total):.1%}")
+    act_families = _print_kernels(act_kernels, act_busy)
+    print(json.dumps({"device": name, "T": T, "minibatch_ms": total, "device_busy_ms": busy, "upload_ms": upload,
+                      "upload_bytes": nbytes, "parts_busy_ms": parts, "families_ms": dict(families), "act_B": B,
+                      "act_ms": act_total, "act_busy_ms": act_busy, "act_families_ms": dict(act_families)}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_act: no CUDA card visible", file=sys.stderr)
@@ -159,6 +206,8 @@ def main() -> int:
         return profile_train_step(torch.device("cuda", 0))
     if "--recollect" in sys.argv[1:]:
         return profile_recollect_step(torch.device("cuda", 0))
+    if "--waypoint" in sys.argv[1:]:
+        return profile_waypoint(torch.device("cuda", 0))
 
     from vlnce_torch.envs.batch import batch_obs
     from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms

@@ -38,7 +38,7 @@ def _gru_inputs(T, B, H, device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [64, 128, 512])
+@pytest.mark.parametrize("H", [64, 128, 256, 512])
 @pytest.mark.parametrize("B", [1, 3, 32, 40])
 @pytest.mark.parametrize("T", [1, 2, 16])
 def test_gru_kernel_matches_plain(T, B, H):
@@ -70,7 +70,7 @@ def _assert_gradients_close(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [64, 512])
+@pytest.mark.parametrize("H", [64, 256, 512])
 @pytest.mark.parametrize("B", [1, 4, 5, 8, 32])
 @pytest.mark.parametrize("T", [1, 2, 16, 32, 48])
 def test_gru_backward_kernel_matches_plain(T, B, H):
@@ -94,13 +94,14 @@ def test_gru_backward_kernel_matches_plain(T, B, H):
 
 def _expected_cluster(B, H):
     """The cluster the route should take on an H100: H=64 fits one block;
-    H=512 spreads w_hh over 16 blocks, whose shared memory holds the two
-    planes of up to 7 rows."""
-    return 1 if H == 64 else (16 if B <= 7 else 0)
+    H=256 (the waypoint configs) spreads w_hh over 4 blocks of 64 units, with
+    room for the planes of all 8 rows the route takes; H=512 spreads it over
+    16 blocks, whose shared memory holds the two planes of up to 7 rows."""
+    return {64: 1, 256: 4}.get(H, 16 if B <= 7 else 0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [64, 512])
+@pytest.mark.parametrize("H", [64, 256, 512])
 @pytest.mark.parametrize("B", [1, 4, 5, 8])
 @pytest.mark.parametrize("T", [1, 2, 16, 32, 48])
 def test_gru_backward_cluster_route_matches_plain(T, B, H):
@@ -144,7 +145,8 @@ def test_gru_forward_reserve_matches_plain_gates(T, B, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h0_rows", ["strided", "unaligned"])
-@pytest.mark.parametrize("T,B,H", [(32, 5, 512), (48, 5, 512), (1, 8, 512), (3, 7, 100), (5, 3, 64)])
+@pytest.mark.parametrize("T,B,H", [(32, 5, 512), (48, 5, 512), (1, 8, 512), (3, 7, 100), (5, 3, 64), (16, 1, 256),
+                                   (16, 4, 256)])
 def test_gru_weight_gradient_kernel_matches_plain(T, B, H, h0_rows):
     """The weight-gradient launch against d_gh^T @ h_prev: H=100 leaves
     ragged tiles (3H and H no multiple of 64), an unaligned h0 has rows
@@ -183,6 +185,37 @@ def test_gru_sequence_autograd_matches_plain_loop(T, B, H):
         grads.append([xi.grad, states.grad[:, 0], w_hh.grad, b_hh.grad])
         assert float(states.grad[:, 1].abs().max()) == 0.0
     torch.cuda.synchronize()
+    _assert_gradients_close(*grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("T,B", [(1, 2), (1, 4), (16, 1), (16, 2), (16, 4)])
+def test_gru_waypoint_state_slices_match_plain(T, B, layer):
+    """The waypoint policy's two GRUs at H=256 read their h0 as `states[:,
+    0]` and `states[:, 1]` of one [B, 2, H] state (rows 2H apart, the second
+    H floats in): at the act step's T=1 and the PPO minibatch's T=16, the
+    output and, through the training forward's gates and the cluster route,
+    the gradient flowing back into the strided view match autograd through
+    the plain loop; the other GRU's slice gets no gradient."""
+    dev = _card()
+    H = 256
+    g = torch.Generator().manual_seed(11 + T + B)
+    weight = torch.randn(T, B, H, generator=g).to(dev)
+    outs, grads = [], []
+    for fn in (gru_sequence, gru_sequence_plain):
+        xi, masks, h0, w_hh, b_hh = _gru_inputs(T, B, H, dev, seed=4)
+        states = torch.randn(B, 2, H, generator=torch.Generator().manual_seed(B)).to(dev).requires_grad_()
+        leaves = [xi.requires_grad_(), w_hh.requires_grad_(), b_hh.requires_grad_()]
+        before = gru_sequence_backward.cluster_launches
+        out = fn(xi, masks, states[:, layer], w_hh, b_hh)
+        (out * weight).sum().backward()
+        assert gru_sequence_backward.cluster_launches == before + (fn is gru_sequence)
+        outs.append(out.detach())
+        grads.append([leaves[0].grad, states.grad[:, layer], leaves[1].grad, leaves[2].grad])
+        assert float(states.grad[:, 1 - layer].abs().max()) == 0.0
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(outs[0].cpu().numpy(), outs[1].cpu().numpy(), atol=1e-5 if T == 1 else 1e-4)
     _assert_gradients_close(*grads)
 
 

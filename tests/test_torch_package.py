@@ -48,6 +48,9 @@ NEW_MODULES = [
     "vlnce_torch.models.aux_losses", "vlnce_torch.utils.profiling",
     # the recollect slice
     "vlnce_torch.models.seq2seq_policy", "vlnce_torch.data.recollection", "vlnce_torch.trainers.recollect_trainer",
+    # the waypoint RL slice
+    "vlnce_torch.models.waypoint_predictors", "vlnce_torch.models.waypoint_policy", "vlnce_torch.rl.rollout_storage",
+    "vlnce_torch.rl.ppo", "vlnce_torch.trainers.ddppo_waypoint_trainer", "vlnce_torch.tasks.discrete_planner",
 ]
 
 
@@ -133,3 +136,48 @@ def test_training_keys_of_the_cuda_section():
     assert cfg.CUDA.ASYNC_CHECKPOINT is True and cfg.CUDA.PIPELINED_COLLECTION is False and cfg.CUDA.PROFILE_DIR == ""
     assert not (cfg.CUDA.ON_DEVICE_DAGGER or cfg.CUDA.DAGGER_RESIDENT or cfg.CUDA.RESIDENT_EPOCH_SCAN)
     assert not (cfg.CUDA.ON_DEVICE_RECOLLECT or cfg.CUDA.RECOLLECT_RESIDENT)
+    assert not (cfg.CUDA.ON_DEVICE_ROLLOUT or cfg.CUDA.PPO_UPDATE_SCAN)
+
+
+def test_waypoint_configs_match_jax():
+    """The six r2r_waypoint experiments, the synthetic waypoint smoke
+    config and the discrete-navigator override equal the JAX package's up to
+    the package name, outside the CUDA / TPU sections, with the pano sensors
+    added as the trainer adds them."""
+    import pytest
+
+    from vlnce_torch.config.default import add_pano_sensors_to_config
+    from vlnce_tpu.config.default import add_pano_sensors_to_config as jax_add_pano_sensors_to_config
+
+    names = sorted(os.listdir(os.path.join(REPO, "vlnce_torch/config/experiments/r2r_waypoint")))
+    assert names == sorted(os.listdir(os.path.join(REPO, "vlnce_tpu/config/experiments/r2r_waypoint"))) and len(names) == 6
+    chains = [f"config/experiments/r2r_waypoint/{n}" for n in names] + [
+        "config/experiments/synthetic/smoke_waypoint.yaml",
+        "config/experiments/synthetic/smoke_waypoint.yaml,{pkg}/tasks/config/vlnce_waypoint_DN.yaml"]
+    for chain in chains:
+        jcfg = jax_add_pano_sensors_to_config(jax_get_config("vlnce_tpu/" + chain.format(pkg="vlnce_tpu"))).to_dict()
+        cfg = add_pano_sensors_to_config(get_config("vlnce_torch/" + chain.format(pkg="vlnce_torch"))).to_dict()
+        jcfg.pop("TPU"), cfg.pop("CUDA")
+        jcfg["BASE_TASK_CONFIG_PATH"] = jcfg["BASE_TASK_CONFIG_PATH"].replace("vlnce_tpu/", "vlnce_torch/")
+        assert json.dumps(cfg, sort_keys=True) == json.dumps(jcfg, sort_keys=True), chain
+        assert cfg["TRAINER_NAME"] == "ddppo-waypoint" and cfg["MODEL"]["STATE_ENCODER"]["hidden_size"] == 256
+    with pytest.raises(KeyError):
+        get_config("vlnce_torch/config/experiments/r2r_waypoint/1-wpn-cc.yaml", ["TPU.ON_DEVICE_ROLLOUT", True])
+
+
+def test_resident_rl_keys_raise_naming_the_roadmap_heading():
+    """CUDA.ON_DEVICE_ROLLOUT and CUDA.PPO_UPDATE_SCAN (the JAX package's
+    device-resident rollout and fused PPO update) raise before any env is
+    built."""
+    import pytest
+
+    import vlnce_torch.trainers  # noqa: F401
+    from vlnce_torch.registry import registry
+
+    for key in ("ON_DEVICE_ROLLOUT", "PPO_UPDATE_SCAN"):
+        cfg = get_config("vlnce_torch/config/experiments/synthetic/smoke_waypoint.yaml",
+                         ["CUDA.DEVICE", "cpu", f"CUDA.{key}", True])
+        trainer = registry.get_trainer("ddppo-waypoint")(cfg)
+        with pytest.raises(NotImplementedError, match="Device-resident loops"):
+            trainer.train()
+        assert trainer.envs is None

@@ -18,7 +18,8 @@ def _cli(value) -> str:
     return value if isinstance(value, str) else json.dumps(value)
 
 
-def _run(run_type, tmp_path, extra=(), exp=RXR_CMA, small=SMALL_OPTS):
+def _command(run_type, tmp_path, extra=(), exp=RXR_CMA, small=SMALL_OPTS):
+    """The command line and environment of one `python -m vlnce_torch.run`."""
     opts = small + [
         "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0",
         "TASK_CONFIG.DATASET.NUM_EPISODES", 8,
@@ -36,10 +37,12 @@ def _run(run_type, tmp_path, extra=(), exp=RXR_CMA, small=SMALL_OPTS):
     ]
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "VLNCE_TORCH_THREADED_ENVS")}
     env["OMP_NUM_THREADS"] = "1"  # the command and its forked workers share the cores with the other test processes
-    return subprocess.run(
-        [sys.executable, "-m", "vlnce_torch.run", "--exp-config", exp, "--run-type", run_type, *map(_cli, opts)],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
-    )
+    return [sys.executable, "-m", "vlnce_torch.run", "--exp-config", exp, "--run-type", run_type, *map(_cli, opts)], env
+
+
+def _run(run_type, tmp_path, extra=(), exp=RXR_CMA, small=SMALL_OPTS):
+    args, env = _command(run_type, tmp_path, extra, exp, small)
+    return subprocess.run(args, cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
 
 
 CPU = ["CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32"]
@@ -163,6 +166,74 @@ def test_seq2seq_dagger_train_then_eval_of_its_checkpoint(tmp_path):
     with open(tmp_path / "evals" / "stats_ckpt_0_val_unseen.json") as f:
         assert sorted(json.load(f)) == MEASURES
     assert "Initialized policy Seq2SeqPolicy on cpu" in (tmp_path / "run.log").read_text()
+
+
+WAYPOINT_SMOKE = "vlnce_torch/config/experiments/synthetic/smoke_waypoint.yaml"
+WAYPOINT_MEASURES = sorted(MEASURES + ["waypoint_reward_measure"])
+
+
+def test_waypoint_train_then_eval_of_its_checkpoint(tmp_path):
+    """`--run-type train` of the synthetic waypoint experiment (TRAINER_NAME
+    ddppo-waypoint: 2 updates of PPO over 2 forked workers, the two-group
+    pipelined rollout), a checkpoint per update with its update counter and
+    optimizer state; then `--run-type eval` of the last one over forked
+    workers on VLNCEWaypointEnv."""
+    import torch
+
+    train = ["CHECKPOINT_FOLDER", str(tmp_path / "checkpoints"), "CUDA.PIPELINED_COLLECTION", True]
+    out = _run("train", tmp_path, CPU + train, exp=WAYPOINT_SMOKE, small=[])
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == ["ckpt.0.ckpt", "ckpt.1.ckpt"]
+    ckpt = torch.load(tmp_path / "checkpoints" / "ckpt.1.ckpt", weights_only=True)
+    assert ckpt["extra_state"] == {"update": 1, "count_steps": 16} and len(ckpt["optim_state"]["state"]) > 0
+    log = (tmp_path / "run.log").read_text()
+    assert "Initialized WaypointPolicy on cpu" in log and "update 1\tfps" in log and "value_loss" in log
+
+    out = _run("eval", tmp_path, CPU + ["EVAL_CKPT_PATH_DIR", str(tmp_path / "checkpoints" / "ckpt.1.ckpt")],
+               exp=WAYPOINT_SMOKE, small=[])
+    assert out.returncode == 0, out.stderr[-2000:]
+    with open(tmp_path / "evals" / "stats_ckpt_0_val_unseen.json") as f:
+        assert sorted(json.load(f)) == WAYPOINT_MEASURES
+    assert "Loaded waypoint policy from" in (tmp_path / "run.log").read_text()
+
+
+def test_waypoint_requeue_writes_the_state_and_resumes_from_it(tmp_path):
+    """SIGUSR1 to a training run (the SLURM preemption signal) makes it stop
+    at the next update and write its state to RL.DDPPO.requeue_path; a run
+    with RL.DDPPO.start_from_requeue resumes from that update."""
+    import signal
+    import time
+
+    import torch
+
+    state = tmp_path / "interrupted_state.pth"
+    ckpts = tmp_path / "checkpoints"
+    common = CPU + ["CHECKPOINT_FOLDER", str(ckpts), "RL.DDPPO.requeue_path", str(state), "CUDA.ASYNC_CHECKPOINT", False]
+    args, env = _command("train", tmp_path, common + ["RL.NUM_UPDATES", 200], exp=WAYPOINT_SMOKE, small=[])
+    proc = subprocess.Popen(args, cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 240
+        while not (ckpts / "ckpt.0.ckpt").exists() and proc.poll() is None and time.time() < deadline:
+            time.sleep(0.05)
+        assert proc.poll() is None, proc.stderr.read()[-2000:]
+        proc.send_signal(signal.SIGUSR1)
+        _, err = proc.communicate(timeout=240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, err[-2000:]
+    saved = torch.load(state, weights_only=True)
+    update = saved["extra_state"]["update"]
+    assert 1 <= update < 200 and saved["extra_state"]["count_steps"] == 8 * update
+    assert len(saved["optim_state"]["state"]) > 0
+    assert "Saved interrupted state for requeue" in (tmp_path / "run.log").read_text()
+
+    out = _run("train", tmp_path, common + ["RL.NUM_UPDATES", update + 1, "RL.DDPPO.start_from_requeue", True],
+               exp=WAYPOINT_SMOKE, small=[])
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"Resumed from requeue state at update {update}" in (tmp_path / "run.log").read_text()
+    resumed = torch.load(ckpts / f"ckpt.{update}.ckpt", weights_only=True)
+    assert resumed["extra_state"] == {"update": update, "count_steps": 8 * (update + 1)}
 
 
 def test_default_device_is_the_card(tmp_path):

@@ -280,3 +280,139 @@ def build_seq2seq_pair(seed=0, extra=(), rxr=False):
     policy = Seq2SeqPolicy.from_config(cfg, space, action_space_from_config(cfg.TASK_CONFIG))
     policy.load_state_dict(state_dict_from_jax_params(params, "Seq2SeqPolicy"), strict=True)
     return (jax_policy, params), policy, (jcfg, cfg)
+
+
+# ---------------------------------------------------------------------------
+# The waypoint policy at each of the six r2r_waypoint flag sets, small
+# ---------------------------------------------------------------------------
+
+WAYPOINT_NAMES = ("1-wpn-cc", "2-wpn-dc", "3-wpn-dd", "4-wpn-d_", "5-hpn-_c", "6-hpn-__")
+WP_IMG = 32
+WP_H = 64
+# ResNet18 for both encoders, 64-d RGB head, H=64, a 64-word vocabulary
+# without the pretrained table, 32x32 frames (tests/test_trainers.py's
+# waypoint sizes), synthetic episodes
+WP_SMALL_OPTS = [
+    "MODEL.RGB_ENCODER.cnn_type", "TorchVisionResNet18",
+    "MODEL.RGB_ENCODER.output_size", 64,
+    "MODEL.DEPTH_ENCODER.backbone", "resnet18",
+    "MODEL.STATE_ENCODER.hidden_size", WP_H,
+    "MODEL.INSTRUCTION_ENCODER.vocab_size", 64,
+    "MODEL.INSTRUCTION_ENCODER.use_pretrained_embeddings", False,
+    "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0",
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.HEIGHT", WP_IMG,
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.WIDTH", WP_IMG,
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT", WP_IMG,
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH", WP_IMG,
+    "TENSORBOARD_DIR", "",
+]
+
+
+def waypoint_configs(name, extra=()):
+    """(jax config, port config) of r2r_waypoint/<name>.yaml at the small
+    sizes, both f32, the port on the CPU."""
+    jcfg = jax_get_config(f"vlnce_tpu/config/experiments/r2r_waypoint/{name}.yaml",
+                          WP_SMALL_OPTS + ["TPU.PRECISION.compute_dtype", "float32", *extra])
+    cfg = get_config(f"vlnce_torch/config/experiments/r2r_waypoint/{name}.yaml",
+                     WP_SMALL_OPTS + ["CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32", *extra])
+    return jcfg, cfg
+
+
+def waypoint_space(spaces, img=WP_IMG):
+    """The policy's observation space as the ddppo-waypoint trainer builds it
+    (12 stacked pano frames per sensor, the history frames, tokens, angle
+    features), in `spaces` (gymnasium's or the port's)."""
+    return spaces.Dict({
+        "rgb": spaces.Box(0, 255, (12, img, img, 3), np.uint8),
+        "depth": spaces.Box(0.0, 1.0, (12, img, img, 1), np.float32),
+        "rgb_history": spaces.Box(0, 255, (img, img, 3), np.uint8),
+        "depth_history": spaces.Box(0.0, 1.0, (img, img, 1), np.float32),
+        "instruction": spaces.Box(0, 2**31 - 1, (200,), np.int32),
+        "angle_features": spaces.Box(-1.0, 1.0, (12, 4), np.float32),
+    })
+
+
+def _perturb_state_dict(policy, rng):
+    """Seeded values for the trivially initialized tensors of a port policy:
+    norm scales, biases and running statistics."""
+    with torch.no_grad():
+        for name, t in policy.state_dict().items():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight" and t.dim() == 1:
+                t.copy_(torch.from_numpy(rng.normal(1.0, 0.2, t.shape).astype(np.float32)))
+            elif leaf.startswith("bias") or leaf == "running_mean":
+                t.copy_(torch.from_numpy(rng.normal(0.0, 0.1, t.shape).astype(np.float32)))
+            elif leaf == "running_var":
+                t.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, t.shape).astype(np.float32)))
+
+
+def build_waypoint_pair(name, seed=0, extra=()):
+    """The small waypoint policy of r2r_waypoint/<name>.yaml in both packages
+    with the same weights: the port's seeded and perturbed weights go into
+    the JAX parameter tree through the JAX package's own converter
+    (`convert_waypoint_state_dict`, into the tree's shapes from
+    `jax.eval_shape` of its init: no compile), and those JAX params come
+    back into the port policy through `state_dict_from_jax_params`, loaded
+    strictly and bit-equal to what went out. Returns ((jax policy, params), port policy, (jax config,
+    port config))."""
+    from vlnce_tpu.models.convert import convert_waypoint_state_dict
+    from vlnce_tpu.models.policy import observation_space_example
+    from vlnce_tpu.models.waypoint_policy import WaypointPolicy as JaxWaypointPolicy
+    from vlnce_torch.envs import spaces as port_spaces
+    from vlnce_torch.models.waypoint_policy import WaypointPolicy
+
+    jcfg, cfg = waypoint_configs(name, extra)
+    policy = WaypointPolicy.from_config(cfg, waypoint_space(port_spaces))
+    _perturb_state_dict(policy, np.random.RandomState(seed))
+    sd = {k: v.numpy().copy() for k, v in policy.state_dict().items()}
+
+    jax_policy = JaxWaypointPolicy.from_config(jcfg, waypoint_space(gym_spaces))
+    B = 1
+    shapes = jax.eval_shape(
+        jax_policy.module.init, jax.random.PRNGKey(seed), observation_space_example(jax_policy.observation_space, B),
+        jax_policy.initial_rnn_states(B), jax_policy.initial_prev_actions(B), np.zeros((B, 1), np.float32),
+    )["params"]
+    params = shapes  # nested plain dicts: the converter fills their leaves in place
+    convert_waypoint_state_dict(sd, params)
+    leaves = jax.tree_util.tree_leaves(params)
+    assert not any(isinstance(x, jax.ShapeDtypeStruct) for x in leaves), "a JAX parameter was left unset"
+    params = jax.tree_util.tree_map(np.asarray, params)
+    jax_policy.params = params
+
+    back = state_dict_from_jax_params(params, "WaypointPolicy")
+    policy.load_state_dict(back, strict=True)
+    assert all(torch.equal(back[k], torch.from_numpy(v)) for k, v in sd.items())
+    return (jax_policy, params), policy, (jcfg, cfg)
+
+
+def waypoint_observations(rng, B, img=WP_IMG, max_tokens=12):
+    """Seeded observations as the waypoint policy takes them: u8 pano and
+    history RGB, f32 depth, instruction tokens zero past ragged lengths, the
+    angle features of the pano cameras."""
+    tokens = np.zeros((B, 200), np.int32)
+    for b in range(B):
+        n = rng.randint(3, max_tokens + 1)
+        tokens[b, :n] = rng.randint(2, 32, n)
+    angles = np.arange(12) * (2 * np.pi / 12)
+    features = np.stack([np.sin(angles), np.cos(angles), np.zeros(12), np.ones(12)], axis=1).astype(np.float32)
+    return {
+        "rgb": rng.randint(0, 256, (B, 12, img, img, 3)).astype(np.uint8),
+        "depth": rng.rand(B, 12, img, img, 1).astype(np.float32),
+        "rgb_history": rng.randint(0, 256, (B, img, img, 3)).astype(np.uint8),
+        "depth_history": rng.rand(B, img, img, 1).astype(np.float32),
+        "instruction": tokens,
+        "angle_features": np.broadcast_to(features, (B, 12, 4)).copy(),
+    }
+
+
+def waypoint_prev_actions(rng, shape, wypt_cfg):
+    """Seeded action components of `shape` + (1,) in the stored format:
+    pano_stop in [0, 12] (12 is STOP), offset and distance in their head's
+    range (continuous) or index range (discrete)."""
+    lim = np.pi / 12
+    offset = (rng.uniform(-lim, lim, shape + (1,)) if wypt_cfg.continuous_offset
+              else rng.randint(0, wypt_cfg.discrete_offsets, shape + (1,)))
+    distance = (rng.uniform(wypt_cfg.min_distance_prediction, wypt_cfg.max_distance_prediction, shape + (1,))
+                if wypt_cfg.continuous_distance else rng.randint(0, wypt_cfg.discrete_distances, shape + (1,)))
+    return {"pano": rng.randint(0, 13, shape + (1,)).astype(np.float32), "offset": offset.astype(np.float32),
+            "distance": distance.astype(np.float32)}

@@ -7,13 +7,14 @@ kernels is a CUDA kernel written for sm_90a under `csrc/`, built by nvcc at
 its first launch (`ops/_build.py`) and bound with ctypes. On CPU tensors every
 kernel wrapper runs its plain PyTorch version instead.
 
-Ported so far: the serving path of the RxR CMA policy. `python -m
-vlnce_torch.run --run-type {eval,inference}` drives `trainers.base_trainer`'s
-eval and inference loops over the host env layer (`envs/`, `tasks/`: the
-procedural GridWorld simulator, datasets, sensors, measures, forked vector
-envs), with checkpoints from `utils.checkpoints`, around the act step (obs
-transforms, CMAPolicy, `trainers.base_trainer.make_fused_act_step`). Training
-is not ported yet.
+Ported so far: the CMA, Seq2Seq and waypoint policies, and `python -m
+vlnce_torch.run --run-type {train,eval,inference}` over the host env layer
+(`envs/`, `tasks/`: the procedural GridWorld simulator, datasets, sensors,
+measures, forked vector envs) with checkpoints from `utils.checkpoints`: eval
+and inference (`trainers.base_trainer`), DAgger (`trainers.dagger_trainer`),
+the recollect trainer (`trainers.recollect_trainer`) and DD-PPO of the
+waypoint policy on one card (`trainers.ddppo_waypoint_trainer`, `rl/`).
+ROADMAP.md lists what is not ported yet.
 """
 
 __version__ = "0.1.0"

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import List, Optional, Union
 
+import copy
+import math
 import os
 
 from vlnce_torch.config.node import Config as CN
@@ -91,6 +93,10 @@ _C.CUDA.RESIDENT_EPOCH_SCAN = False
 # batch kept there): keys kept so configs merge; not ported yet
 _C.CUDA.ON_DEVICE_RECOLLECT = False
 _C.CUDA.RECOLLECT_RESIDENT = False
+# device-resident RL (rollouts collected on the card, all PPO minibatch
+# updates of a rollout fused): keys kept so configs merge; not ported yet
+_C.CUDA.ON_DEVICE_ROLLOUT = False
+_C.CUDA.PPO_UPDATE_SCAN = False
 
 # ---------------------------------------------------------------------------
 # EVAL
@@ -355,3 +361,29 @@ def get_config(
     config.freeze()
     return config
 
+
+def add_pano_sensors_to_config(config: CN) -> CN:
+    """Clone the RGB/DEPTH sensor configs into PANO_ROTATIONS equiangular
+    orientations (uuids rgb, rgb_1..rgb_{N-1}; same for depth). Mirrors
+    reference vlnce_baselines/config/default.py:337-382."""
+    num_cameras = config.TASK_CONFIG.TASK.PANO_ROTATIONS
+    config.defrost()
+    orientations = [(0.0, 2.0 * math.pi / num_cameras * i, 0.0) for i in range(num_cameras)]
+
+    for kind in ("RGB", "DEPTH"):
+        base_key = f"{kind}_SENSOR"
+        if base_key not in config.TASK_CONFIG.SIMULATOR.AGENT_0.SENSORS:
+            continue
+        base = config.TASK_CONFIG.SIMULATOR[base_key]
+        base.ORIENTATION = list(orientations[0])
+        for camera_id in range(1, num_cameras):
+            template = f"{kind}_{camera_id}"
+            cam = copy.deepcopy(base)
+            cam.ORIENTATION = list(orientations[camera_id])
+            cam.UUID = template.lower()
+            setattr(config.TASK_CONFIG.SIMULATOR, template, cam)
+            config.TASK_CONFIG.SIMULATOR.AGENT_0.SENSORS.append(template)
+
+    config.SENSORS = list(config.TASK_CONFIG.SIMULATOR.AGENT_0.SENSORS)
+    config.freeze()
+    return config

@@ -2,10 +2,12 @@
 reference-keyed torch files.
 
 `state_dict_from_jax_params` turns the JAX package's parameter tree (nested
-dicts of numpy arrays, as flax holds them) of the CMA or the Seq2Seq policy
-into this package's state_dict,
-which uses the reference's key names. It is the inverse of
-vlnce_tpu/models/convert.py:convert_policy_state_dict:
+dicts of numpy arrays, as flax holds them) of the CMA, the Seq2Seq or the
+waypoint policy into this package's state_dict, which uses the reference's
+key names. It is the inverse of
+vlnce_tpu/models/convert.py:convert_policy_state_dict (for the waypoint
+policy, of `convert_waypoint_state_dict`: its JAX tree is rooted at the
+prediction net, with no `net/` level):
 
     Dense   kernel[in, out]        -> Linear W[out, in]
     Conv    kernel[kh, kw, in, out] -> Conv2d W[out, in, kh, kw]
@@ -150,19 +152,24 @@ def _instruction_encoder(tree, sd, src: str, dst: str) -> None:
         sd[f"{dst}.embedding_layer.weight"] = tree.get(f"{src}/embedding")
 
 
+def _join(src: str, name: str) -> str:
+    return f"{src}/{name}" if src else name
+
+
 def _encoders(tree, sd, src: str, dst: str) -> None:
     """The instruction, depth and RGB encoders, each with its spatial
-    embedding (CMA) or its non-spatial head (Seq2Seq)."""
-    _instruction_encoder(tree, sd, f"{src}/instruction_encoder", f"{dst}.instruction_encoder")
+    embedding (CMA, waypoint) or its non-spatial head (Seq2Seq). `src` is
+    the JAX path of their parent ("" for the root)."""
+    _instruction_encoder(tree, sd, _join(src, "instruction_encoder"), f"{dst}.instruction_encoder")
 
-    de = f"{src}/depth_encoder"
+    de = _join(src, "depth_encoder")
     _gn_resnet_encoder(tree, sd, f"{de}/visual_encoder", f"{dst}.depth_encoder.visual_encoder")
     if tree.has(f"{de}/visual_fc"):
         _dense(tree, sd, f"{de}/visual_fc", f"{dst}.depth_encoder.visual_fc.1")
     else:
         sd[f"{dst}.depth_encoder.spatial_embeddings.weight"] = tree.get(f"{de}/spatial_embeddings")
 
-    re_ = f"{src}/rgb_encoder"
+    re_ = _join(src, "rgb_encoder")
     _tv_resnet(tree, sd, f"{re_}/cnn", f"{dst}.rgb_encoder.cnn")
     if tree.has(f"{re_}/fc"):
         _dense(tree, sd, f"{re_}/fc", f"{dst}.rgb_encoder.fc.1")
@@ -190,26 +197,65 @@ def _seq2seq(tree, sd) -> None:
         sd["net.prev_action_embedding.weight"] = tree.get("net/prev_action_embedding")
 
 
-_POLICIES = {"CMAPolicy": _cma, "Seq2SeqPolicy": _seq2seq}
+def _waypoint(tree, sd) -> None:
+    """The waypoint prediction net's own modules and the critic; the Sequential
+    indices are the reference's (`rgb_hist_linear.2`, `inst_attn_q.0`, the
+    continuous heads' `.0`, ...)."""
+    _encoders(tree, sd, "", "net")
+    _rnn(tree, sd, "visual_rnn/cell", "net.visual_rnn.rnn")
+    _rnn(tree, sd, "main_state_encoder/cell", "net.main_state_encoder.rnn")
+    _dense(tree, sd, "rgb_pool_linear", "net.rgb_pool_linear")
+    _dense(tree, sd, "rgb_hist_linear", "net.rgb_hist_linear.2")
+    _dense(tree, sd, "depth_hist_linear", "net.depth_hist_linear.1")
+    _dense(tree, sd, "inst_attn_q", "net.inst_attn_q.0")
+    _conv1d(tree, sd, "inst_attn_k", "net.inst_attn_k")
+    _dense(tree, sd, "text_q_linear", "net.text_q_linear")
+    _conv1d(tree, sd, "rgb_kv_spatial", "net.rgb_kv_spatial")
+    _conv1d(tree, sd, "depth_kv_spatial", "net.depth_kv_spatial")
+    for name in ("q_linear", "k_linear", "v_linear", "final_linear"):
+        _dense(tree, sd, f"pano_attn/{name}", f"net.pano_attn.{name}")
+    if tree.has("pano_attn/layer_norm"):
+        _gn(tree, sd, "pano_attn/layer_norm", "net.pano_attn.layer_norm")
+    _dense(tree, sd, "main_state_compress", "net.main_state_compress.0")
+    _dense(tree, sd, "stop_linear", "net.stop_linear")
+    _dense(tree, sd, "compress_x_linear", "net.compress_x_linear.0")
+    # a continuous head is Linear + activation (`.0`), a discrete one a Linear
+    for head in ("distance", "offset"):
+        continuous = tree.has(f"{head}_var_linear")
+        _dense(tree, sd, f"{head}_linear", f"net.{head}_linear" + (".0" if continuous else ""))
+        if continuous:
+            _dense(tree, sd, f"{head}_var_linear", f"net.{head}_var_linear.0")
+    _dense(tree, sd, "critic", "critic.fc")
+
+
+def _il_policy(body):
+    def convert(tree, sd) -> None:
+        _encoders(tree, sd, "net", "net")
+        _dense(tree, sd, "action_distribution", "action_distribution.linear")
+        body(tree, sd)
+        if tree.has("net/progress_monitor"):
+            _dense(tree, sd, "net/progress_monitor", "net.progress_monitor")
+
+    return convert
+
+
+_POLICIES = {"CMAPolicy": _il_policy(_cma), "Seq2SeqPolicy": _il_policy(_seq2seq), "WaypointPolicy": _waypoint}
 
 
 def state_dict_from_jax_params(params: Mapping, policy_name: str = "CMAPolicy") -> Dict[str, torch.Tensor]:
     """JAX params (nested dicts of arrays) -> this package's state_dict, for
-    the CMA or the Seq2Seq policy."""
+    the CMA, the Seq2Seq or the waypoint policy."""
     if policy_name not in _POLICIES:
         raise ValueError(f"state_dict_from_jax_params: {policy_name} is not ported yet")
     tree = _Tree(params)
     sd: Dict[str, np.ndarray] = {}
-    _encoders(tree, sd, "net", "net")
-    _dense(tree, sd, "action_distribution", "action_distribution.linear")
     _POLICIES[policy_name](tree, sd)
-    if tree.has("net/progress_monitor"):
-        _dense(tree, sd, "net/progress_monitor", "net.progress_monitor")
 
     unused = sorted(set(tree.leaves()) - tree.used)
     if unused:
         raise KeyError(f"state_dict_from_jax_params: JAX params with no place in the port: {unused}")
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    # np.array copies: JAX hands over read-only arrays, which torch must not wrap
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
 def load_policy_state_dict(policy, state_dict: Mapping[str, torch.Tensor]) -> None:

@@ -5,7 +5,8 @@ Success, SPL) and the VLN-CE extension measures
 (reference habitat_extensions/measures.py:35-562), with the same uuids,
 dependency declarations, and update semantics. nDTW uses the from-scratch
 fastdtw/dtw in vlnce_torch/tasks/dtw.py. Of the JAX package's measures,
-WaypointRewardMeasure and TopDownMapVLNCE are not ported yet.
+TopDownMapVLNCE is not ported yet (the waypoint task YAML lists its settings
+but not the measure).
 """
 
 from __future__ import annotations
@@ -309,6 +310,58 @@ class SDTW(Measure):
         success = task.measurements.measures[Success.cls_uuid].get_metric()
         ndtw = task.measurements.measures[NDTW.cls_uuid].get_metric()
         self._metric = success * ndtw
+
+
+@registry.register_measure(name="WaypointRewardMeasure")
+class WaypointRewardMeasure(Measure):
+    """RL shaping reward: distance-scaled slack + distance-to-goal delta +
+    success bonus (reference habitat_extensions/measures.py:153-233)."""
+
+    cls_uuid = "waypoint_reward_measure"
+
+    def __init__(self, *args: Any, sim: Simulator, config=None, **kwargs: Any):
+        self._sim = sim
+        self._slack_reward = config.slack_reward
+        self._use_distance_scaled_slack_reward = config.use_distance_scaled_slack_reward
+        self._scale_slack_on_prediction = config.scale_slack_on_prediction
+        self._success_reward = config.success_reward
+        self._distance_scalar = config.distance_scalar
+        self._prev_position = None
+        super().__init__()
+
+    def reset_metric(self, *args: Any, task, **kwargs: Any) -> None:
+        task.measurements.check_measure_dependencies(self.uuid, [DistanceToGoal.cls_uuid, Success.cls_uuid])
+        self._previous_distance_to_goal = task.measurements.measures["distance_to_goal"].get_metric()
+        self._metric = 0.0
+        self._prev_position = np.take(self._sim.get_agent_state().position, [0, 2])
+
+    def _get_scaled_slack_reward(self, action) -> float:
+        if isinstance(action.get("action"), int):
+            return self._slack_reward
+        if not self._use_distance_scaled_slack_reward:
+            return self._slack_reward
+        agent_pos = np.take(self._sim.get_agent_state().position, [0, 2])
+        if self._scale_slack_on_prediction and action["action"] != "STOP":
+            slack_distance = action["action_args"]["r"]
+        else:
+            slack_distance = float(np.linalg.norm(self._prev_position - agent_pos))
+        scaled = self._slack_reward * slack_distance / 0.25
+        self._prev_position = agent_pos
+        return min(self._slack_reward, scaled)
+
+    def _progress_to_goal(self, task) -> float:
+        d = task.measurements.measures["distance_to_goal"].get_metric()
+        delta = self._previous_distance_to_goal - d
+        if np.isnan(delta) or np.isinf(delta):
+            delta = -1.0
+        self._previous_distance_to_goal = d
+        return self._distance_scalar * delta
+
+    def update_metric(self, *args: Any, action, task, **kwargs: Any) -> None:
+        reward = self._get_scaled_slack_reward(action)
+        reward += self._progress_to_goal(task)
+        reward += self._success_reward * task.measurements.measures["success"].get_metric()
+        self._metric = reward
 
 
 def build_measures(measure_names: List[str], task_config, sim: Simulator) -> Measurements:
