@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch port: builds its CUDA kernels, holds each against
-its plain PyTorch version, and drives the RxR CMA act step, eval and inference,
-the R2R CMA DAgger training, the RxR CMA and Seq2Seq recollect training, and
-the DD-PPO training of the waypoint policy at full width.
+its plain PyTorch version, and drives the RxR CMA act step, eval and inference
+(over host simulators and in the closed loop on the card), the R2R CMA DAgger
+training (with host and on-device collection), the RxR CMA and Seq2Seq
+recollect training, and the DD-PPO training of the waypoint policy at full
+width.
 
     python3 chip_smoke.py
 
@@ -100,7 +102,26 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
 14. `phase_waypoint_against_plain`: one seeded f32 PPO minibatch step at
    T=16, n=1 (TF32 off) through B1's kernels and through the plain loop
    under autograd: losses within 1e-5, gradients at step 7's tolerance;
-15. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+15. `phase_scan_eval` (after phase 5): `run_exp(rxr_cma_en.yaml, "eval")`
+   with EVAL.ON_DEVICE_SCAN, the closed loop on the card (renderer,
+   transforms, act, step; one CUDA graph of one env step, replayed): 64
+   synthetic episodes of at most 40 steps, SCAN_BATCH 32, SCAN_SEGMENT 64,
+   480x640 frames, bf16; the capture must record 2 launches of B1 and 2 of
+   B2 per step, every segment one read-back, a profiled segment 2 x steps
+   kernels of each; then scan inference over 8 episodes (rxr format);
+16. `phase_scan_against_plain`: the graphed scan step through the kernels
+   against the eager step with the plain versions (f32, greedy, B=8): RNN
+   states and logits at phase 4's tolerance, actions equal where the top-2
+   gap exceeds it; the card's renderer at 480x640 against the host
+   GridWorldSim at 8 seeded poses (depth atol 1e-3, RGB off by more than 1
+   on under 2% of the pixels);
+17. `phase_device_dagger` (after phase 7): phase 7's training with
+   CUDA.ON_DEVICE_DAGGER (the collection on the card: renderer, act, the
+   device expert, the beta mix, the step, one graph replay per step): B1
+   captured twice per collect step, frozen weights bit-equal, the store's
+   32 episodes with round 0's actions the expert's, the action loss
+   falling; then the scan eval of the last checkpoint;
+18. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -839,7 +860,8 @@ def phase_serving(dev):
               f"(run_exp {wall:.2f} s), pth_time {t['pth_time']:.3f} s : env_time {t['env_time']:.3f} s")
 
         phase_env_step_parts(trainer, dev)
-    return eval_launches, inf_launches
+        host_eval_rate = trainer.last_loop_timing["env_steps"] / trainer.last_loop_timing["total_time"]
+    return eval_launches, inf_launches, host_eval_rate
 
 
 def phase_env_step_parts(trainer, dev, steps: int = 6):
@@ -1148,6 +1170,327 @@ def phase_training(dev):
         assert sorted(stats) == sorted(RXR_MEASURES) and all(math.isfinite(v) for v in stats.values()), stats
         print(f"eval of {os.path.basename(last)} ({os.path.getsize(last) / 1e6:.1f} MB with optimizer state): "
               f"{len(evaluator._last_eval_episode_stats)} episodes in {eval_wall:.1f} s, stats {json.dumps({k: round(v, 4) for k, v in stats.items()})}")
+    return launches, eval_launches, rounds
+
+
+# ---------------------------------------------------------------------------
+# the closed loops on the card: scan eval and inference of RxR CMA, and the
+# on-device DAgger collection of R2R CMA (one CUDA graph replay per env step)
+# ---------------------------------------------------------------------------
+
+SCAN_B = 32  # EVAL.SCAN_BATCH: the act step's B
+SCAN_SEGMENT = 64  # EVAL.SCAN_SEGMENT; the step cap below cuts a segment to 40 steps
+SCAN_EPISODES = 64
+SCAN_STEPS = 40  # TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS, cut from 500
+
+
+def trace_segment(run_segment):
+    """One segment under torch.profiler: its wall ms between two CUDA events
+    (the read-back included), the device's busy ms (every kernel, copy and
+    fill of the trace) and the kernels' launch counts by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run_segment()
+        end.record()
+        torch.cuda.synchronize()
+    counts, busy = collections.Counter(), 0.0
+    for ev in prof.key_averages():
+        if ev.self_device_time_total > 0:
+            busy += ev.self_device_time_total / 1e3
+            counts[ev.key] += ev.count
+    assert busy > 0, "the profiler saw no device time in a replayed segment"
+    return start.elapsed_time(end), busy, counts
+
+
+def _kernel_count(counts, name):
+    return sum(n for key, n in counts.items() if name in key)
+
+
+def _check_scan_run(trainer, launches, per_step, what):
+    """A scan run built one graph: its capture recorded `per_step` launches
+    of (B1, B2) per env step, the wrappers counted the warm-up's and the
+    capture's, and every segment was read back once."""
+    t = trainer.last_loop_timing
+    b1, b2 = per_step
+    assert t["graph"] and t["capture_launches"] == {"gru_sequence": b1, "fused_resize_normalize": b2}, (what, t)
+    assert launches == {"gru_sequence": 2 * b1, "gru_sequence_backward": 0, "gru_weight_gradient": 0,
+                        "fused_resize_normalize": 2 * b2}, (what, launches)
+    assert t["readbacks"] == t["segments"] and t["replays"] == t["segments"] * t["seg_len"], (what, t)
+    assert {p.device.type for p in trainer.policy.parameters()} == {"cuda"}, "the policy is not on the card"
+    return t
+
+
+def phase_scan_eval(dev, host_eval_rate):
+    """`run_exp(rxr_cma_en.yaml, "eval")` with EVAL.ON_DEVICE_SCAN at full
+    width in bf16: 64 synthetic episodes of at most 40 steps in chunks of
+    SCAN_B = 32, segments of 64 steps (cut to the 40-step cap), the YAML's
+    sampled actions; then `run_exp(..., "inference")` with
+    INFERENCE.ON_DEVICE_SCAN over 8 episodes in the rxr format."""
+    from vlnce_torch.run import run_exp
+    from vlnce_torch.trainers import scan_eval
+    from vlnce_torch.utils.checkpoints import save_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        cfg, policy, _ = build_act_step(dev, "bfloat16")
+        mark = torch.arange(6, dtype=torch.float32) * 0.01
+        with torch.no_grad():
+            policy.action_distribution.linear.bias.copy_(mark)
+        ckpt = os.path.join(tmp, "ckpt.0.pth")
+        save_checkpoint(ckpt, policy.state_dict(), config=cfg)
+        del policy
+        common = [
+            "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_SCENES", N_ENVS,
+            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", SCAN_STEPS, "EVAL.SCAN_BATCH", SCAN_B,
+            "EVAL.SCAN_SEGMENT", SCAN_SEGMENT, "TENSORBOARD_DIR", "", "VERBOSE", False,
+            "LOG_FILE", os.path.join(tmp, "run.log"),
+        ]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        trainer = run_exp(EXP, "eval", common + [
+            "EVAL.ON_DEVICE_SCAN", True, "TASK_CONFIG.DATASET.NUM_EPISODES", SCAN_EPISODES,
+            "EVAL.EPISODE_COUNT", SCAN_EPISODES, "EVAL.USE_CKPT_CONFIG", False, "EVAL_CKPT_PATH_DIR", ckpt,
+            "RESULTS_DIR", os.path.join(tmp, "evals"),
+        ])
+        wall = time.perf_counter() - t0
+        eval_launches = _read_launches()
+        print(f"scan eval launches (warm-up and capture of one graph): {json.dumps(eval_launches)}")
+        t = _check_scan_run(trainer, eval_launches, (2, 2), "scan eval")
+        assert torch.equal(trainer.policy.action_distribution.linear.bias.cpu(), mark), "the checkpoint's weights were not loaded"
+        with open(os.path.join(tmp, "evals", f"stats_ckpt_0_{cfg.EVAL.SPLIT}.json")) as f:
+            stats = json.load(f)
+        assert sorted(stats) == sorted(RXR_MEASURES) and all(math.isfinite(v) for v in stats.values()), stats
+        episodes = trainer._last_eval_episode_stats
+        assert len(episodes) == len(set(episodes)) == SCAN_EPISODES, sorted(episodes)
+        loop_s = t["seconds"] - t["capture_seconds"]
+        rows = t["replays"] * t["batch"]
+        print(f"scan eval: {len(episodes)} episodes (MAX_EPISODE_STEPS cut to {SCAN_STEPS} from 500), stats "
+              f"{json.dumps({k: round(v, 4) for k, v in stats.items()})}; run_exp {wall:.2f} s")
+        print(f"scan eval graph: captured in {t['capture_seconds']:.3f} s (warm-up included), {t['capture_launches']} "
+              f"launches per step; {t['segments']} segments of {t['seg_len']} steps at B={t['batch']}, "
+              f"{t['readbacks']} read-backs, {t['replays']} replays")
+        device_s = loop_s - t["setup_seconds"]
+        print(f"scan eval env-steps/s: {t['env_steps'] / loop_s:.1f} of the episodes' steps ({t['env_steps']} steps in "
+              f"{loop_s:.3f} s after the capture, of which the chunks' host setup (scene arrays, instruction features, "
+              f"upload) {t['setup_seconds']:.3f} s and the segments {device_s:.3f} s: {t['env_steps'] / device_s:.1f} env-steps/s "
+              f"of the device part, {rows / device_s:.1f} of all {rows} stepped rows, the padded and stopped included); "
+              f"host replay of the measures {t['replay_seconds']:.3f} s ({t['env_steps'] / t['replay_seconds']:.1f} env-steps/s); "
+              f"{t['env_steps'] / (t['seconds'] + t['replay_seconds']):.1f} env-steps/s with the capture and the replay; "
+              f"{1e3 * device_s / t['segments']:.2f} ms per segment of {t['seg_len']} steps; host eval loop (phase_serving, "
+              f"this run) {host_eval_rate:.1f} env-steps/s; peak card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        # one segment replayed again under the profiler: B1 and B2 ran 2 x seg_len times
+        segment = next(v for k, v in scan_eval.policy_cache(trainer.policy).items() if k[0] == "eval")
+        segment.load(segment.scenes, segment.instruction, segment.pos.clone(), segment.heading.clone())
+        seg_ms, busy, counts = trace_segment(lambda: segment.run(trainer.generator))
+        n1, n2 = _kernel_count(counts, "gru_sequence_kernel"), _kernel_count(counts, "resize_normalize_kernel")
+        print(f"scan eval segment under the profiler: {seg_ms:.2f} ms for {segment.seg_len} steps at B={segment.B} "
+              f"({segment.B * segment.seg_len / seg_ms * 1e3:.1f} env-steps/s of rows), device busy {busy:.2f} ms, idle share "
+              f"{max(0.0, 1 - busy / seg_ms):.1%}; B1 kernels {n1}, B2 kernels {n2} (2 x {segment.seg_len} each)")
+        top = sorted(((v, k) for k, v in counts.items()), reverse=True)[:3]
+        print("scan eval segment's most launched kernels: " + "; ".join(f"{v} x {k[:70]}" for v, k in top))
+        assert n1 == n2 == 2 * segment.seg_len, (n1, n2, segment.seg_len)
+
+        predictions = os.path.join(tmp, "predictions.jsonl")
+        _reset_launches()
+        inf_trainer = run_exp(EXP, "inference", common + [
+            "INFERENCE.ON_DEVICE_SCAN", True, "TASK_CONFIG.DATASET.NUM_EPISODES", N_ENVS, "INFERENCE.FORMAT", "rxr",
+            "INFERENCE.USE_CKPT_CONFIG", False, "INFERENCE.CKPT_PATH", ckpt, "INFERENCE.PREDICTIONS_FILE", predictions,
+        ])
+        inf_launches = _read_launches()
+        t = _check_scan_run(inf_trainer, inf_launches, (2, 2), "scan inference")
+        with open(predictions) as f:
+            lines = [json.loads(line) for line in f]
+        assert len(lines) == N_ENVS and len({str(e["instruction_id"]) for e in lines}) == N_ENVS, lines
+        for entry in lines:
+            path = entry["path"]
+            assert len(path) >= 1 and all(len(p) == 3 and all(math.isfinite(x) for x in p) for p in path), entry
+        print(f"scan inference: {len(lines)} rxr entries (one padded chunk of {t['batch']}), {t['env_steps']} env steps, "
+              f"{t['segments']} segments in {t['seconds']:.2f} s with the capture; launches {json.dumps(inf_launches)}")
+    return eval_launches, inf_launches
+
+
+def phase_scan_against_plain(dev, steps: int = 12, n: int = 8):
+    """One seeded f32 RxR CMA loop (TF32 off, greedy) of `steps` one-step
+    segments at B=n: the graph through the kernels against the eager step
+    with the plain versions swapped in, rendering the same frames. The RNN
+    states and the logits are held at phase_main_path's tolerance, the
+    actions equal wherever the top-2 logit gap exceeds it. Then the card's
+    renderer at 480x640 against the host GridWorldSim at seeded poses."""
+    from vlnce_torch.envs import device_sim
+    from vlnce_torch.envs.gridworld import GridWorldSim, get_scene
+    from vlnce_torch.ops.obs_transforms import get_active_obs_transforms
+    from vlnce_torch.tasks.datasets import make_dataset
+    from vlnce_torch.tasks.geometry import quat_from_heading
+    from vlnce_torch.trainers.scan_eval import ScanSegment, chunk_tensors
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, policy, _ = build_act_step(dev, "float32")
+    task_cfg = cfg.TASK_CONFIG.clone()
+    task_cfg.defrost()
+    task_cfg.DATASET.TYPE = "Synthetic-VLN-v0"
+    task_cfg.freeze()
+    episodes = list(make_dataset(task_cfg.DATASET.TYPE, task_cfg.DATASET).episodes)[:n]
+    scenes, arrays = chunk_tensors(episodes, "rxr_instruction", task_cfg, dev)
+    specs = device_sim.camera_specs_from_config(task_cfg.SIMULATOR)
+    transforms = get_active_obs_transforms(cfg)
+    segs = {}
+    for name, eager in (("kernels", False), ("plain", True)):
+        with plain_versions() if eager else contextlib.nullcontext():
+            segs[name] = ScanSegment(policy, transforms, specs, task_cfg.SIMULATOR, True, 1, scenes, arrays["instruction"],
+                                     instr_uuid="rxr_instruction", use_tilt=True, eager=eager)
+        segs[name].load(scenes, arrays["instruction"], arrays["pos"], arrays["heading"])
+    assert segs["kernels"].step.graph is not None and segs["plain"].step.graph is None
+    err_l = err_s = 0.0
+    compared = flipped = 0
+    for step in range(steps):
+        a_k, _ = segs["kernels"].run()
+        with plain_versions():
+            a_p, _ = segs["plain"].run()
+        lk, lp = segs["kernels"].logits, segs["plain"].logits
+        scale = float(lp.abs().max())
+        err_l = max(err_l, float((lk - lp).abs().max()) / scale)
+        err_s = max(err_s, float((segs["kernels"].rnn - segs["plain"].rnn).abs().max()))
+        top2 = lp.topk(2, dim=1).values
+        gap = (top2[:, 0] - top2[:, 1]) / scale
+        differ = a_k[0] != a_p[0]
+        assert not bool((torch.from_numpy(differ).to(dev) & (gap > 1e-4)).any()), f"step {step}: actions differ above the tolerance"
+        compared += 1
+        if differ.any():  # an action flipped on a gap within the tolerance: the loops part here
+            flipped += 1
+            break
+        assert torch.equal(segs["kernels"].pos, segs["plain"].pos)
+    print(f"scan against plain (f32, TF32 off, B={n}, {compared} one-step segments, graph vs eager plain): max |logits diff| "
+          f"{err_l:.3e} of max |logit| (<= 1e-4), max |state diff| {err_s:.3e} (atol 1e-3), actions equal at every step "
+          f"{'' if not flipped else 'until one flipped within the tolerance'}")
+    assert err_l <= 1e-4 and err_s <= 1e-3, "the scan step with the kernels disagrees with the plain versions"
+
+    # the renderer against the host simulator, at seeded poses over 4 scenes
+    rng = np.random.RandomState(17)
+    sim = GridWorldSim(task_cfg.SIMULATOR)
+    scene_ids = [f"synth_scene_{k % 4}" for k in range(8)]
+    poses = []
+    for sid in scene_ids:
+        occ = get_scene(sid).occupancy
+        while True:
+            x, z = rng.uniform(0.3, 15.7, 2)
+            if not occ[int(x / 0.25), int(z / 0.25)]:
+                poses.append([x, 0.0, z, rng.uniform(0, 2 * math.pi)])
+                break
+    poses = np.asarray(poses, np.float32)
+    grids = {k: torch.from_numpy(np.stack([getattr(get_scene(s), k) for s in scene_ids])).to(dev)
+             for k in ("occupancy", "wall_colors", "floor_color", "ceil_color")}
+    frames = device_sim.render_arrays(grids["occupancy"], grids["wall_colors"], grids["floor_color"], grids["ceil_color"],
+                                      torch.from_numpy(poses[:, :3]).to(dev), torch.from_numpy(poses[:, 3]).to(dev), specs)
+    frames = {k: v.cpu().numpy() for k, v in frames.items()}
+    worst_depth = worst_rgb = 0.0
+    for b, sid in enumerate(scene_ids):
+        sim.reconfigure(sid)
+        host = sim.get_observations_at(poses[b, :3].astype(np.float64), quat_from_heading(float(poses[b, 3])))
+        worst_depth = max(worst_depth, float(np.abs(frames["depth"][b] - host["depth"]).max()))
+        worst_rgb = max(worst_rgb, float((np.abs(frames["rgb"][b].astype(int) - host["rgb"].astype(int)) > 1).mean()))
+    print(f"renderer on the card vs the host GridWorldSim at 8 poses, 480x640: max |depth diff| {worst_depth:.2e} "
+          f"(atol 1e-3), RGB pixels off by more than 1: {worst_rgb:.3%} (under 2%)")
+    assert worst_depth <= 1e-3 and worst_rgb < 0.02, "the card's renderer disagrees with the host simulator"
+
+
+def phase_device_dagger(dev, host_rounds):
+    """`run_exp(cma_pm_da_aug_tune.yaml, "train")` with CUDA.ON_DEVICE_DAGGER
+    at phase_training's sizes (NUM_ENVIRONMENTS 8, 2 rounds of 16 episodes at
+    beta 1.0 then 0.5, 2 epochs at batch size 5): the collection runs on the
+    card, one graph replay per env step. Then the scan eval of the last
+    checkpoint."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.data.trajectory_store import TrajectoryStoreReader, store_length
+    from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
+    from vlnce_torch.models.cma_policy import CMAPolicy
+    from vlnce_torch.parallel.optim import trainable_mask
+    from vlnce_torch.run import run_exp
+
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        ckpts, store = os.path.join(tmp, "checkpoints"), os.path.join(tmp, "trajectories")
+        common = [
+            "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_SCENES", N_ENVS,
+            "TASK_CONFIG.DATASET.NUM_EPISODES", 64, "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40,
+            "NUM_ENVIRONMENTS", N_ENVS, "TENSORBOARD_DIR", "", "VERBOSE", False,
+            "LOG_FILE", os.path.join(tmp, "run.log"), "CHECKPOINT_FOLDER", ckpts,
+        ]
+        train_opts = common + [
+            "CUDA.ON_DEVICE_DAGGER", True, "IL.load_from_ckpt", False, "IL.DAGGER.iterations", TRAIN_ITERATIONS,
+            "IL.DAGGER.update_size", TRAIN_EPISODES, "IL.epochs", TRAIN_EPOCHS, "IL.batch_size", TRAIN_B,
+            "IL.DAGGER.lmdb_features_dir", store,
+        ]
+        cfg = get_config(R2R_EXP, train_opts)
+        start = CMAPolicy.from_config(cfg, observation_space_from_config(cfg.TASK_CONFIG), action_space_from_config(cfg.TASK_CONFIG))
+        mask = trainable_mask(start, cfg.MODEL)
+        start = {k: v.cpu() for k, v in start.state_dict().items()}
+        _reset_launches()
+        t0 = time.perf_counter()
+        trainer = run_exp(R2R_EXP, "train", train_opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        rounds, history = trainer.collection_stats, trainer.loss_history
+        train_steps = len(history)
+        print(f"device DAgger launches over {train_steps} train steps and one collection graph (probe, warm-up, capture): "
+              f"{json.dumps(launches)}; run_exp {wall:.1f} s")
+        assert train_steps > 0 and all(r["graph"] for r in rounds)
+        assert all(r["capture_launches"] == {"gru_sequence": 2, "fused_resize_normalize": 0} for r in rounds), rounds
+        assert launches == {"gru_sequence": 3 * 2 + 2 * train_steps, "gru_sequence_backward": 2 * train_steps,
+                            "gru_weight_gradient": 2 * train_steps, "fused_resize_normalize": 0}, launches
+        assert [r["beta"] for r in rounds] == [1.0, 0.5] and all(r["episodes"] == TRAIN_EPISODES for r in rounds), rounds
+        for r, host in zip(rounds, host_rounds):
+            assert r["readbacks"] == r["segments"], r
+            print(f"device collection round {r['data_it']} (beta {r['beta']}): {r['episodes']} episodes, {r['env_steps']} env steps, "
+                  f"{r['segments']} segments of {r['seg_len']} steps at B={r['batch']} ({r['readbacks']} read-backs of the done "
+                  f"flags, {r['chunk_readbacks']} bulk copies of the rows); {r['env_steps'] / r['seconds']:.1f} env-steps/s "
+                  f"({r['seconds']:.3f} s: host setup of the chunks {r['setup_seconds']:.3f} s"
+                  + (f", the capture {r['capture_seconds']:.3f} s" if r["data_it"] == 0 else "")
+                  + f"), {r['env_steps'] / r['total_time']:.1f} with the store's writes; host collection (phase_training, this run) "
+                  f"{host['env_steps'] / host['total_time']:.1f} env-steps/s")
+
+        assert store_length(store) == TRAIN_ITERATIONS * TRAIN_EPISODES
+        reader = TrajectoryStoreReader(store)
+        for k in range(TRAIN_EPISODES):  # round 0 at beta 1.0: the actions taken are the expert's
+            obs, prev, oracle = reader.get(k)
+            assert prev[0] == 0 and np.array_equal(prev[1:], oracle[:-1]), k
+            assert obs["rgb_features"].shape[0] == len(oracle) and np.isfinite(obs["rgb_features"]).all()
+        reader.close()
+
+        losses = np.array([h[2:] for h in history])
+        assert np.isfinite(losses).all(), "non-finite training loss"
+        first = [h for h in history if h[0] == 0]
+        last_epoch = np.mean([h[2:] for h in first if h[1] == TRAIN_EPOCHS - 1], axis=0)
+        print("device DAgger losses (loss, action, aux) of iteration 0: first batch " + " ".join(f"{x:.4f}" for x in first[0][2:])
+              + "; mean of its last epoch " + " ".join(f"{x:.4f}" for x in last_epoch))
+        assert last_epoch[1] < first[0][3], "the action loss of iteration 0 did not fall"
+
+        after = trainer.policy.state_dict()
+        frozen = {k for k, trains in mask.items() if not trains}
+        assert all(torch.equal(after[k].cpu(), start[k]) for k in frozen), "a frozen weight moved"
+        print(f"device DAgger weights: {len(frozen)} frozen tensors bit-equal to the seeded start; store of "
+              f"{TRAIN_ITERATIONS * TRAIN_EPISODES} episodes, round 0's prev actions the expert's")
+
+        last = os.path.join(ckpts, f"ckpt.{TRAIN_ITERATIONS * TRAIN_EPOCHS - 1}.ckpt")
+        _reset_launches()
+        evaluator = run_exp(R2R_EXP, "eval", common + [
+            "EVAL.ON_DEVICE_SCAN", True, "EVAL.SCAN_BATCH", N_ENVS, "EVAL.EPISODE_COUNT", N_ENVS,
+            "EVAL.USE_CKPT_CONFIG", False, "EVAL_CKPT_PATH_DIR", last, "RESULTS_DIR", os.path.join(tmp, "evals"),
+        ])
+        eval_launches = _read_launches()
+        t = _check_scan_run(evaluator, eval_launches, (2, 0), "device DAgger's scan eval")
+        head = "action_distribution.linear.weight"
+        assert torch.equal(evaluator.policy.state_dict()[head], after[head]), "eval did not load the trained weights"
+        with open(os.path.join(tmp, "evals", f"stats_ckpt_0_{cfg.EVAL.SPLIT}.json")) as f:
+            stats = json.load(f)
+        assert sorted(stats) == sorted(RXR_MEASURES) and all(math.isfinite(v) for v in stats.values()), stats
+        print(f"scan eval of {os.path.basename(last)}: {len(evaluator._last_eval_episode_stats)} episodes, {t['env_steps']} env steps "
+              f"in {t['segments']} segments, stats {json.dumps({k: round(v, 4) for k, v in stats.items()})}")
     return launches, eval_launches
 
 
@@ -1967,8 +2310,11 @@ def main() -> int:
     phase_build()
     kernels = [phase_gru(dev), *phase_gru_backward(dev), phase_resize(dev)]
     paths = {"act_phase": phase_main_path(dev)[0]}
-    paths["eval"], paths["inference"] = phase_serving(dev)
-    paths["training"], paths["training_eval"] = phase_training(dev)
+    paths["eval"], paths["inference"], host_eval_rate = phase_serving(dev)
+    paths["scan_eval"], paths["scan_inference"] = phase_scan_eval(dev, host_eval_rate)
+    phase_scan_against_plain(dev)
+    paths["training"], paths["training_eval"], host_rounds = phase_training(dev)
+    paths["device_dagger"], paths["device_dagger_eval"] = phase_device_dagger(dev, host_rounds)
     paths["train_step"] = phase_train_step(dev)
     phase_train_step_against_plain(dev)
     shapes = phase_recollect_shapes(dev)

@@ -251,7 +251,8 @@ def test_eval_polls_a_directory_in_mtime_order(tmp_path, checkpoints):
 
 
 @pytest.mark.parametrize("opts,match", [
-    (["EVAL.ON_DEVICE_SCAN", True], "ON_DEVICE_SCAN"),
+    # the scan eval runs since the device-resident loops came; its feature-bank route waits
+    (["EVAL.ON_DEVICE_SCAN", True, "CUDA.FEATURE_BANK_DIR", "data/feature_bank"], "ON_DEVICE_SCAN"),
     (["VIDEO_OPTION", ["disk"]], "VIDEO_OPTION"),
     (["EVAL.EVAL_NONLEARNING", True], "nonlearning"),
 ])

@@ -499,3 +499,134 @@ def test_resize_wrapper_rejects_bad_inputs():
         fused_resize_normalize(torch.empty(2, 16, 16, 5, device="meta"), (8, 8))
     with pytest.raises(ValueError, match="shared memory"):  # two stages of two f32 rows of 16384 x 4
         fused_resize_normalize(torch.empty(1, 8, 16384, 4, device="meta"), (4, 8))
+
+
+# ---------------------------------------------------------------------------
+# the closed loops on the card: one env step captured in a CUDA graph
+# ---------------------------------------------------------------------------
+
+_R2R_SMALL = [
+    "MODEL.RGB_ENCODER.cnn_type", "TorchVisionResNet18", "MODEL.DEPTH_ENCODER.backbone", "resnet18",
+    "MODEL.STATE_ENCODER.hidden_size", 64, "MODEL.INSTRUCTION_ENCODER.hidden_size", 32,
+    "MODEL.INSTRUCTION_ENCODER.vocab_size", 64, "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0",
+    "TASK_CONFIG.DATASET.NUM_EPISODES", 6, "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 12,
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.HEIGHT", 32, "TASK_CONFIG.SIMULATOR.RGB_SENSOR.WIDTH", 32,
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT", 32, "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH", 32,
+    "CUDA.PRECISION.compute_dtype", "float32", "NUM_ENVIRONMENTS", 3,
+]
+
+
+def _scan_case(dev, extra=()):
+    """The small R2R CMA policy on `dev` with its head scaled so that the
+    greedy action follows the observation, its config and 6 episodes."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
+    from vlnce_torch.models.cma_policy import CMAPolicy
+    from vlnce_torch.tasks.datasets import make_dataset
+
+    cfg = get_config("vlnce_torch/config/experiments/r2r_baselines/cma_pm_da_aug_tune.yaml",
+                     _R2R_SMALL + ["CUDA.DEVICE", str(dev), *extra])
+    policy = CMAPolicy.from_config(cfg, observation_space_from_config(cfg.TASK_CONFIG), action_space_from_config(cfg.TASK_CONFIG))
+    with torch.no_grad():
+        policy.action_distribution.linear.weight.mul_(300.0)
+        policy.action_distribution.linear.bias.copy_(torch.tensor([-0.5, 1.0, 0.5, 0.5]))
+    return cfg, policy, list(make_dataset(cfg.TASK_CONFIG.DATASET.TYPE, cfg.TASK_CONFIG.DATASET).episodes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample", [False, True])
+def test_scan_segment_graph_matches_eager(sample):
+    """The scan step replayed from its CUDA graph against the same step run
+    eagerly (both through the kernels, TF32 off): greedy and sampled actions
+    bit-equal (the uniforms are drawn per segment from one seeded generator
+    outside the graph), states within 1e-5; one read-back per segment; two
+    segments draw different uniforms."""
+    from vlnce_torch.trainers.scan_eval import run_scan_rollouts
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg, policy, episodes = _scan_case(dev, ["EVAL.SAMPLE", sample, "EVAL.SCAN_BATCH", 4, "EVAL.SCAN_SEGMENT", 5])
+    runs = {}
+    for eager in (False, True):
+        stats = {}
+        gen = torch.Generator(device=dev).manual_seed(7)
+        runs[eager] = (run_scan_rollouts(policy, [], cfg, episodes, gen, stats=stats, eager=eager), stats)
+    (graph_actions, g_stats), (eager_actions, e_stats) = runs[False], runs[True]
+    assert g_stats["graph"] and not e_stats["graph"]
+    assert g_stats["capture_launches"] == {"gru_sequence": 2, "fused_resize_normalize": 0}
+    assert g_stats["readbacks"] == g_stats["segments"] == e_stats["segments"] >= 2
+    assert [a.tolist() for a in graph_actions] == [a.tolist() for a in eager_actions]
+    assert len({len(a) for a in graph_actions}) > 1 or any(len(a) > 1 for a in graph_actions)
+    segment = next(s for k, s in policy.__dict__["_scan_segment_cache"].items() if k[0] == "eval" and not k[-1])
+    first = segment.draws.clone()
+    segment.run(torch.Generator(device=dev).manual_seed(8))
+    assert sample == (not torch.equal(first, segment.draws))  # a sampled segment draws anew; a greedy one draws nothing
+
+
+@pytest.mark.cuda
+def test_dagger_segment_graph_matches_eager():
+    """On-device collection at beta 0.5: the graph and the eager step give
+    the same payloads from the same generator seed."""
+    from vlnce_torch.trainers.device_dagger import collect_episodes_on_device
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg, policy, episodes = _scan_case(dev, ["CUDA.DAGGER_SEGMENT", 4])
+    out = {}
+    for eager in (False, True):
+        stats = {}
+        out[eager] = collect_episodes_on_device(policy, [], cfg, episodes, 0.5, torch.Generator(device=dev).manual_seed(3),
+                                                stats=stats, eager=eager)
+        assert stats["graph"] == (not eager) and stats["readbacks"] == stats["segments"]
+    assert len(out[False]) == len(out[True]) == 6
+    for (obs, prev, oracle), (e_obs, e_prev, e_oracle) in zip(out[False], out[True]):
+        np.testing.assert_array_equal(prev, e_prev)
+        np.testing.assert_array_equal(oracle, e_oracle)
+        for k in obs:
+            np.testing.assert_allclose(obs[k], e_obs[k], rtol=0, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_device_sim_on_the_card_matches_the_cpu():
+    """The renderer, the dynamics and the expert on the card against the same
+    functions on the CPU (f32 both): frames within 1e-5 (RGB off by at most 1
+    on under 0.5% of the pixels), poses within 1e-5, the expert equal."""
+    import math
+
+    from vlnce_torch.envs import device_sim as ds
+    from vlnce_torch.envs.gridworld import get_scene
+
+    dev = _card()
+    scene_ids = [f"synth_scene_{k % 3}" for k in range(6)]
+    rng = np.random.RandomState(4)
+    poses = []
+    for sid in scene_ids:
+        occ = get_scene(sid).occupancy
+        while True:
+            x, z = rng.uniform(0.3, 15.7, 2)
+            if not occ[int(x / 0.25), int(z / 0.25)]:
+                poses.append([x, 0.0, z, rng.uniform(0, 2 * math.pi)])
+                break
+    poses = torch.from_numpy(np.asarray(poses, np.float32))
+    grids = {k: torch.from_numpy(np.stack([getattr(get_scene(s), k) for s in scene_ids]))
+             for k in ("occupancy", "wall_colors", "floor_color", "ceil_color")}
+    specs = [ds.CameraSpec("rgb", 96, 128, 90.0, 0.0, "rgb"), ds.CameraSpec("depth", 96, 128, 90.0, 0.0, "depth")]
+    tilt = torch.linspace(-0.5, 0.5, 6)
+    out = {}
+    for d in ("cpu", dev):
+        g = {k: v.to(d) for k, v in grids.items()}
+        p = poses.to(d)
+        frames = ds.render_arrays(g["occupancy"], g["wall_colors"], g["floor_color"], g["ceil_color"], p[:, :3], p[:, 3], specs,
+                                  tilt=tilt.to(d))
+        actions = torch.tensor([1, 2, 3, 1, 1, 0], dtype=torch.int32, device=d)
+        pos, heading = ds.step_discrete(g["occupancy"], p[:, :3], p[:, 3], actions, 0.25, math.radians(15.0), True)
+        field = torch.from_numpy(np.stack([get_scene(s).distance_field((52, 52)).astype(np.float32) for s in scene_ids])).to(d)
+        expert = ds.expert_action(g["occupancy"], field, torch.full((6, 2), 13.125, device=d), pos, heading, 0.5, math.radians(15.0))
+        out[str(d)] = {k: v.cpu() for k, v in {**frames, "pos": pos, "heading": heading, "expert": expert}.items()}
+    cpu, card = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(card["depth"].numpy(), cpu["depth"].numpy(), rtol=0, atol=1e-5)
+    diff = (card["rgb"].int() - cpu["rgb"].int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 0.005
+    np.testing.assert_allclose(card["pos"].numpy(), cpu["pos"].numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(card["heading"].numpy(), cpu["heading"].numpy(), rtol=0, atol=1e-5)
+    assert torch.equal(card["expert"], cpu["expert"])

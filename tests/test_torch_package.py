@@ -51,6 +51,8 @@ NEW_MODULES = [
     # the waypoint RL slice
     "vlnce_torch.models.waypoint_predictors", "vlnce_torch.models.waypoint_policy", "vlnce_torch.rl.rollout_storage",
     "vlnce_torch.rl.ppo", "vlnce_torch.trainers.ddppo_waypoint_trainer", "vlnce_torch.tasks.discrete_planner",
+    # the device-resident grid world, scan eval and on-device DAgger
+    "vlnce_torch.envs.device_sim", "vlnce_torch.trainers.scan_eval", "vlnce_torch.trainers.device_dagger",
 ]
 
 
@@ -137,6 +139,11 @@ def test_training_keys_of_the_cuda_section():
     assert not (cfg.CUDA.ON_DEVICE_DAGGER or cfg.CUDA.DAGGER_RESIDENT or cfg.CUDA.RESIDENT_EPOCH_SCAN)
     assert not (cfg.CUDA.ON_DEVICE_RECOLLECT or cfg.CUDA.RECOLLECT_RESIDENT)
     assert not (cfg.CUDA.ON_DEVICE_ROLLOUT or cfg.CUDA.PPO_UPDATE_SCAN)
+    # the JAX package's TPU defaults (vlnce_tpu/config/default.py)
+    jcfg = jax_get_config()
+    assert cfg.CUDA.DAGGER_SEGMENT == jcfg.TPU.DAGGER_SEGMENT == 32
+    assert cfg.CUDA.FEATURE_BANK_DIR == jcfg.TPU.FEATURE_BANK_DIR == ""
+    assert cfg.CUDA.FEATURE_BANK_MAX_DIST == jcfg.TPU.FEATURE_BANK_MAX_DIST == 0.0
 
 
 def test_waypoint_configs_match_jax():

@@ -84,11 +84,21 @@ _C.CUDA.PIPELINED_COLLECTION = False
 # host memory stays synchronous)
 _C.CUDA.ASYNC_CHECKPOINT = True
 _C.CUDA.PROFILE_DIR = ""  # if set, training writes a torch.profiler trace here
-# device-resident DAgger (on-device collection, trajectory bank on the card,
-# fused epoch scan): keys kept so configs merge; not ported yet
+# DAgger collection on the card (trainers/device_dagger.py): render +
+# frozen-encoder features + policy act + device expert + beta mix + step,
+# one CUDA graph replay per step, one read-back of the done flags per
+# segment of DAGGER_SEGMENT steps (requires GridWorldSim-v0)
 _C.CUDA.ON_DEVICE_DAGGER = False
+_C.CUDA.DAGGER_SEGMENT = 32  # env steps per segment in device collection
+# the trajectory bank on the card and the fused epoch scan: keys kept so
+# configs merge; not ported yet
 _C.CUDA.DAGGER_RESIDENT = False
 _C.CUDA.RESIDENT_EPOCH_SCAN = False
+# precomputed visual feature bank in place of the renderer in the
+# device-resident loops (the route of real scenes): keys kept so configs
+# merge; not ported yet (any non-default value raises)
+_C.CUDA.FEATURE_BANK_DIR = ""
+_C.CUDA.FEATURE_BANK_MAX_DIST = 0.0
 # device-resident recollection (GT trajectories rendered on the card, the
 # batch kept there): keys kept so configs merge; not ported yet
 _C.CUDA.ON_DEVICE_RECOLLECT = False
@@ -108,11 +118,12 @@ _C.EVAL.LANGUAGES = ["en-US", "en-IN"]
 _C.EVAL.SAMPLE = False
 _C.EVAL.SAVE_RESULTS = True
 _C.EVAL.USE_CKPT_CONFIG = True
-# device-resident closed loops: keys kept so the experiment YAMLs merge;
-# not ported yet
+# the closed loop on the card: the device-resident grid world and the
+# policy, one CUDA graph replay per env step (trainers/scan_eval.py;
+# requires GridWorldSim-v0)
 _C.EVAL.ON_DEVICE_SCAN = False
-_C.EVAL.SCAN_BATCH = 8  # episodes rolled out per compiled scan program
-_C.EVAL.SCAN_SEGMENT = 64  # env steps per dispatch (early-exit between segments)
+_C.EVAL.SCAN_BATCH = 8  # episodes rolled out together (one chunk, the graph's B)
+_C.EVAL.SCAN_SEGMENT = 64  # env steps per read-back (early exit between segments)
 _C.EVAL.EVAL_NONLEARNING = False
 _C.EVAL.NONLEARNING = CN()
 _C.EVAL.NONLEARNING.AGENT = "RandomAgent"
@@ -131,7 +142,7 @@ _C.INFERENCE.INFERENCE_NONLEARNING = False
 _C.INFERENCE.NONLEARNING = CN()
 _C.INFERENCE.NONLEARNING.AGENT = "RandomAgent"
 _C.INFERENCE.FORMAT = "rxr"  # either "rxr" or "r2r"
-# device-resident inference loop: key kept for YAML compat; not ported yet
+# the inference loop on the card (trainers/scan_eval.py)
 _C.INFERENCE.ON_DEVICE_SCAN = False
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,15 @@ class Categorical:
     def mode(self) -> torch.Tensor:
         return torch.argmax(self.logits, dim=-1, keepdim=True)
 
+    def icdf(self, u: torch.Tensor) -> torch.Tensor:
+        """The action whose cumulative probability first exceeds u [...] in
+        [0, 1): a draw from uniforms made beforehand, with no call that
+        reads a value back (multinomial checks its input on the host, which
+        a CUDA graph's capture refuses). Returns [..., 1] int64."""
+        cdf = torch.cumsum(self.probs, dim=-1)
+        below = (cdf < u[..., None]).sum(dim=-1, keepdim=True)
+        return below.clamp(max=self.logits.shape[-1] - 1)
+
     def log_prob(self, actions: torch.Tensor) -> torch.Tensor:
         return torch.gather(self.logits, -1, actions.long())
 

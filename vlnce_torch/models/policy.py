@@ -109,11 +109,16 @@ class ILPolicy(nn.Module):
         DAgger collection stores in place of the frames. Returns (action,
         new rnn_states, features)."""
         action, rnn_states_out, _ = self.act(observations, rnn_states, prev_actions, masks, deterministic, generator)
+        return action, rnn_states_out, self.visual_features()
+
+    def visual_features(self):
+        """The visual backbones' outputs of the last forward, as
+        `act_with_features` hands them back."""
         feats = {}
         for encoder, key in ((self.net.rgb_encoder, "rgb_features"), (self.net.depth_encoder, "depth_features")):
             if encoder.cached_features is not None:
                 feats[key] = encoder.cached_features
-        return action, rnn_states_out, feats
+        return feats
 
     def build_distribution_logits(self, observations_flat, rnn_states, prev_actions, masks, T: int):
         """observations_flat: [T*N, ...] time-major flattened; returns

@@ -15,9 +15,10 @@ the card. `prev_actions` and the recurrent state stay on the card.
 
 `_initialize_policy` also builds the optimizer (Adam over the trainable
 parameters only) and, for a requeued job, restores it. The training loops
-are `trainers/dagger_trainer.py` and `trainers/recollect_trainer.py`. The
-device-resident loops (`EVAL.ON_DEVICE_SCAN`, `INFERENCE.ON_DEVICE_SCAN`) and
-videos (`VIDEO_OPTION`) are not ported yet and raise NotImplementedError.
+are `trainers/dagger_trainer.py` and `trainers/recollect_trainer.py`.
+`EVAL.ON_DEVICE_SCAN` and `INFERENCE.ON_DEVICE_SCAN` hand the loop to
+`trainers/scan_eval.py` (the grid world and the policy on the card). Videos
+(`VIDEO_OPTION`) are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -318,7 +319,9 @@ class BaseVLNCETrainer:
                 return None
 
         if config.EVAL.ON_DEVICE_SCAN:
-            raise _not_ported("EVAL.ON_DEVICE_SCAN (trainers/scan_eval.py)", "the device-resident loops")
+            from vlnce_torch.trainers.scan_eval import eval_checkpoint_on_device
+
+            return eval_checkpoint_on_device(self, config, checkpoint_path, writer, checkpoint_index, fname)
 
         # the envs fork before the policy is built, so on a first checkpoint
         # the workers start before CUDA does
@@ -421,7 +424,10 @@ class BaseVLNCETrainer:
         config.freeze()
 
         if config.INFERENCE.ON_DEVICE_SCAN:
-            raise _not_ported("INFERENCE.ON_DEVICE_SCAN (trainers/scan_eval.py)", "the device-resident loops")
+            from vlnce_torch.trainers.scan_eval import inference_on_device
+
+            inference_on_device(self, config)
+            return
 
         envs = construct_envs_auto_reset_false(config, get_env_class(config.ENV_NAME))
         self.obs_transforms = get_active_obs_transforms(config)

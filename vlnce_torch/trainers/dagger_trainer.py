@@ -16,9 +16,11 @@ vlnce_baselines/dagger_trainer.py:234-610):
   inflection-weighted CE, aux losses, backward, masked Adam), eagerly.
 - The env batch stays fixed-size with an active mask (no tensor shrinking).
 
-The device-resident modes of the JAX package (on-device collection, the
-trajectory bank on the device, the fused epoch scan) are not ported yet: their
-keys `CUDA.ON_DEVICE_DAGGER`, `CUDA.DAGGER_RESIDENT` and
+With `CUDA.ON_DEVICE_DAGGER` the collection runs on the card instead
+(`trainers/device_dagger.py`: the device-resident grid world, the device
+expert and the policy, one CUDA graph replay per env step) and its episodes
+go into the same store. The trajectory bank on the device and the fused
+epoch scan are not ported yet: their keys `CUDA.DAGGER_RESIDENT` and
 `CUDA.RESIDENT_EPOCH_SCAN` raise NotImplementedError when set.
 """
 
@@ -46,7 +48,7 @@ from vlnce_torch.utils.logging import logger
 from vlnce_torch.utils.profiling import SectionTimers, StepClock, annotate, maybe_profile
 from vlnce_torch.utils.tensorboard import TensorboardWriter
 
-_RESIDENT_KEYS = ("ON_DEVICE_DAGGER", "DAGGER_RESIDENT", "RESIDENT_EPOCH_SCAN")
+_RESIDENT_KEYS = ("DAGGER_RESIDENT", "RESIDENT_EPOCH_SCAN")
 
 
 def make_collect_step(policy, transforms, expert_uuid: str) -> Callable:
@@ -97,6 +99,10 @@ class DaggerTrainer(BaseVLNCETrainer):
         for key in _RESIDENT_KEYS:
             if bool(self.config.CUDA[key]):
                 raise _not_ported(f"CUDA.{key} (device-resident DAgger)", "'Device-resident loops'")
+        if bool(self.config.CUDA.ON_DEVICE_DAGGER):
+            from vlnce_torch.trainers.scan_eval import check_feature_bank
+
+            check_feature_bank(self.config, "CUDA.ON_DEVICE_DAGGER")
 
         if self.config.IL.DAGGER.preload_lmdb_features:
             if store_length(self.features_dir) == 0:
@@ -177,7 +183,48 @@ class DaggerTrainer(BaseVLNCETrainer):
         return self._il_update(self._train_step, observations, prev_actions, masks, corrected, weights)
 
     # --------------------------------------------------------- collection
+    def _collection_plan(self, data_it: int):
+        """The episodes and beta of a round of device collection: beta follows
+        p ** iteration (reference dagger_trainer.py:414-418), the episodes
+        are the first update_size of the split in dataset order."""
+        from vlnce_torch.tasks.datasets import make_dataset
+
+        config = self.config
+        p = config.IL.DAGGER.p
+        beta = 0.0 if p == 0.0 else p**data_it
+        dataset = make_dataset(config.TASK_CONFIG.DATASET.TYPE, config.TASK_CONFIG.DATASET)
+        return list(dataset.episodes)[: int(config.IL.DAGGER.update_size)], beta
+
+    def _update_dataset_on_device(self, data_it: int) -> None:
+        """A round of collection on the card (CUDA.ON_DEVICE_DAGGER): one
+        graph replay per env step, the done flags read back once per
+        segment, the episodes' rows once per chunk, then into the store."""
+        from vlnce_torch.trainers.device_dagger import collect_episodes_on_device
+
+        t_start = time.perf_counter()
+        episodes, beta = self._collection_plan(data_it)
+        stats: Dict[str, float] = {}
+        results = collect_episodes_on_device(
+            self.policy, self.obs_transforms, self.config, episodes, beta, self.generator, stats=stats
+        )
+        writer = TrajectoryStoreWriter(self.features_dir, drop_existing=False)
+        for payload in results:
+            writer.put(list(payload))
+        writer.commit()
+        writer.close()
+        self.collection_stats.append({
+            **stats, "data_it": data_it, "beta": beta, "episodes": len(results),
+            "total_time": time.perf_counter() - t_start,
+        })
+        logger.info(
+            f"[collection it {data_it}] {len(results)} episodes on device, {stats.get('env_steps', 0)} steps in "
+            f"{time.perf_counter() - t_start:.1f}s ({stats.get('segments', 0)} segments)"
+        )
+
     def _update_dataset(self, data_it: int) -> None:
+        if bool(self.config.CUDA.ON_DEVICE_DAGGER):
+            self._update_dataset_on_device(data_it)
+            return
         timers = SectionTimers()
         t_start = time.perf_counter()
         config = self.config
