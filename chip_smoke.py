@@ -3,8 +3,9 @@
 its plain PyTorch version, and drives the RxR CMA act step, eval and inference
 (over host simulators and in the closed loop on the card), the R2R CMA DAgger
 training (with host and on-device collection), the RxR CMA and Seq2Seq
-recollect training, and the DD-PPO training of the waypoint policy at full
-width.
+recollect training (re-simulated on the host, and rendered on the card), and
+the DD-PPO training of the waypoint policy (with host and on-device rollouts)
+at full width.
 
     python3 chip_smoke.py
 
@@ -121,7 +122,25 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    captured twice per collect step, frozen weights bit-equal, the store's
    32 episodes with round 0's actions the expert's, the action loss
    falling; then the scan eval of the last checkpoint;
-18. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+18. `phase_device_recollect` (after phase 9): phase 9's training with
+   CUDA.ON_DEVICE_RECOLLECT (the GT trajectories rendered on the card, one
+   graph replay per step, one read-back per chunk), then with
+   CUDA.RECOLLECT_RESIDENT as well (B2 captured twice per render step, the
+   batch kept on the card); one chunk's frames against the host simulator
+   stepped along the same actions, and the render's env-steps/s beside
+   phase 9's re-simulation;
+19. `phase_device_waypoint` (after phase 13): phase 13's training with
+   CUDA.ON_DEVICE_ROLLOUT (no worker; each env step one replay, B1 twice in
+   it; the bootstrap value a second graph; one read-back per rollout; the
+   PPO minibatches gathered on the card), then with CUDA.PPO_UPDATE_SCAN;
+   the replays and the enqueued minibatch loop under
+   set_sync_debug_mode("error"); frozen weights bit-equal, the checkpoint's
+   eval; the rollout's and the update's times beside phase 13's;
+20. `phase_device_waypoint_against_plain`: the graphed rollout through B1's
+   kernel against the eager one with its plain version (f32, N=4, T=8, the
+   same uniforms): values and log-probs at phase 4's tolerance, positions
+   and rewards within 1e-5 while the actions agree;
+21. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -131,6 +150,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import gzip
 import json
 import math
 import os
@@ -1683,11 +1703,13 @@ def _recollect_opts(tmp, epochs, effective_batch_size):
     return common, train
 
 
-def _run_recollect(exp, train_opts, per_step):
+def _run_recollect(exp, train_opts, per_step, render_b2: bool = False):
     """`run_exp(exp, "train")` with the launch counters set to 0 just before
     and read just after; each kernel must have risen by `per_step` (B1, its
-    backward, its weight gradient, B2) per train step, and every backward
-    must have taken the cluster route. Returns (trainer, launches, wall)."""
+    backward, its weight gradient, B2) per train step (and, with
+    `render_b2`, B2 by 2 x 3 per render graph: its probe step, warm-up and
+    capture), and every backward must have taken the cluster route. Returns
+    (trainer, launches, wall)."""
     from vlnce_torch.run import run_exp
     from vlnce_torch.trainers.recollect_trainer import RecollectTrainer
 
@@ -1704,7 +1726,10 @@ def _run_recollect(exp, train_opts, per_step):
     launches = _read_launches()
     steps = len(trainer.loss_history)
     print(f"{exp}: train launches over {steps} train steps: {json.dumps(launches)}")
-    assert steps > 0 and list(launches.values()) == [n * steps for n in per_step], (launches, steps)
+    expected = [n * steps for n in per_step]
+    if render_b2:
+        expected[3] += 2 * 3 * len(trainer.resimulation["capture_launches"])
+    assert steps > 0 and list(launches.values()) == expected, (launches, steps)
     assert _cluster_launches() == launches["gru_sequence_backward"], "B1's backward left the cluster route"
     losses = np.array([h[1:] for h in trainer.loss_history])
     assert np.isfinite(losses).all(), "non-finite training loss"
@@ -1774,7 +1799,8 @@ def phase_recollect(dev):
         print(f"eval of {os.path.basename(last)} ({os.path.getsize(last) / 1e6:.1f} MB): "
               f"{len(evaluator._last_eval_episode_stats)} episodes in {eval_wall:.1f} s, stats "
               f"{json.dumps({k: round(v, 4) for k, v in stats.items()})}")
-    return launches, eval_launches
+    sim = trainer.resimulation
+    return launches, eval_launches, sim["env_steps"] / sim["seconds"]
 
 
 def build_recollect_step(dev, dtype: str, T: int = RECOLLECT_T, N: int = RECOLLECT_N, seed: int = 21,
@@ -2247,7 +2273,10 @@ def phase_waypoint(dev):
     print(f"PPO minibatch step alone (T={WP_T}, n=1, upload of {sum(v.nbytes for v in sample[0].values()) / 1e6:.1f} MB from "
           f"the host included): {step_ms:.2f} ms by CUDA events, device busy {busy:.2f} ms (profiler), idle share "
           f"{max(0.0, 1 - busy / step_ms):.1%}; B1's kernels {b1:.3f} ms of the busy time")
-    return launches, eval_launches
+    host = {"rollout": r["env_steps"] / (r["rollout_time"] - r["first_act_time"]), "act_ms": warm_act_ms,
+            "minibatch_ms": sum(warm.values()), "update_s": r["update_time"] / WP_UPDATES,
+            "train": r["env_steps"] / (r["rollout_time"] + r["update_time"])}
+    return launches, eval_launches, host
 
 
 def phase_waypoint_against_plain(dev):
@@ -2297,6 +2326,323 @@ def phase_waypoint_against_plain(dev):
     torch.backends.cudnn.allow_tf32 = True
 
 
+# ---------------------------------------------------------------------------
+# the device-resident training paths: DD-PPO with the rollout on the card,
+# and recollection rendered on the card
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def sync_checked(*methods):
+    """Run each (class, name) method under torch.cuda.set_sync_debug_mode(
+    "error"): anything inside it that waits for the card raises."""
+    saved = [(cls, name, getattr(cls, name)) for cls, name in methods]
+
+    def checked(method):
+        def run(*args, **kwargs):
+            previous = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return method(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(previous)
+        return run
+
+    for cls, name, method in saved:
+        setattr(cls, name, checked(method))
+    try:
+        yield
+    finally:
+        for cls, name, method in saved:
+            setattr(cls, name, method)
+
+
+def phase_device_waypoint(dev, host):
+    """`run_exp(1-wpn-cc.yaml, "train")` with CUDA.ON_DEVICE_ROLLOUT at
+    phase_waypoint's settings (N=4, T=16, 2 updates, ppo_epoch 2,
+    num_mini_batch 4, bf16): no worker forked, each env step one replay of
+    the captured step (B1 twice in it), the bootstrap value a second graph
+    (B1 twice), one read-back per rollout, the PPO minibatches gathered on
+    the card (per minibatch B1 2 forward, 2 backward on the cluster route, 2
+    weight gradients), B2 never; then again with CUDA.PPO_UPDATE_SCAN. The
+    rollout's replays (both runs) and update_device_scan's minibatch loop
+    run under set_sync_debug_mode("error"). Then the last checkpoint's eval
+    over forked workers as in phase_waypoint, and the rollout's and the
+    update's times beside the host path's of this run."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.models.waypoint_policy import WaypointPolicy
+    from vlnce_torch.parallel.optim import trainable_mask
+    from vlnce_torch.rl.device_rollout import DeviceRolloutCollector
+    from vlnce_torch.rl.ppo import WDDPPO
+    from vlnce_torch.run import run_exp
+    from vlnce_torch.trainers.ddppo_waypoint_trainer import DDPPOWaypointTrainer
+    from vlnce_torch.utils.checkpoints import load_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        common = [
+            "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_SCENES", WP_N,
+            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40, "NUM_ENVIRONMENTS", WP_N,
+            "TENSORBOARD_DIR", "", "VERBOSE", False, "LOG_FILE", os.path.join(tmp, "run.log"),
+        ]
+        train_opts = common + ["RL.NUM_UPDATES", WP_UPDATES, "RL.CHECKPOINT_INTERVAL", 1, "RL.LOG_INTERVAL", 1,
+                               "CUDA.ON_DEVICE_ROLLOUT", True]
+        cfg = get_config(WP_EXP, train_opts)
+        start = {k: v.cpu() for k, v in WaypointPolicy.from_config(cfg, waypoint_space(cfg)).state_dict().items()}
+        out = {}
+        for name, extra in (("device_waypoint", []), ("device_waypoint_scan", ["CUDA.PPO_UPDATE_SCAN", True])):
+            ckpts = os.path.join(tmp, name)
+            scan = bool(extra)
+            checked = [(DeviceRolloutCollector, "run_rollout")] + ([(WDDPPO, "minibatch_loop")] if scan else [])
+            torch.cuda.reset_peak_memory_stats()
+            DDPPOWaypointTrainer.time_train_steps = not scan
+            _reset_launches()
+            t0 = time.perf_counter()
+            try:
+                with sync_checked(*checked):
+                    trainer = run_exp(WP_EXP, "train", train_opts + extra + ["CHECKPOINT_FOLDER", ckpts])
+            finally:
+                DDPPOWaypointTrainer.time_train_steps = False
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_launches()
+            ppo, c, r = trainer.config.RL.PPO, trainer.collector, trainer.rollout_stats
+            minibatches = WP_UPDATES * ppo.ppo_epoch * ppo.num_mini_batch
+            print(f"{name}: run_exp took {wall:.1f} s, no env pool ({trainer.envs}); launches {json.dumps(launches)}: the "
+                  f"probe step, the warm-ups and captures of the step and the bootstrap graphs {json.dumps(c.build_launches)}, "
+                  f"then {minibatches} PPO minibatches; both graphs captured in {c.capture_seconds:.3f} s (warm-ups "
+                  f"included); {c.replays} step replays, {c.rollouts} rollouts, {c.readbacks} read-backs; captured per step {c.capture_launches['step']}, per bootstrap {c.capture_launches['bootstrap']}; "
+                  f"run_rollout{' and minibatch_loop' if scan else ''} under set_sync_debug_mode('error')")
+            assert trainer.envs is None and c.rollouts == c.readbacks == WP_UPDATES and c.replays == WP_UPDATES * ppo.num_steps
+            no_b2 = {"gru_sequence": 2, "fused_resize_normalize": 0}
+            assert c.capture_launches == {"step": no_b2, "bootstrap": no_b2}, c.capture_launches
+            assert c.build_launches == {"gru_sequence": 10, "fused_resize_normalize": 0}, c.build_launches
+            assert launches == {"gru_sequence": 10 + 2 * minibatches, "gru_sequence_backward": 2 * minibatches,
+                                "gru_weight_gradient": 2 * minibatches, "fused_resize_normalize": 0}, launches
+            assert _cluster_launches() == 2 * minibatches, "B1's backward left the cluster route"
+            history = trainer.update_history
+            assert len(history) == WP_UPDATES and all(math.isfinite(v) for h in history for v in h.values()), history
+            mask = trainable_mask(trainer.policy, trainer.config.MODEL)
+            after = {k: v.detach().cpu() for k, v in trainer.policy.state_dict().items()}
+            frozen = {k for k, trains in mask.items() if not trains}
+            moved = {k for k in mask if not torch.equal(after[k], start[k])}
+            assert not moved & frozen and all(torch.equal(after[k], start[k]) for k in after if k not in mask), "a frozen tensor moved"
+            assert moved == set(mask) - frozen, sorted(set(mask) - frozen - moved)
+            last = os.path.join(ckpts, f"ckpt.{WP_UPDATES - 1}.ckpt")
+            saved = load_checkpoint(last)
+            assert saved["extra_state"] == {"update": WP_UPDATES - 1, "count_steps": WP_UPDATES * ppo.num_steps * WP_N}
+            print(f"{name}: PPO stats per update " + "; ".join(json.dumps({k: round(v, 4) for k, v in h.items()}) for h in history)
+                  + f"; {len(frozen)} frozen tensors bit-equal, {len(moved)} trainable tensors moved")
+            steady = r["rollout_time"] - r["first_rollout_time"]
+            steady_update = r["update_time"] - r["first_update_time"]
+            steps = r["env_steps"] * (WP_UPDATES - 1) / WP_UPDATES
+            print(f"{name}: rollouts {r['rollout_time']:.3f} s (the first, with the probe, the kernels' build and both "
+                  f"captures, {r['first_rollout_time']:.3f} s; the second {steady:.3f} s: {steps / steady:.1f} env-steps/s end "
+                  f"to end, the read-back included; host rollout of phase_waypoint, this run, {host['rollout']:.1f}); PPO "
+                  f"update {r['update_time'] / WP_UPDATES:.3f} s per update (the second {steady_update:.3f} s; host "
+                  f"{host['update_s']:.3f}); training {r['env_steps'] / (r['rollout_time'] + r['update_time']):.1f} "
+                  f"env-steps/s of rollout and update, {steps / (steady + steady_update):.1f} in the second update (host "
+                  f"{host['train']:.1f} over both); peak card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if not scan:
+                clock, first = trainer.step_clock.totals(), dict(trainer.step_clock.first)
+                order = ("gather", "forward", "backward", "optimizer")
+                assert sorted(clock) == sorted(order) and trainer.step_clock.steps == minibatches
+                warm = {k: (clock[k] - first[k]) / (minibatches - 1) for k in order}
+                print(f"{name}: PPO minibatch step (T={ppo.num_steps}, n={WP_N // ppo.num_mini_batch}) by CUDA events, mean "
+                      f"of the {minibatches - 1} after the first: {sum(warm.values()):.2f} ms = "
+                      + ", ".join(f"{k} {warm[k]:.2f}" for k in order) + f" ms (host path's, with its upload, "
+                      f"{host['minibatch_ms']:.2f} ms)")
+                # the replays alone, then one rollout under the profiler
+                c.load_rollout()
+                torch.cuda.synchronize()
+                start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start_ev.record()
+                c._step.run(c.T)
+                end_ev.record()
+                torch.cuda.synchronize()
+                replay_ms = start_ev.elapsed_time(end_ev)
+                c.load_rollout()
+                roll_ms, busy, counts = trace_segment(lambda: c.run_rollout(trainer.generator))
+                n1 = _kernel_count(counts, "gru_sequence_kernel")
+                print(f"{name}: {c.T} step replays {replay_ms:.2f} ms ({replay_ms / c.T:.3f} ms per step, "
+                      f"{c.T * c.B / replay_ms * 1e3:.1f} env-steps/s of the replays alone; host act step of phase_waypoint "
+                      f"{host['act_ms']:.1f} ms); a rollout (uniforms, {c.T} replays, the bootstrap graph) under the profiler "
+                      f"{roll_ms:.2f} ms, device busy {busy:.2f} ms, idle share {max(0.0, 1 - busy / roll_ms):.1%}; "
+                      f"B1 kernels {n1} (2 x {c.T + 1})")
+                assert n1 == 2 * (c.T + 1), (n1, c.T)
+                top = sorted(((v, k) for k, v in counts.items()), reverse=True)[:3]
+                print(f"{name}: the rollout's most launched kernels: " + "; ".join(f"{v} x {k[:70]}" for v, k in top))
+            else:
+                print(f"{name}: update_device_scan {r['update_time'] / WP_UPDATES:.3f} s per update, {minibatches // WP_UPDATES} "
+                      f"minibatch steps enqueued after one index upload, one read-back")
+            out[name] = launches
+
+        evaluator, eval_launches, eval_wall = _run_loop("eval", common + [
+            "TASK_CONFIG.DATASET.NUM_EPISODES", 16, "EVAL.EPISODE_COUNT", 8, "EVAL.SAMPLE", True, "EVAL_CKPT_PATH_DIR", last,
+            "RESULTS_DIR", os.path.join(tmp, "evals"),
+        ], exp=WP_EXP, per_act_step=(2, 0, 0, 0))
+        head = "critic.fc.weight"
+        assert torch.equal(evaluator.policy.state_dict()[head].cpu(), after[head]), "eval did not load the trained weights"
+        with open(os.path.join(tmp, "evals", f"stats_ckpt_0_{trainer.config.EVAL.SPLIT}.json")) as f:
+            stats = json.load(f)
+        assert "waypoint_reward_measure" in stats and all(math.isfinite(v) for v in stats.values()), stats
+        print(f"device waypoint eval of {os.path.basename(last)}: {len(evaluator._last_eval_episode_stats)} episodes in "
+              f"{eval_wall:.1f} s, stats {json.dumps({k: round(v, 4) for k, v in stats.items()})}")
+    return out["device_waypoint"], out["device_waypoint_scan"], eval_launches
+
+
+def phase_device_waypoint_against_plain(dev, n: int = WP_N, T: int = 8, rollouts: int = 2):
+    """The graphed rollout through B1's kernel against the eager rollout with
+    its plain version (f32, TF32 off, 1-wpn-cc at full width, N=4, T=8,
+    the same uniforms from two generators of one seed), over two rollouts.
+    Values and log-probs within 1e-4 of their scale (phase_main_path's
+    tolerance); every pano and stop equal unless the plain draw's uniform
+    lies within 1e-4 of a bound of its pano CDF; positions (globalgps) and
+    rewards within 1e-5 on each slot up to its first differing pano."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.config.default import add_pano_sensors_to_config
+    from vlnce_torch.models.waypoint_policy import WaypointPolicy
+    from vlnce_torch.ops.obs_transforms import get_active_obs_transforms
+    from vlnce_torch.rl.device_rollout import DeviceRolloutCollector
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = add_pano_sensors_to_config(get_config(WP_EXP, [
+        "CUDA.DEVICE", str(dev), "CUDA.PRECISION.compute_dtype", "float32", "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0",
+        "TASK_CONFIG.DATASET.NUM_SCENES", n, "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40, "NUM_ENVIRONMENTS", n,
+        "RL.PPO.num_steps", T]))
+    policy = WaypointPolicy.from_config(cfg, waypoint_space(cfg))
+    transforms = get_active_obs_transforms(cfg)
+    graphed = DeviceRolloutCollector(policy, transforms, cfg, n)
+    eager = DeviceRolloutCollector(policy, transforms, cfg, n, eager=True)
+    gens = [torch.Generator(device=dev).manual_seed(13) for _ in range(2)]
+    logits = []
+    act = policy.act
+
+    def recording_act(*args, **kwargs):
+        out = act(*args, **kwargs)
+        logits.append(out["pano_stop_logits"].float())
+        return out
+
+    worst = {"value": 0.0, "log_prob": 0.0, "pos": 0.0, "reward": 0.0}
+    compared = flipped = 0
+    for c in (graphed, eager):
+        c.initial_carry_and_obs()
+    for r in range(rollouts):
+        k_batch = {k: (v.clone() if not isinstance(v, dict) else {a: b.clone() for a, b in v.items()})
+                   for k, v in graphed.collect_device(np.zeros((n, 1), np.float32), {}, gens[0])[0].items()}
+        logits.clear()
+        policy.act = recording_act
+        try:
+            with plain_versions(resize=False):
+                p_batch = eager.collect_device(np.zeros((n, 1), np.float32), {}, gens[1])[0]
+        finally:
+            del policy.act
+        assert torch.equal(graphed._uniforms, eager._uniforms), "the two rollouts drew different uniforms"
+        for key, name in (("value_preds", "value"), ("old_log_probs", "log_prob")):
+            scale = float(p_batch[key].abs().max())
+            worst[name] = max(worst[name], float((k_batch[key] - p_batch[key]).abs().max()) / scale)
+        pano_k, pano_p = k_batch["actions"]["pano"][..., 0], p_batch["actions"]["pano"][..., 0]
+        cdf = torch.softmax(torch.stack(logits[-T:]), dim=-1).cumsum(-1)  # [T, n, 13], the plain run's steps
+        u = graphed._uniforms[:, 0]  # [T, n]
+        near = ((cdf - u[..., None]).abs() < 1e-4).any(-1)
+        differ = pano_k != pano_p
+        assert not bool((differ & ~near).any()), f"rollout {r}: a pano differs away from a CDF bound"
+        flipped += int(differ.any())
+        same = (differ.int().cumsum(0) == 0)  # each slot up to its first differing pano
+        gps_k, gps_p = k_batch["obs"]["globalgps"], p_batch["obs"]["globalgps"]
+        worst["pos"] = max(worst["pos"], float(((gps_k - gps_p).abs().amax(-1) * same).max()))
+        worst["reward"] = max(worst["reward"], float(((k_batch["rewards"] - p_batch["rewards"]).abs()[..., 0] * same).max()))
+        compared += int(same.sum())
+        if differ.any():
+            break  # the slots' carries part here
+    print(f"device rollout against plain (f32, TF32 off, 1-wpn-cc at full width, N={n}, T={T}, graph through B1's kernel vs "
+          f"eager with its plain version, the same uniforms): max |value diff| {worst['value']:.3e} and |log-prob diff| "
+          f"{worst['log_prob']:.3e} of their scale (<= 1e-4); {compared} slot-steps with equal actions: max |position diff| "
+          f"{worst['pos']:.3e}, |reward diff| {worst['reward']:.3e} (<= 1e-5); "
+          + ("a pano flipped at a CDF bound" if flipped else "every pano and stop equal"))
+    assert worst["value"] <= 1e-4 and worst["log_prob"] <= 1e-4, "the graphed rollout disagrees with the plain one"
+    assert worst["pos"] <= 1e-5 and worst["reward"] <= 1e-5, "positions or rewards disagree where the actions agree"
+    assert graphed._step.graph is not None and eager._step.graph is None
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_device_recollect(dev, host_rate):
+    """`run_exp(rxr_cma_en.yaml, "train")` as phase_recollect runs it, with
+    CUDA.ON_DEVICE_RECOLLECT (the GT trajectories rendered on the card, read
+    back per chunk: per train step B2 twice in the train step's transforms,
+    B1 as phase_recollect), then with CUDA.RECOLLECT_RESIDENT as well (B2
+    captured twice per render step, none in the train step). Then one chunk
+    rendered on the card against the host simulator along the same GT
+    actions, and the render's env-steps/s beside phase_recollect's
+    re-simulation."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.envs.gridworld import GridWorldSim
+    from vlnce_torch.ops.obs_transforms import get_active_obs_transforms
+    from vlnce_torch.tasks.datasets import make_dataset
+    from vlnce_torch.trainers.device_recollect import render_gt_batch_resident, render_gt_episodes_on_device
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        _, train_opts = _recollect_opts(tmp, RECOLLECT_EPOCHS, 2 * RECOLLECT_N)
+        for name, extra, per_step in (("device_recollect", [], (2, 2, 2, 2)),
+                                      ("device_recollect_resident", ["CUDA.RECOLLECT_RESIDENT", True], (2, 2, 2, 0))):
+            opts = train_opts + ["CUDA.ON_DEVICE_RECOLLECT", True, *extra,
+                                 "CHECKPOINT_FOLDER", os.path.join(tmp, name)]
+            trainer, launches, wall = _run_recollect(EXP, opts, per_step, render_b2=bool(extra))
+            sim = trainer.resimulation
+            graphs = sim["capture_launches"]
+            want = {"gru_sequence": 0, "fused_resize_normalize": 2 if extra else 0}
+            assert graphs and all(g == want for g in graphs), graphs
+            assert os.path.exists(os.path.join(tmp, name, f"ckpt.{RECOLLECT_EPOCHS - 1}.ckpt"))
+            print(f"{name}: {len(graphs)} render graphs (one per T_pad), each captured with {json.dumps(want)} per step; "
+                  f"{sim['replays']} replays; the render {sim['env_steps']} env steps of {sim['episodes']} episodes in "
+                  f"{sim['seconds']:.2f} s on the prefetch thread ({sim['env_steps'] / sim['seconds']:.1f} env-steps/s, the "
+                  f"chunks' host setup included; host re-simulation of phase_recollect, this run, {host_rate:.1f})")
+            out[name] = launches
+
+        # one chunk: the card's frames against the host simulator stepped along the same GT actions
+        cfg = get_config(EXP, train_opts + ["CUDA.DEVICE", str(dev)])
+        with gzip.open(cfg.IL.RECOLLECT_TRAINER.trajectories_file, "rt") as f:
+            trajectories = json.load(f)
+        episodes = [ep for ep in make_dataset(cfg.TASK_CONFIG.DATASET.TYPE, cfg.TASK_CONFIG.DATASET).episodes
+                    if ep.episode_id in trajectories][:RECOLLECT_N]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rendered = render_gt_episodes_on_device(cfg, episodes, trajectories, 1.0, instr_uuid="rxr_instruction")
+        wire_s = time.perf_counter() - t0
+        steps = sum(len(trajectories[ep.episode_id]) for ep in episodes)
+        transforms = get_active_obs_transforms(cfg)
+        render_gt_batch_resident(cfg, episodes, trajectories, 1.0, instr_uuid="rxr_instruction", transforms=transforms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_gt_batch_resident(cfg, episodes, trajectories, 1.0, instr_uuid="rxr_instruction", transforms=transforms)
+        torch.cuda.synchronize()
+        resident_s = time.perf_counter() - t0
+        sim = GridWorldSim(cfg.TASK_CONFIG.SIMULATOR)
+        depth_off = rgb_off = pixels = 0
+        worst_depth = worst_rgb = 0.0
+        for ep, (obs, *_rest) in zip(episodes, rendered):
+            sim.reconfigure(ep.scene_id)
+            sim.reset()
+            sim.set_agent_state(ep.start_position, ep.start_rotation)
+            frames = [sim.get_observations_at()] + [sim.step(s[1]) for s in trajectories[ep.episode_id][:-1]]
+            for t, host in enumerate(frames):
+                d_depth = np.abs(obs["depth"][t] - host["depth"])
+                d_rgb = np.abs(obs["rgb"][t].astype(int) - host["rgb"].astype(int)).max(-1)
+                worst_depth, worst_rgb = max(worst_depth, float(d_depth.max())), max(worst_rgb, float(d_rgb.max()))
+                depth_off += int((d_depth > 1e-3).sum())
+                rgb_off += int((d_rgb > 1).sum())
+                pixels += d_rgb.size
+        print(f"device recollection vs host re-simulation, {len(episodes)} episodes, {steps} steps at 480x640: depth off by "
+              f"more than the f16 tolerance 1e-3 on {depth_off / pixels:.4%} of the pixels, RGB off by more than 1 on "
+              f"{rgb_off / pixels:.4%} (under 1% each: the card steps the pose in f32, the host in f64, so a wall edge or a "
+              f"ray's hit cell can fall on the other side; the largest diffs {worst_depth:.2e}, {worst_rgb:.0f}); one chunk's "
+              f"render on the card {steps / wire_s:.1f} env-steps/s through the wire (host setup and the read-back included), "
+              f"{steps / resident_s:.1f} resident with B2 in the step (a warm graph)")
+        assert depth_off < 0.01 * pixels and rgb_off < 0.01 * pixels, "the card's recollection disagrees with the host simulator"
+    return out["device_recollect"], out["device_recollect_resident"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2318,12 +2664,16 @@ def main() -> int:
     paths["train_step"] = phase_train_step(dev)
     phase_train_step_against_plain(dev)
     shapes = phase_recollect_shapes(dev)
-    paths["recollect"], paths["recollect_eval"] = phase_recollect(dev)
+    paths["recollect"], paths["recollect_eval"], resim_rate = phase_recollect(dev)
+    paths["device_recollect"], paths["device_recollect_resident"] = phase_device_recollect(dev, resim_rate)
     phase_recollect_against_plain(dev)
     paths["seq2seq"], paths["seq2seq_eval"] = phase_seq2seq(dev)
     wp_shapes = phase_waypoint_shapes(dev)
-    paths["waypoint"], paths["waypoint_eval"] = phase_waypoint(dev)
+    paths["waypoint"], paths["waypoint_eval"], wp_host = phase_waypoint(dev)
+    (paths["device_waypoint"], paths["device_waypoint_scan"],
+     paths["device_waypoint_eval"]) = phase_device_waypoint(dev, wp_host)
     phase_waypoint_against_plain(dev)
+    phase_device_waypoint_against_plain(dev)
     for k, extra, wp in zip(kernels, (shapes["forward"], shapes["backward"], shapes["weight"], shapes["resize"]),
                             (wp_shapes["forward"], wp_shapes["backward"], wp_shapes["weight"], {})):
         k.update(extra)

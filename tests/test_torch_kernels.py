@@ -630,3 +630,133 @@ def test_device_sim_on_the_card_matches_the_cpu():
     np.testing.assert_allclose(card["pos"].numpy(), cpu["pos"].numpy(), rtol=0, atol=1e-5)
     np.testing.assert_allclose(card["heading"].numpy(), cpu["heading"].numpy(), rtol=0, atol=1e-5)
     assert torch.equal(card["expert"], cpu["expert"])
+
+
+# ---------------------------------------------------------------------------
+# the device-resident training paths: DD-PPO's rollout and recollection's
+# render, one step captured in a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _rollout_case(dev):
+    """The synthetic waypoint config at 32x32 frames on `dev` in f32 (2
+    slots, 4 steps, episodes of at most 3 waypoints), its policy with the
+    stop head spread so that some steps STOP, and the obs transforms."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.config.default import add_pano_sensors_to_config
+    from vlnce_torch.envs import spaces
+    from vlnce_torch.models.waypoint_policy import WaypointPolicy
+    from vlnce_torch.ops.obs_transforms import get_active_obs_transforms
+
+    cfg = add_pano_sensors_to_config(get_config("vlnce_torch/config/experiments/synthetic/smoke_waypoint.yaml", [
+        "CUDA.DEVICE", str(dev), "CUDA.PRECISION.compute_dtype", "float32", "NUM_ENVIRONMENTS", 2, "RL.PPO.num_steps", 4,
+        "RL.PPO.num_mini_batch", 2, "TASK_CONFIG.DATASET.NUM_EPISODES", 6, "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 3]))
+    img = (32, 32)
+    space = spaces.Dict({
+        "rgb": spaces.Box(0, 255, (12,) + img + (3,), np.uint8), "depth": spaces.Box(0.0, 1.0, (12,) + img + (1,), np.float32),
+        "rgb_history": spaces.Box(0, 255, img + (3,), np.uint8), "depth_history": spaces.Box(0.0, 1.0, img + (1,), np.float32),
+        "instruction": spaces.Box(0, 2**31 - 1, (200,), np.int32), "angle_features": spaces.Box(-1.0, 1.0, (12, 4), np.float32),
+    })
+    policy = WaypointPolicy.from_config(cfg, space)
+    with torch.no_grad():
+        policy.net.stop_linear.weight.mul_(20.0)
+        policy.net.stop_linear.bias.fill_(-1.0)
+    return cfg, policy, get_active_obs_transforms(cfg)
+
+
+@pytest.mark.cuda
+def test_rollout_graph_matches_eager():
+    """DD-PPO's rollout replayed from its two CUDA graphs (the step, the
+    bootstrap) against the same steps run eagerly, both through B1's kernel
+    (TF32 off): the same sampled actions from one generator seed, values,
+    returns and advantages within 1e-5, over two rollouts; then a rollout's
+    replays and update_device_scan's minibatch loop under
+    set_sync_debug_mode("error")."""
+    from vlnce_torch.rl.device_rollout import DeviceRolloutCollector
+    from vlnce_torch.rl.ppo import WDDPPO
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg, policy, transforms = _rollout_case(dev)
+    runs = {}
+    for eager in (False, True):
+        c = DeviceRolloutCollector(policy, transforms, cfg, 2, eager=eager)
+        c.initial_carry_and_obs()
+        gen = torch.Generator(device=dev).manual_seed(5)
+        runs[eager] = [{k: (v.clone() if not isinstance(v, dict) else {a: b.clone() for a, b in v.items()})
+                        for k, v in c.collect_device(np.zeros((2, 1), np.float32), {}, gen)[0].items()} for _ in range(2)]
+        assert (c._step.graph is None) == eager and c.readbacks == c.rollouts == 2 and c.replays == 8
+        if not eager:
+            graphed = c
+            assert c.capture_launches["step"] == c.capture_launches["bootstrap"] == {"gru_sequence": 2,
+                                                                                     "fused_resize_normalize": 0}
+    panos = []
+    for g, e in zip(runs[False], runs[True]):
+        for k in g["actions"]:
+            np.testing.assert_allclose(g["actions"][k].cpu().numpy(), e["actions"][k].cpu().numpy(), rtol=0, atol=1e-5, err_msg=k)
+        assert torch.equal(g["actions"]["pano"], e["actions"]["pano"]) and torch.equal(g["masks"], e["masks"])
+        for k in ("value_preds", "old_log_probs", "rewards", "returns", "advantages"):
+            np.testing.assert_allclose(g[k].cpu().numpy(), e[k].cpu().numpy(), rtol=0, atol=1e-5, err_msg=k)
+        panos.append(g["actions"]["pano"].cpu())
+    assert len(torch.cat(panos).unique()) > 1
+
+    agent = WDDPPO(policy, cfg.RL.PPO)
+    T, rows, clip = agent._minibatch_plan(graphed._buffers, np.random.RandomState(0), 0)
+    idx = torch.from_numpy(rows).to(dev)
+    graphed.load_rollout()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graphed.run_rollout(torch.Generator(device=dev).manual_seed(6))
+        stats = agent.minibatch_loop(graphed._buffers, idx, clip, T)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(stats).all())
+
+
+_RXR_SMALL = [
+    "MODEL.RGB_ENCODER.cnn_type", "TorchVisionResNet18", "MODEL.DEPTH_ENCODER.backbone", "resnet18",
+    "MODEL.STATE_ENCODER.hidden_size", 64, "MODEL.INSTRUCTION_ENCODER.hidden_size", 32,
+    "RL.POLICY.OBS_TRANSFORMS.RESIZE_SHORTEST_EDGE.SIZE", 32,
+    "RL.POLICY.OBS_TRANSFORMS.CENTER_CROPPER_PER_SENSOR.SENSOR_CROPS", [["rgb", [32, 32]], ["depth", [32, 32]]],
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.HEIGHT", 48, "TASK_CONFIG.SIMULATOR.RGB_SENSOR.WIDTH", 64,
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT", 48, "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH", 64,
+    "TASK_CONFIG.TASK.RXR_INSTRUCTION_SENSOR.feature_dim", 32, "TASK_CONFIG.TASK.RXR_INSTRUCTION_SENSOR.max_text_len", 16,
+    "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_EPISODES", 4,
+    "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 12, "CUDA.PRECISION.compute_dtype", "float32",
+]
+
+
+@pytest.mark.cuda
+def test_resident_render_graph_matches_eager(tmp_path):
+    """Recollection's resident render (the RxR transforms, B2 twice, inside
+    the captured step) against the same steps run eagerly through the
+    kernels: the batch equal (f32 within 1e-6), a second batch of the same
+    shape through the cached graph."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.data.recollection import TeacherRecollectionDataset
+    from vlnce_torch.ops.obs_transforms import get_active_obs_transforms
+    from vlnce_torch.tasks.datasets import make_dataset
+    from vlnce_torch.trainers.device_recollect import render_gt_batch_resident
+
+    dev = _card()
+    cfg = get_config("vlnce_torch/config/experiments/rxr_baselines/rxr_cma_en.yaml", _RXR_SMALL + [
+        "CUDA.DEVICE", str(dev), "IL.RECOLLECT_TRAINER.trajectories_file", str(tmp_path / "trajectories.json.gz"),
+        "IL.RECOLLECT_TRAINER.gt_file", str(tmp_path / "missing_{split}_{role}.json.gz")])
+    dataset = TeacherRecollectionDataset.__new__(TeacherRecollectionDataset)
+    dataset.config = cfg
+    trajectories = dataset.collect_dataset()
+    episodes = list(make_dataset(cfg.TASK_CONFIG.DATASET.TYPE, cfg.TASK_CONFIG.DATASET).episodes)
+    transforms = get_active_obs_transforms(cfg)
+    cache = {}
+    for group in (episodes[:2], episodes[2:]):
+        got = render_gt_batch_resident(cfg, group, trajectories, 1.0, "rxr_instruction", transforms=transforms, cache=cache)
+        ref = render_gt_batch_resident(cfg, group, trajectories, 1.0, "rxr_instruction", transforms=transforms, eager=True)
+        for k, v in got[0].items():
+            assert v.device.type == "cuda" and v.dtype == ref[0][k].dtype, k
+            np.testing.assert_allclose(v.float().cpu().numpy(), ref[0][k].float().cpu().numpy(), rtol=0, atol=1e-6, err_msg=k)
+        for a, b in zip(got[1:], ref[1:]):
+            np.testing.assert_array_equal(a, b)
+    steps = [s.step for s in cache.values()]
+    assert steps and all(s.graph is not None and s.capture_launches == {"gru_sequence": 0, "fused_resize_normalize": 2}
+                         for s in steps)

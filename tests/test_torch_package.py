@@ -172,19 +172,28 @@ def test_waypoint_configs_match_jax():
         get_config("vlnce_torch/config/experiments/r2r_waypoint/1-wpn-cc.yaml", ["TPU.ON_DEVICE_ROLLOUT", True])
 
 
-def test_resident_rl_keys_raise_naming_the_roadmap_heading():
-    """CUDA.ON_DEVICE_ROLLOUT and CUDA.PPO_UPDATE_SCAN (the JAX package's
-    device-resident rollout and fused PPO update) raise before any env is
-    built."""
+def test_resident_rl_keys_raise_naming_the_roadmap_heading(monkeypatch):
+    """CUDA.ON_DEVICE_ROLLOUT and CUDA.PPO_UPDATE_SCAN (the rollout on the
+    card and the enqueued PPO update) train since their slice came
+    (tests/test_torch_device_rollout.py); imported scene geometry, which the
+    rollout would render, is not ported: with it they raise naming the
+    roadmap's heading, and no env pool is built."""
     import pytest
 
     import vlnce_torch.trainers  # noqa: F401
+    from vlnce_torch.envs import rl_envs  # noqa: F401
     from vlnce_torch.registry import registry
+    from vlnce_torch.trainers import ddppo_waypoint_trainer
 
+    def no_pool(*args, **kwargs):
+        raise AssertionError("the env pool was constructed")
+
+    monkeypatch.setattr(ddppo_waypoint_trainer, "construct_envs", no_pool)
     for key in ("ON_DEVICE_ROLLOUT", "PPO_UPDATE_SCAN"):
         cfg = get_config("vlnce_torch/config/experiments/synthetic/smoke_waypoint.yaml",
-                         ["CUDA.DEVICE", "cpu", f"CUDA.{key}", True])
+                         ["CUDA.DEVICE", "cpu", "CUDA.ON_DEVICE_ROLLOUT", True, f"CUDA.{key}", True,
+                          "TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", "data/scene_geometry"])
         trainer = registry.get_trainer("ddppo-waypoint")(cfg)
-        with pytest.raises(NotImplementedError, match="Device-resident loops"):
+        with pytest.raises(NotImplementedError, match="GEOMETRY_DIR.*ROADMAP.md section A, 'Left by the serving slice'"):
             trainer.train()
         assert trainer.envs is None

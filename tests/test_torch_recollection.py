@@ -255,9 +255,23 @@ def test_preload_holds_whole_episodes_of_their_gt_length(start, tmp_path):
 
 
 @pytest.mark.parametrize("key", ["ON_DEVICE_RECOLLECT", "RECOLLECT_RESIDENT"])
-def test_device_resident_keys_raise_naming_the_roadmap(start, tmp_path, key):
-    trainer = registry.get_trainer("recollect_trainer")(_config(tmp_path, start["torch_ckpt"], [f"CUDA.{key}", True]))
-    with pytest.raises(NotImplementedError, match=f"CUDA.{key}.*ROADMAP.md section A, 'Device-resident loops'"):
+def test_device_resident_keys_raise_naming_the_roadmap(start, tmp_path, key, monkeypatch):
+    # recollection on the card trains since its slice came (tests/test_torch_device_recollect.py);
+    # imported scene geometry, which it would render, is not ported: with it the device path
+    # raises naming the roadmap, before any env pool is built
+    from vlnce_torch.data import recollection
+
+    def no_pool(*args, **kwargs):
+        raise AssertionError("the env pool was constructed")
+
+    monkeypatch.setattr(recollection, "construct_envs", no_pool)
+    trajectories = tmp_path / "trajectories.json.gz"
+    with gzip.open(trajectories, "wt") as f:
+        json.dump({"0": [[0, 1, 1], [1, 0, 0]]}, f)
+    trainer = registry.get_trainer("recollect_trainer")(_config(tmp_path, start["torch_ckpt"], [
+        "CUDA.ON_DEVICE_RECOLLECT", True, f"CUDA.{key}", True, "TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", "data/scene_geometry",
+        "IL.RECOLLECT_TRAINER.preload_trajectories_file", True, "IL.RECOLLECT_TRAINER.trajectories_file", str(trajectories)]))
+    with pytest.raises(NotImplementedError, match="GEOMETRY_DIR.*ROADMAP.md section A, 'Left by the serving slice'"):
         trainer.train()
 
 

@@ -346,15 +346,16 @@ def _perturb_state_dict(policy, rng):
                 t.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, t.shape).astype(np.float32)))
 
 
-def build_waypoint_pair(name, seed=0, extra=()):
+def build_waypoint_pair(name, seed=0, extra=(), img=WP_IMG):
     """The small waypoint policy of r2r_waypoint/<name>.yaml in both packages
     with the same weights: the port's seeded and perturbed weights go into
     the JAX parameter tree through the JAX package's own converter
     (`convert_waypoint_state_dict`, into the tree's shapes from
     `jax.eval_shape` of its init: no compile), and those JAX params come
     back into the port policy through `state_dict_from_jax_params`, loaded
-    strictly and bit-equal to what went out. Returns ((jax policy, params), port policy, (jax config,
-    port config))."""
+    strictly and bit-equal to what went out. `img` is the frames' side (the
+    configs' sensors must match it). Returns ((jax policy, params), port
+    policy, (jax config, port config))."""
     from vlnce_tpu.models.convert import convert_waypoint_state_dict
     from vlnce_tpu.models.policy import observation_space_example
     from vlnce_tpu.models.waypoint_policy import WaypointPolicy as JaxWaypointPolicy
@@ -362,11 +363,11 @@ def build_waypoint_pair(name, seed=0, extra=()):
     from vlnce_torch.models.waypoint_policy import WaypointPolicy
 
     jcfg, cfg = waypoint_configs(name, extra)
-    policy = WaypointPolicy.from_config(cfg, waypoint_space(port_spaces))
+    policy = WaypointPolicy.from_config(cfg, waypoint_space(port_spaces, img))
     _perturb_state_dict(policy, np.random.RandomState(seed))
     sd = {k: v.numpy().copy() for k, v in policy.state_dict().items()}
 
-    jax_policy = JaxWaypointPolicy.from_config(jcfg, waypoint_space(gym_spaces))
+    jax_policy = JaxWaypointPolicy.from_config(jcfg, waypoint_space(gym_spaces, img))
     B = 1
     shapes = jax.eval_shape(
         jax_policy.module.init, jax.random.PRNGKey(seed), observation_space_example(jax_policy.observation_space, B),

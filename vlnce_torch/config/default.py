@@ -99,14 +99,23 @@ _C.CUDA.RESIDENT_EPOCH_SCAN = False
 # merge; not ported yet (any non-default value raises)
 _C.CUDA.FEATURE_BANK_DIR = ""
 _C.CUDA.FEATURE_BANK_MAX_DIST = 0.0
-# device-resident recollection (GT trajectories rendered on the card, the
-# batch kept there): keys kept so configs merge; not ported yet
+# recollection rendered on the card (trainers/device_recollect.py): the GT
+# trajectories re-rendered along their actions, one CUDA graph replay per
+# step, no env pool (requires GridWorldSim-v0); with RECOLLECT_RESIDENT the
+# obs transforms run inside the render step and the batch stays on the card
 _C.CUDA.ON_DEVICE_RECOLLECT = False
 _C.CUDA.RECOLLECT_RESIDENT = False
-# device-resident RL (rollouts collected on the card, all PPO minibatch
-# updates of a rollout fused): keys kept so configs merge; not ported yet
+# DD-PPO rollouts collected on the card (rl/device_rollout.py): one CUDA
+# graph replay per env step, the PPO batch kept there for
+# WDDPPO.update_device; PPO_UPDATE_SCAN enqueues all ppo_epoch x
+# num_mini_batch minibatch steps with one index upload
+# (WDDPPO.update_device_scan; requires ON_DEVICE_ROLLOUT)
 _C.CUDA.ON_DEVICE_ROLLOUT = False
 _C.CUDA.PPO_UPDATE_SCAN = False
+# the on-device rollout uploads the whole train split once when it holds at
+# most this many episodes (then a rollout uploads only a [B, T+1] index
+# map); above it, each rollout uploads its episode queue
+_C.CUDA.EPISODE_BANK_MAX = 8192
 
 # ---------------------------------------------------------------------------
 # EVAL

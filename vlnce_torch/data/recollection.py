@@ -16,9 +16,15 @@ RxR observation (u8 RGB and f32 depth at 480x640, [512, 768] f32
 instruction features) is 3.72 MB, so `preload_size` episodes of up to
 `max_traj_len` steps bound the host memory it takes.
 
-The device-resident modes of the JAX package (`TPU.ON_DEVICE_RECOLLECT`,
-`TPU.RECOLLECT_RESIDENT`) are not ported: the recollect trainer refuses
-their `CUDA` keys.
+With `CUDA.ON_DEVICE_RECOLLECT` there is no env pool (`initialize_device`:
+one probe env gives the spaces and closes): chunks of NUM_ENVIRONMENTS
+episodes are rendered on the card along their GT actions
+(`trainers/device_recollect.render_gt_episodes_on_device`) and read back,
+and the episodes go through the same collate. With `CUDA.RECOLLECT_RESIDENT`
+as well, `batches` renders each training batch on the card with the obs
+transforms inside the render step and keeps it there
+(`render_gt_batch_resident`). The JAX package's `rank_slice` of the
+episodes has no counterpart: the port trains in one process.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 
 from vlnce_torch.data.collate import collate_episodes, inflection_weights
+from vlnce_torch.envs.device_sim import check_scene_geometry
 from vlnce_torch.envs.env_utils import construct_envs, get_env_class
 from vlnce_torch.envs.sim import SimulatorActions
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_obs_space, get_active_obs_transforms
@@ -55,7 +62,15 @@ class TeacherRecollectionDataset:
                 self.trajectories = json.load(f)
         else:
             self.trajectories = self.collect_dataset()
-        self.initialize_sims()
+        self._on_device = bool(config.CUDA.ON_DEVICE_RECOLLECT)
+        # resident: each batch is rendered on the card and stays there,
+        # time-major, its obs transforms applied (requires ON_DEVICE_RECOLLECT)
+        self.resident = self._on_device and bool(config.CUDA.RECOLLECT_RESIDENT)
+        self._render_cache: Dict = {}  # the render loops on the card, by shape
+        if self._on_device:
+            self.initialize_device()
+        else:
+            self.initialize_sims()
 
     # -- GT collection -------------------------------------------------------
     def collect_dataset(self) -> Dict[str, List[List[int]]]:
@@ -150,6 +165,55 @@ class TeacherRecollectionDataset:
             path_step = self.trajectories[ep.episode_id][0]
             self._env_observations[i].append((observations[i], path_step[0], path_step[2]))
 
+    def initialize_device(self) -> None:
+        """Recollection rendered on the card (CUDA.ON_DEVICE_RECOLLECT): no
+        env pool. A probe env gives the spaces, then closes."""
+        from vlnce_torch.tasks.datasets import make_dataset
+
+        config = self.config.clone().defrost()
+        config.TASK_CONFIG.TASK.MEASUREMENTS = []
+        config.freeze()
+        sim_type = config.TASK_CONFIG.SIMULATOR.TYPE
+        if sim_type != "GridWorldSim-v0":
+            raise ValueError(f"CUDA.ON_DEVICE_RECOLLECT requires SIMULATOR.TYPE=GridWorldSim-v0 (got {sim_type!r})")
+        check_scene_geometry(config.TASK_CONFIG.SIMULATOR)
+        probe = get_env_class(config.ENV_NAME)(config.clone())
+        try:
+            self.obs_transforms = get_active_obs_transforms(self.config)
+            self._observation_space = apply_obs_transforms_obs_space(probe.observation_space, self.obs_transforms)
+            self._action_space = probe.action_space
+        finally:
+            probe.close()
+        wanted = set(self.trajectories.keys())
+        dataset = make_dataset(config.TASK_CONFIG.DATASET.TYPE, config.TASK_CONFIG.DATASET)
+        self._device_episodes = [ep for ep in dataset.episodes if ep.episode_id in wanted]
+        self.length = len(self._device_episodes)
+        self._instr_uuid = str(getattr(self.config.MODEL.INSTRUCTION_ENCODER, "sensor_uuid", "instruction"))
+
+    def _device_episode_iter(self) -> Iterator[Tuple]:
+        from vlnce_torch.trainers.device_recollect import render_gt_episodes_on_device
+
+        B = max(1, int(self.config.NUM_ENVIRONMENTS))
+        order = list(self._device_episodes)
+        while True:
+            for lo in range(0, len(order), B):
+                chunk = order[lo : lo + B]
+                t0 = time.perf_counter()
+                episodes = render_gt_episodes_on_device(self.config, chunk, self.trajectories, self.coef,
+                                                        instr_uuid=self._instr_uuid, cache=self._render_cache)
+                self._count(chunk, t0)
+                yield from episodes
+
+    def _count(self, chunk, t0: float) -> None:
+        """The render's counts: GT steps, episodes, host seconds, and per
+        render graph its replays and the kernel launches its capture holds."""
+        self.sim_stats["env_steps"] += sum(len(self.trajectories[ep.episode_id]) for ep in chunk)
+        self.sim_stats["episodes"] += len(chunk)
+        self.sim_stats["seconds"] += time.perf_counter() - t0
+        graphs = [steps.step for steps in self._render_cache.values()]
+        self.sim_stats["replays"] = sum(g.replays for g in graphs)
+        self.sim_stats["capture_launches"] = [dict(g.capture_launches) for g in graphs]
+
     @property
     def batch_size(self) -> int:
         return self.config.IL.batch_size
@@ -160,6 +224,8 @@ class TeacherRecollectionDataset:
 
     @property
     def action_space(self):
+        if self.envs is None:
+            return self._action_space
         return self.envs.action_spaces[0]
 
     def close_sims(self) -> None:
@@ -210,6 +276,9 @@ class TeacherRecollectionDataset:
 
     def episodes(self) -> Iterator[Tuple]:
         """Infinite iterator of (obs_dict[T], prev[T], oracle[T], weights[T])."""
+        if self._on_device:
+            yield from self._device_episode_iter()
+            return
         while True:
             if not self._preload:
                 self._load_next_episodes()
@@ -221,7 +290,28 @@ class TeacherRecollectionDataset:
 
     def batches(self, num_batches: int) -> Iterator:
         """num_batches collated batches: (observations [T*N, ...], prev
-        [T*N, 1], masks [T*N, 1], corrected [T, N], weights [T, N])."""
+        [T*N, 1], masks [T*N, 1], corrected [T, N], weights [T, N]). With
+        CUDA.RECOLLECT_RESIDENT each batch is rendered on the card and stays
+        there: (observations {k: [T, N, ...]} transformed, prev, masks,
+        corrected, weights [T, N]), the episodes in the dataset's order,
+        wrapping, as the episode iterators take them."""
+        if self.resident:
+            from vlnce_torch.trainers.device_recollect import render_gt_batch_resident
+
+            def cycle():
+                while True:
+                    yield from self._device_episodes
+
+            episodes = cycle()
+            for _ in range(num_batches):
+                group = [next(episodes) for _ in range(self.batch_size)]
+                t0 = time.perf_counter()
+                batch = render_gt_batch_resident(self.config, group, self.trajectories, self.coef,
+                                                 instr_uuid=self._instr_uuid, transforms=self.obs_transforms,
+                                                 cache=self._render_cache)
+                self._count(group, t0)
+                yield batch
+            return
         it = self.episodes()
         for _ in range(num_batches):
             batch = [next(it) for _ in range(self.batch_size)]

@@ -18,7 +18,9 @@ coordinate becomes a cell by truncation toward zero and a clip, rays are
 sampled every 0.6 x _RES, RGB is u8 as `(color * shade).to(uint8)`, depth
 is f32 normalized as the camera's spec says. Nothing here synchronizes with
 the host: every shape is static and no value is read back, so a step of
-these ops can be captured in a CUDA graph.
+these ops can be captured in a CUDA graph (the x, z columns of a pose are
+the slice `[:, 0::2]`, not a list index, which would copy the list from the
+host).
 
 Imported real-scene geometry (`SIMULATOR.GEOMETRY_DIR`) is not ported: the
 host simulator refuses it, and so does `check_scene_geometry` here. Every
@@ -435,7 +437,7 @@ def step_filter_dynamic(occupancy, start, end, max_samples: int, allow_sliding: 
     and the fractions are the host's, min(i / n, 1): samples past n repeat
     the endpoint, which leaves the leading-free-prefix walk unchanged."""
     delta = end - start
-    length = torch.linalg.vector_norm(delta[:, [0, 2]], dim=-1)
+    length = torch.linalg.vector_norm(delta[:, 0::2], dim=-1)
     n = torch.clamp((length / (0.25 * _RES)).to(torch.int32), min=2)
     i = torch.arange(1, max_samples + 1, dtype=torch.float32, device=start.device)
     ts = torch.clamp(i[None, :] / n[:, None].to(torch.float32), max=1.0)  # [B, K]
@@ -471,7 +473,7 @@ def waypoint_reward(goal_field, prev_distance, prev_pos_xz, pos_after, r_pred, s
     """WaypointRewardMeasure of every env (tasks/measures.py). Returns
     (reward, new distance_to_goal, success), each [B]."""
     d = geodesic_at(goal_field, pos_after, origin)
-    moved = torch.linalg.vector_norm(prev_pos_xz - pos_after[:, [0, 2]], dim=-1)
+    moved = torch.linalg.vector_norm(prev_pos_xz - pos_after[:, 0::2], dim=-1)
     if use_distance_scaled_slack_reward:
         slack_distance = torch.where(stop, moved, r_pred) if scale_slack_on_prediction else moved
         slack = torch.clamp(slack_reward * slack_distance / 0.25, max=slack_reward)

@@ -102,9 +102,13 @@ class TruncatedNormal:
         [cdf(smin), cdf(smax)], clipped to [smin, smax]."""
         return torch.clamp(self._loc + self._scale * _std_icdf(u), self._smin, self._smax)
 
-    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        u01 = torch.rand(self._loc.shape, generator=generator, device=self._loc.device, dtype=self._loc.dtype)
+    def draw(self, u01: torch.Tensor) -> torch.Tensor:
+        """The truncated distribution's value at a uniform u01 in [0, 1),
+        shaped as loc: u01 mapped into [cdf(smin), cdf(smax)], then `icdf`."""
         return self.icdf(self._alpha_cdf + u01 * self._Z)
+
+    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.draw(torch.rand(self._loc.shape, generator=generator, device=self._loc.device, dtype=self._loc.dtype))
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         z = (value - self._loc) / self._scale

@@ -135,30 +135,42 @@ class WaypointPolicy(nn.Module):
     # -- act -----------------------------------------------------------------
     @torch.no_grad()
     def act(self, observations, rnn_states, prev_actions, masks, deterministic: bool = False,
-            generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+            generator: Optional[torch.Generator] = None, uniforms: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """One step: the pano/STOP choice, then the distance and the offset at
-        that pano (modes, or draws from `generator` in that order). Returns
-        the JAX package's act dict: value, stop, r, theta, action_elements
-        {pano, offset, distance}, modes, variances, action_log_probs,
-        rnn_states, pano_stop_logits."""
+        that pano (modes, or draws from `generator` in that order). With
+        `uniforms` [3, B] in [0, 1), a sampled step draws nothing: the pano,
+        the distance and the offset are each distribution's inverse CDF at
+        rows 0, 1 and 2 (no host synchronisation, so the step can be captured
+        in a CUDA graph). Returns the JAX package's act dict: value, stop, r,
+        theta, action_elements {pano, offset, distance}, modes, variances,
+        action_log_probs, rnn_states, pano_stop_logits."""
         wc = self.wypt_cfg
         out = self(observations, rnn_states, prev_actions, masks)
 
+        def draw(dist, row):
+            if deterministic:
+                return dist.mode()
+            if uniforms is None:
+                return dist.sample(generator)
+            if isinstance(dist, TruncatedNormal):
+                return dist.draw(uniforms[row].reshape(-1, 1))
+            return dist.icdf(uniforms[row])
+
         pano_dist = Categorical(out["pano_stop_logits"])
-        pano_stop = pano_dist.mode() if deterministic else pano_dist.sample(generator)  # [B, 1]
+        pano_stop = draw(pano_dist, 0)  # [B, 1]
         stop = (pano_stop == self.num_panos).int()
         pano = pano_stop % self.num_panos
 
         d_dist = self._distance_distribution(out["distance_var1"], out["distance_var2"], pano)
         o_dist = self._offset_distribution(out["offset_var1"], out["offset_var2"], pano)
 
-        distance = (d_dist.mode() if deterministic else d_dist.sample(generator)).float()
+        distance = draw(d_dist, 1).float()
         distance_log_prob = d_dist.log_prob(distance)
         action_distance = distance_to_continuous(distance, wc)
         d_var = d_dist.variance if wc.continuous_distance else torch.zeros_like(action_distance)
         d_mode = d_dist.mode()
 
-        offset = (o_dist.mode() if deterministic else o_dist.sample(generator)).float()
+        offset = draw(o_dist, 2).float()
         offset_log_prob = o_dist.log_prob(offset)
         action_offset = offset_to_continuous(offset, wc, self.num_panos)
         o_var = o_dist.variance if wc.continuous_offset else torch.zeros_like(action_offset)

@@ -100,5 +100,9 @@ def masked_adam(lr: float, policy, model_config, eps: float = 1e-8,
             trainable.append(p)
     optimizer = torch.optim.Adam(trainable, lr=lr, eps=eps)
     if max_grad_norm is not None:
-        optimizer.register_step_pre_hook(lambda opt, args, kwargs: clip_by_global_norm_(trainable, max_grad_norm) and None)
+        def clip(opt, args, kwargs) -> None:
+            # the norm stays on the device: testing its truth would read it back
+            clip_by_global_norm_(trainable, max_grad_norm)
+
+        optimizer.register_step_pre_hook(clip)
     return optimizer

@@ -1,0 +1,504 @@
+"""On-device RL rollout collection: the grid world, the waypoint policy and
+the reward on the card, one CUDA graph replay per env step.
+
+Port of vlnce_tpu/rl/device_rollout.py. The host rollout of the
+ddppo-waypoint trainer crosses the host and the card at every env step
+(render and pickling in the simulator workers, one upload, the act step, the
+download of the actions). Here the whole collection loop (pano render, obs
+transforms, the policy's act, GO_TOWARD_POINT dynamics, the shaped reward,
+the auto-reset from a preloaded episode queue, the history frames) runs on
+the card for PPO.num_steps steps, and the PPO batch stays there for
+`WDDPPO.update_device` / `update_device_scan`:
+
+- **One env step is one replay of a CUDA graph** (`trainers/scan_eval.
+  StepGraph`): the carry (poses, recurrent state, previous actions, mask,
+  distance to the goal, the slots' episode indices, step counts, episode
+  rewards, history frames) and the step counter `g` live in fixed tensors;
+  each step writes row g of the [T, B, ...] output buffers by `index_copy_`.
+  The bootstrap value, the returns and the normalized advantages are a
+  second graph, replayed once after the T steps. On the CPU, or with
+  `eager` (comparisons only), the same steps run eagerly.
+- **Random draws.** A rollout draws its [T, 3, B] uniforms from the
+  trainer's generator in one launch outside the graph; step g's pano,
+  distance and offset are the inverse CDFs of the policy's distributions at
+  row g (`WaypointPolicy.act(uniforms=...)`). The JAX rollout folds the step
+  into a key, so sampled rollouts agree with it in distribution only; greedy
+  ones agree exactly.
+- **Episodes.** One round-robin stream of the train split per slot (the
+  analog of construct_envs' scene split and the workers' auto-reset). The
+  whole split (at most CUDA.EPISODE_BANK_MAX episodes) is uploaded once as a
+  bank; a rollout then uploads only its [B, Q] slot map (Q = T + 1, one done
+  per step at most) and gathers its queue from the bank on the card. Above
+  the cap each rollout uploads its queue.
+- **One read-back per rollout**: the episode stats, the slots' episode
+  indices and the running episode rewards, in one copy.
+
+Parity: the dynamics are device_sim.waypoint_step, the reward
+device_sim.waypoint_reward (both held against the host env), and done is
+STOP or the step cap, as in the JAX module. Gathers on the card never
+multiply a field by a one-hot mask, so the `inf` distances of cells that
+are navigable in another queued scene cannot poison the stats.
+
+Left out of the JAX module: the mesh (`mesh`, `_carry_structure` and the
+pjit branch; the card is one device, so there is no mesh and nothing is
+sharded), and the [B, F] flattening of the emitted observations, which
+exists only for the TPU's tile padding: the observations keep their
+natural shapes ([T, B, 12, 224, 224, 3] u8 and so on).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from vlnce_torch.envs.device_sim import (
+    camera_specs_from_config,
+    check_scene_geometry,
+    nearest_free_cell_map,
+    render_arrays,
+    upload,
+    waypoint_reward,
+    waypoint_step,
+)
+from vlnce_torch.envs.gridworld import _RES, get_scene
+from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch
+from vlnce_torch.tasks.datasets import make_dataset
+from vlnce_torch.tasks.geometry import heading_from_quaternion
+from vlnce_torch.tasks.sensors import MAX_INSTRUCTION_LEN
+from vlnce_torch.utils.logging import logger
+
+_ACTION_KEYS = ("pano", "offset", "distance")
+_STAT_KEYS = ("reward", "count", "success", "distance_to_goal")
+
+
+class EpisodeQueue(NamedTuple):
+    """Per-slot queues of upcoming episodes, stacked [B, Q, ...]. Slot b's
+    active episode is entry ep_idx[b]; auto-reset advances the index."""
+
+    occupancy: torch.Tensor  # [B, Q, N, N] bool
+    wall_colors: torch.Tensor  # [B, Q, N, N, 3] uint8
+    origin: torch.Tensor  # [B, Q, 2] f32 world (x, z) of cell [0, 0]'s corner
+    floor_color: torch.Tensor  # [B, Q, 3] uint8
+    ceil_color: torch.Tensor  # [B, Q, 3] uint8
+    goal_field: torch.Tensor  # [B, Q, N, N] f32
+    nearest: torch.Tensor  # [B, Q, N, N, 2] int32
+    d0: torch.Tensor  # [B, Q] f32
+    start_pos: torch.Tensor  # [B, Q, 3] f32
+    start_heading: torch.Tensor  # [B, Q] f32
+    instruction: torch.Tensor  # [B, Q, L] int32
+
+
+def _episode_entry(ep) -> Dict[str, np.ndarray]:
+    scene = get_scene(ep.scene_id)
+    field = None
+    for goal in ep.goals:
+        g = np.asarray(goal.position, np.float64)
+        f = scene.distance_field(scene.world_to_cell(float(g[0]), float(g[-1])))
+        field = f if field is None else np.minimum(field, f)
+    s = np.asarray(ep.start_position, np.float64)
+    si, sj = scene.world_to_cell(float(s[0]), float(s[-1]))
+    tokens = ep.instruction.instruction_tokens or []
+    instr = np.zeros((MAX_INSTRUCTION_LEN,), np.int32)
+    n = min(len(tokens), MAX_INSTRUCTION_LEN)
+    instr[:n] = np.asarray(tokens[:n], np.int32)
+    return {
+        "occupancy": scene.occupancy,
+        "wall_colors": scene.wall_colors,
+        "origin": np.asarray(scene.origin, np.float32),
+        "floor_color": scene.floor_color,
+        "ceil_color": scene.ceil_color,
+        "goal_field": field.astype(np.float32),
+        "nearest": nearest_free_cell_map(ep.scene_id),
+        "d0": np.float32(max(float(field[si, sj]), 1e-6)),
+        "start_pos": s.astype(np.float32),
+        "start_heading": np.float32(heading_from_quaternion(np.asarray(ep.start_rotation, np.float64))),
+        "instruction": instr,
+    }
+
+
+def build_episode_queue(episodes_by_slot: List[List], device) -> EpisodeQueue:
+    """The episodes of every slot, stacked [S, Q, ...] on `device` in one
+    upload. Every grid has the procedural scenes' size: the JAX module pads
+    imported scenes of mixed sizes, and the port refuses imported geometry
+    (check_scene_geometry)."""
+    entries_by_slot = [[_episode_entry(ep) for ep in slot] for slot in episodes_by_slot]
+    stacked = {f: np.stack([np.stack([e[f] for e in slot]) for slot in entries_by_slot]) for f in EpisodeQueue._fields}
+    return EpisodeQueue(**upload(stacked, device))
+
+
+def _select_axis1(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """arr [B, Q, ...]; idx [B] integer -> [B, ...] = arr[b, idx[b]], one
+    gather of rows of the flattened [B * Q, ...] array (exact for every
+    dtype; the JAX module's one-hot sum exists only because a dynamic gather
+    lowers to the TPU's scalar unit)."""
+    B, Q = arr.shape[:2]
+    rows = torch.arange(B, device=arr.device) * Q + idx.long()
+    return arr.reshape((B * Q,) + tuple(arr.shape[2:])).index_select(0, rows)
+
+
+def _gather_slot(queue: EpisodeQueue, ep_idx: torch.Tensor) -> EpisodeQueue:
+    """Each slot's active episode: [B, Q, ...] -> [B, ...]."""
+    return EpisodeQueue(*(_select_axis1(arr, ep_idx) for arr in queue))
+
+
+def compute_returns_device(rewards, values, masks_next, next_value, gamma: float, tau: float, use_gae: bool):
+    """GAE or discounted returns as a reverse loop over T on the device: the
+    counterpart of ActionDictRolloutStorage.compute_returns, in the JAX
+    scan's order of operations. rewards, values, masks_next [T, B, 1];
+    next_value [B, 1] -> returns [T, B, 1]."""
+    T = rewards.shape[0]
+    out = []
+    if use_gae:
+        gae = torch.zeros_like(next_value)
+        for t in reversed(range(T)):
+            v_next = values[t + 1] if t + 1 < T else next_value
+            delta = rewards[t] + gamma * v_next * masks_next[t] - values[t]
+            gae = delta + gamma * tau * masks_next[t] * gae
+            out.append(gae + values[t])
+    else:
+        ret = next_value
+        for t in reversed(range(T)):
+            ret = rewards[t] + gamma * ret * masks_next[t]
+            out.append(ret)
+    return torch.stack(out[::-1])
+
+
+class DeviceRolloutCollector:
+    """The rollout loop on the card for one env batch of B slots: the
+    captured step, its state and output buffers, and the per-slot episode
+    schedule. `collect_device` runs one rollout of T steps."""
+
+    def __init__(self, policy, obs_transforms, config, num_envs: int, eager: bool = False):
+        task_cfg = config.TASK_CONFIG
+        sim_type = task_cfg.SIMULATOR.TYPE
+        if sim_type != "GridWorldSim-v0":
+            raise ValueError(
+                f"CUDA.ON_DEVICE_ROLLOUT requires SIMULATOR.TYPE=GridWorldSim-v0 (got {sim_type!r}); "
+                f"host-bound simulators cannot step inside the loop on the card"
+            )
+        if config.ENV_NAME != "VLNCEWaypointEnv":
+            raise ValueError(
+                f"CUDA.ON_DEVICE_ROLLOUT implements VLNCEWaypointEnv reward/done semantics "
+                f"(got ENV_NAME={config.ENV_NAME!r})"
+            )
+        check_scene_geometry(task_cfg.SIMULATOR)
+
+        self.policy = policy
+        self.transforms = obs_transforms
+        self.device = policy.device
+        self.eager = eager
+        self.B = num_envs
+        self.T = int(config.RL.PPO.num_steps)
+        self.Q = self.T + 1  # worst case: one done per rollout step
+        self.max_ep_steps = int(task_cfg.ENVIRONMENT.MAX_EPISODE_STEPS)
+        self.specs = camera_specs_from_config(task_cfg.SIMULATOR)
+        self._rotate_agent = bool(task_cfg.TASK.ACTIONS.GO_TOWARD_POINT.rotate_agent)
+        self._allow_sliding = bool(task_cfg.SIMULATOR.HABITAT_SIM_V0.ALLOW_SLIDING)
+        max_move = float(config.MODEL.WAYPOINT.max_distance_prediction)
+        self._max_samples = max(2, int(math.ceil(max_move / (0.25 * _RES))) + 1)
+        rm = task_cfg.TASK.WAYPOINT_REWARD_MEASURE
+        self._reward_kwargs = dict(
+            slack_reward=float(rm.slack_reward),
+            use_distance_scaled_slack_reward=bool(rm.use_distance_scaled_slack_reward),
+            scale_slack_on_prediction=bool(rm.scale_slack_on_prediction),
+            success_reward=float(rm.success_reward),
+            distance_scalar=float(rm.distance_scalar),
+            success_distance=float(task_cfg.TASK.SUCCESS.SUCCESS_DISTANCE),
+        )
+        ppo = config.RL.PPO
+        self._gae_bits = (bool(ppo.use_gae), float(ppo.gamma), float(ppo.tau), bool(ppo.use_normalized_advantage))
+        num_panos = int(task_cfg.TASK.PANO_ROTATIONS)
+        orient = [2 * np.pi / num_panos * i for i in range(num_panos)]
+        self._angle_features = torch.from_numpy(
+            np.stack([np.array([np.sin(o), np.cos(o), 0.0, 1.0]) for o in orient]).astype(np.float32)
+        ).to(self.device)
+
+        # episode schedule: round-robin over the train split, one stream per
+        # slot (the analog of construct_envs' scene split + auto-reset)
+        eps = list(make_dataset(task_cfg.DATASET.TYPE, task_cfg.DATASET).episodes)
+        if not eps:
+            raise ValueError("no episodes in the train split")
+        self._slot_streams = [eps[i :: self.B] or eps for i in range(self.B)]
+        self._slot_ptr = [0] * self.B
+
+        # the episode bank on the card: a rollout's queue is then one [B, Q]
+        # index upload and a gather on the card, in place of restacking and
+        # uploading about Q x B episodes' grids every rollout
+        bank_cap = int(config.CUDA.EPISODE_BANK_MAX)
+        self._bank_episodes = eps if len(eps) <= bank_cap else None
+        if self._bank_episodes is None:
+            logger.info(f"on-device rollout: the split has {len(eps)} episodes > CUDA.EPISODE_BANK_MAX={bank_cap}; "
+                        "each rollout uploads its episode queue")
+        self._bank: Optional[EpisodeQueue] = None  # uploaded at the first collect
+        self._bank_pos = {id(ep): i for i, ep in enumerate(eps)} if self._bank_episodes else None
+
+        self._state: Optional[Dict[str, torch.Tensor]] = None  # the carry, set by initial_carry_and_obs
+        self._queue: Optional[EpisodeQueue] = None  # the graph's input queue [B, Q, ...]
+        self._step = self._bootstrap = None  # the graphs, built at the first collect
+        # what the collections did, for the caller's accounting
+        self.rollouts = self.readbacks = 0
+        self.capture_seconds = 0.0
+        self.capture_launches: Dict[str, Dict[str, int]] = {}
+
+    # -- episode scheduling ----------------------------------------------------
+    def _slot_episode(self, slot: int, offset: int):
+        stream = self._slot_streams[slot]
+        return stream[(self._slot_ptr[slot] + offset) % len(stream)]
+
+    def _rollout_inputs(self) -> Tuple[EpisodeQueue, np.ndarray]:
+        """(bank [E, ...], slot_map [B, Q]) such that bank[slot_map] is the
+        slots' episode queue. With the bank on the card only the index map
+        crosses to the card per rollout; above the cap the stacked queue
+        itself is uploaded (bank = the flattened queue, identity map)."""
+        if self._bank_episodes is not None:
+            if self._bank is None:
+                self._bank = EpisodeQueue(*(a[0] for a in build_episode_queue([self._bank_episodes], self.device)))
+            slot_map = np.asarray(
+                [[self._bank_pos[id(self._slot_episode(b, q))] for q in range(self.Q)] for b in range(self.B)], np.int64
+            )
+            return self._bank, slot_map
+        queue = build_episode_queue([[self._slot_episode(b, q) for q in range(self.Q)] for b in range(self.B)], self.device)
+        flat = EpisodeQueue(*(a.reshape((-1,) + tuple(a.shape[2:])) for a in queue))
+        return flat, np.arange(self.B * self.Q, dtype=np.int64).reshape(self.B, self.Q)
+
+    # -- one step ----------------------------------------------------------------
+    def _assemble_obs(self, scene: EpisodeQueue, pos, heading, hist_rgb, hist_depth) -> Dict[str, torch.Tensor]:
+        obs = render_arrays(scene.occupancy, scene.wall_colors, scene.floor_color, scene.ceil_color, pos, heading,
+                            self.specs, origin=scene.origin)
+        obs["instruction"] = scene.instruction
+        obs["angle_features"] = self._angle_features[None].expand((pos.shape[0],) + tuple(self._angle_features.shape))
+        obs["globalgps"] = pos[:, 0::2].to(torch.float32)
+        obs["heading"] = (torch.remainder(heading + math.pi, 2.0 * math.pi) - math.pi)[:, None].to(torch.float32)
+        batch = apply_obs_transforms_batch(obs, self.transforms)
+        batch["rgb_history"] = hist_rgb
+        batch["depth_history"] = hist_depth
+        return batch
+
+    def _compute(self) -> Dict:
+        """One env step from the carry; returns what `_commit` writes."""
+        s, B = self._state, self.B
+        queue = self._queue
+        scene = _gather_slot(queue, s["ep_idx"])
+        pos, heading = s["pos"], s["heading"]
+        batch = self._assemble_obs(scene, pos, heading, s["hist_rgb"], s["hist_depth"])
+        uniforms = self._uniforms.index_select(0, s["g"])[0]  # [3, B]
+        prev_a = {k: s[f"prev_{k}"] for k in _ACTION_KEYS}
+        out = self.policy.act(batch, s["rnn"], prev_a, s["mask"], deterministic=False, uniforms=uniforms)
+        stop = out["stop"].reshape(B).bool()
+        r = out["r"].reshape(B).to(torch.float32)
+        theta = out["theta"].reshape(B).to(torch.float32)
+
+        moved, moved_heading = waypoint_step(scene.occupancy, scene.nearest, pos, heading, r, theta, self._rotate_agent,
+                                             self._max_samples, self._allow_sliding, scene.origin)
+        new_pos = torch.where(stop[:, None], pos, moved)
+        new_heading = torch.where(stop, heading, moved_heading)
+        reward, d_new, success = waypoint_reward(scene.goal_field, s["prev_d"], pos[:, 0::2], new_pos, r, stop,
+                                                 origin=scene.origin, **self._reward_kwargs)
+
+        done = stop | (s["step_in_ep"] + 1 >= self.max_ep_steps)
+        ep_reward = s["ep_reward"] + reward[:, None]
+        done_f = done.to(torch.float32)[:, None]
+        stats = torch.stack([done_f * ep_reward, done_f, done_f * success[:, None], done_f * d_new[:, None]])
+
+        # auto-reset from the queue (the workers' auto-reset)
+        ep_idx = torch.where(done, torch.clamp(s["ep_idx"] + 1, max=self.Q - 1), s["ep_idx"])
+        nxt = _gather_slot(queue, ep_idx)
+        # the history frame: the pano frame the agent moved toward; zeros on
+        # STOP (reference ddppo_waypoint_trainer.py:190-200) and after a reset
+        pano = out["action_elements"]["pano"].reshape(B).long()
+        num_p = batch["rgb"].shape[1]
+        blank = (stop | done)[:, None, None, None]
+        hist_rgb = torch.where(blank, torch.zeros_like(s["hist_rgb"]), _select_axis1(batch["rgb"], pano % num_p))
+        hist_depth = torch.where(blank, torch.zeros_like(s["hist_depth"]), _select_axis1(batch["depth"], pano % num_p))
+        return {
+            "obs": batch, "out": out, "reward": reward[:, None], "mask_next": (~done).to(torch.float32)[:, None],
+            "stats": stats,
+            "carry": {
+                "pos": torch.where(done[:, None], nxt.start_pos, new_pos),
+                "heading": torch.where(done, nxt.start_heading, new_heading),
+                "rnn": out["rnn_states"],
+                **{f"prev_{k}": out["action_elements"][k].to(torch.float32) for k in _ACTION_KEYS},
+                "mask": (~done).to(torch.float32)[:, None],
+                "prev_d": torch.where(done, nxt.d0, d_new),
+                "ep_idx": ep_idx,
+                "step_in_ep": torch.where(done, torch.zeros_like(s["step_in_ep"]), s["step_in_ep"] + 1),
+                "ep_reward": torch.where(done[:, None], torch.zeros_like(ep_reward), ep_reward),
+                "hist_rgb": hist_rgb,
+                "hist_depth": hist_depth,
+            },
+        }
+
+    def _commit(self, res: Dict) -> None:
+        """Row g of the outputs (the step's INPUT observations, previous
+        actions and mask among them), then the carry, in place."""
+        s, buf, row = self._state, self._buffers, self._state["g"]
+        for k, v in res["obs"].items():
+            buf["obs"][k].index_copy_(0, row, v[None])
+        out = res["out"]
+        for k in _ACTION_KEYS:
+            buf["actions"][k].index_copy_(0, row, out["action_elements"][k].to(torch.float32)[None])
+            buf["prev_actions"][k].index_copy_(0, row, s[f"prev_{k}"][None])
+        buf["masks"].index_copy_(0, row, s["mask"][None])
+        buf["old_log_probs"].index_copy_(0, row, out["action_log_probs"].to(torch.float32)[None])
+        buf["value_preds"].index_copy_(0, row, out["value"].to(torch.float32)[None])
+        buf["rewards"].index_copy_(0, row, res["reward"][None])
+        buf["masks_next"].index_copy_(0, row, res["mask_next"][None])
+        self._stat_sums.add_(res["stats"])
+        for k, v in res["carry"].items():
+            s[k].copy_(v)
+        s["g"].add_(1)
+
+    def _compute_bootstrap(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The value of the carry's state (one more policy forward), the
+        returns and the advantages, normalized without Bessel's correction
+        as jnp.std and np.std do."""
+        s, buf = self._state, self._buffers
+        use_gae, gamma, tau, normalize = self._gae_bits
+        scene = _gather_slot(self._queue, s["ep_idx"])
+        obs = self._assemble_obs(scene, s["pos"], s["heading"], s["hist_rgb"], s["hist_depth"])
+        next_value = self.policy.get_value(obs, s["rnn"], {k: s[f"prev_{k}"] for k in _ACTION_KEYS}, s["mask"])
+        values = buf["value_preds"]
+        returns = compute_returns_device(buf["rewards"], values, buf["masks_next"], next_value.to(torch.float32),
+                                         gamma, tau, use_gae)
+        adv = returns - values
+        if normalize:
+            adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-5)
+        return returns, adv
+
+    def _commit_bootstrap(self, res) -> None:
+        self._buffers["returns"].copy_(res[0])
+        self._buffers["advantages"].copy_(res[1])
+
+    # -- buffers and graphs --------------------------------------------------------
+    def _build(self) -> None:
+        """The output buffers (shaped by one probe step on the loaded queue)
+        and both graphs."""
+        from vlnce_torch.trainers.scan_eval import StepGraph, _launch_counts
+
+        T, B, dev = self.T, self.B, self.device
+        before = _launch_counts()
+        with torch.no_grad():
+            probe = self._compute()
+
+        def rows(v: torch.Tensor) -> torch.Tensor:
+            return torch.zeros((T,) + tuple(v.shape), dtype=v.dtype, device=dev)
+
+        def col() -> torch.Tensor:
+            return torch.zeros(T, B, 1, device=dev)
+
+        self._buffers = {
+            "obs": {k: rows(v) for k, v in probe["obs"].items()},
+            "actions": {k: col() for k in _ACTION_KEYS},
+            "prev_actions": {k: col() for k in _ACTION_KEYS},
+            **{k: col() for k in ("masks", "old_log_probs", "value_preds", "rewards", "masks_next", "returns",
+                                  "advantages")},
+            "hidden0": torch.zeros_like(self._state["rnn"]),
+        }
+        del probe
+        self._step = StepGraph(self._compute, self._commit, dev, eager=self.eager)
+        self._bootstrap = StepGraph(self._compute_bootstrap, self._commit_bootstrap, dev, eager=self.eager)
+        self.capture_seconds = self._step.capture_seconds + self._bootstrap.capture_seconds
+        self.capture_launches = {"step": dict(self._step.capture_launches),
+                                 "bootstrap": dict(self._bootstrap.capture_launches)}
+        self.build_launches = {k: v - before[k] for k, v in _launch_counts().items()}
+
+    def _load_queue(self, bank: EpisodeQueue, slot_map: np.ndarray) -> None:
+        """The slots' queue into the graph's input tensors: the slot map's
+        upload and one gather from the bank per field, all on the card."""
+        idx = upload({"slot_map": slot_map}, self.device)["slot_map"].reshape(-1)
+        for dst, src in zip(self._queue, bank):
+            dst.copy_(src.index_select(0, idx).reshape(dst.shape))
+
+    # -- public API --------------------------------------------------------------
+    def initial_carry_and_obs(self) -> Dict[str, np.ndarray]:
+        """Set up the slots' state at their first episodes. Returns an empty
+        dict: nothing is rendered here, the first rollout emits the step-0
+        observations itself."""
+        firsts = [_episode_entry(self._slot_episode(b, 0)) for b in range(self.B)]
+        rgb_spec = next(s for s in self.specs if s.kind == "rgb")
+        depth_spec = next(s for s in self.specs if s.kind == "depth")
+        B, dev = self.B, self.device
+        init = upload({"pos": np.stack([e["start_pos"] for e in firsts]),
+                       "heading": np.stack([e["start_heading"] for e in firsts]),
+                       "prev_d": np.stack([e["d0"] for e in firsts])}, dev)
+        self._state = {
+            "pos": init["pos"].clone(),
+            "heading": init["heading"].clone(),
+            "rnn": self.policy.initial_rnn_states(B),
+            **{f"prev_{k}": torch.zeros(B, 1, device=dev) for k in _ACTION_KEYS},
+            "mask": torch.zeros(B, 1, device=dev),  # 0: the recurrence starts afresh
+            "prev_d": init["prev_d"].clone(),
+            "ep_idx": torch.zeros(B, dtype=torch.int64, device=dev),
+            "step_in_ep": torch.zeros(B, dtype=torch.int64, device=dev),
+            "ep_reward": torch.zeros(B, 1, device=dev),
+            "hist_rgb": torch.zeros(B, rgb_spec.height, rgb_spec.width, 3, dtype=torch.uint8, device=dev),
+            "hist_depth": torch.zeros(B, depth_spec.height, depth_spec.width, 1, device=dev),
+            "g": torch.zeros(1, dtype=torch.int64, device=dev),
+        }
+        return {}
+
+    def load_rollout(self) -> None:
+        """Everything a rollout needs before its steps, on the card: the
+        queue gathered from the bank by the slot map, the step counter, the
+        stats and the rollout's first recurrent state."""
+        if self._state is None:
+            raise RuntimeError("call initial_carry_and_obs() before collect_device()")
+        bank, slot_map = self._rollout_inputs()
+        if self._queue is None:
+            B, Q, dev = self.B, self.Q, self.device
+            self._queue = EpisodeQueue(*(torch.empty((B, Q) + tuple(a.shape[1:]), dtype=a.dtype, device=dev) for a in bank))
+            self._uniforms = torch.zeros(self.T, 3, B, device=dev)
+            self._stat_sums = torch.zeros(len(_STAT_KEYS), B, 1, device=dev)
+        self._load_queue(bank, slot_map)
+        self._state["g"].zero_()
+        if self._step is None:
+            self._build()
+        self._stat_sums.zero_()
+        self._buffers["hidden0"].copy_(self._state["rnn"])
+
+    def run_rollout(self, generator: Optional[torch.Generator] = None) -> None:
+        """The rollout's uniforms (one launch), its T steps and the bootstrap:
+        nothing here reads a value back."""
+        self._uniforms.uniform_(0.0, 1.0, generator=generator)
+        self._step.run(self.T)
+        self._bootstrap.run(1)
+
+    def collect_device(self, current_episode_reward, running_episode_stats, generator=None):
+        """One rollout of T steps on the card. Returns (the PPO batch, T x B):
+        the batch's tensors stay on the card (for WDDPPO.update_device) and
+        are the collector's buffers, valid until the next rollout. Only the
+        slots' episode stats, indices and rewards are read back, in one
+        copy."""
+        self.load_rollout()
+        self.run_rollout(generator)
+        B, s = self.B, self._state
+        packed = torch.cat([self._stat_sums.reshape(-1), s["ep_idx"].to(torch.float32), s["ep_reward"].reshape(-1)])
+        host = packed.cpu().numpy().copy()  # the one read-back (on the CPU, .cpu() is the tensor itself)
+        self.rollouts += 1
+        self.readbacks += 1
+        stats = host[: len(_STAT_KEYS) * B].reshape(len(_STAT_KEYS), B, 1)
+        ep_idx = host[len(_STAT_KEYS) * B : (len(_STAT_KEYS) + 1) * B].astype(np.int64)
+        ep_reward = host[(len(_STAT_KEYS) + 1) * B :].reshape(B, 1)
+
+        # each slot's stream advances by the episodes it finished; the one in
+        # flight becomes queue entry 0 of the next rollout
+        for b in range(B):
+            self._slot_ptr[b] = (self._slot_ptr[b] + int(ep_idx[b])) % len(self._slot_streams[b])
+        s["ep_idx"].zero_()
+
+        current_episode_reward[:] = ep_reward
+        for k, v in zip(_STAT_KEYS, stats):
+            if k not in running_episode_stats:
+                running_episode_stats[k] = np.zeros((B, 1), np.float32)
+            running_episode_stats[k] += v
+        buf = self._buffers
+        batch = {k: buf[k] for k in ("obs", "hidden0", "actions", "prev_actions", "value_preds", "returns", "masks",
+                                     "old_log_probs", "advantages", "rewards", "masks_next")}
+        return batch, self.T * B
+
+    @property
+    def replays(self) -> int:
+        return 0 if self._step is None else self._step.replays

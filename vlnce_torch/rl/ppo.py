@@ -13,9 +13,21 @@ clip `max_grad_norm`). Linear clip decay and linear LR decay follow
 `update_idx` and the count of optimizer steps, as the JAX package's optax
 schedule does.
 
-The JAX module's mesh, padding and device-batch paths (`_pad_sample`,
-`_globalize_sample`, `update_device`, `update_device_scan`) wait for the
-port's multi-process and device-resident slices.
+`update_device` and `update_device_scan` take the PPO batch that
+`rl/device_rollout.DeviceRolloutCollector` leaves on the card ([T, B, ...]
+tensors in their natural shapes): a minibatch is `index_select(1, idx)` of
+it (and of hidden0 on axis 0), fed to the same `loss`, masked Adam and LR
+decay. Both draw the same `rng.permutation` stream as `update` (one
+`_minibatch_plan`) and read the stats back once. They differ in how the host
+meets the card: `update_device` uploads each minibatch's env indices as it
+comes, a pageable copy that waits for the card to finish the minibatches
+before it, while `update_device_scan` uploads the [K, n] index matrix once
+and enqueues all K minibatch steps with no synchronisation between them
+(the JAX package runs them as one `lax.scan` program; capturing the step in
+a CUDA graph is not done here).
+
+The JAX module's mesh and padding (`_pad_sample`, `_globalize_sample`) wait
+for the port's multi-process slice: on one card every env slot is real.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import numpy as np
 import torch
 
 from vlnce_torch.envs.batch import to_device
+from vlnce_torch.envs.device_sim import upload
 from vlnce_torch.models.waypoint_predictors import offset_to_continuous
 from vlnce_torch.parallel.optim import masked_adam
 
@@ -139,6 +152,20 @@ class WDDPPO:
             for group in self.optimizer.param_groups:
                 group["lr"] = self.cfg.lr * (1.0 - frac)
 
+    def _step(self, sample, clip_param: float, T: int, mark: Callable[[str], None]) -> torch.Tensor:
+        """One optimizer step on a minibatch on the device; returns its stats
+        [6] on the device."""
+        self.optimizer.zero_grad(set_to_none=True)
+        total, stats = self.loss(sample, clip_param, T)
+        mark("forward")
+        total.backward()
+        mark("backward")
+        self._set_lr()
+        self.optimizer.step()
+        self.optimizer_steps += 1
+        mark("optimizer")
+        return torch.stack([stats[k].detach() for k in STAT_KEYS])
+
     # ------------------------------------------------------------------ update
     def update(self, rollouts, rng: np.random.RandomState, update_idx: int = 0,
                clock=None) -> Dict[str, float]:
@@ -156,16 +183,73 @@ class WDDPPO:
                     clock.start()
                 sample = self.upload(arrays)
                 mark("upload")
-                self.optimizer.zero_grad(set_to_none=True)
-                total, stats = self.loss(sample, clip_param, T)
-                mark("forward")
-                total.backward()
-                mark("backward")
-                self._set_lr()
-                self.optimizer.step()
-                self.optimizer_steps += 1
-                mark("optimizer")
-                all_stats.append(torch.stack([stats[k].detach() for k in STAT_KEYS]))
+                all_stats.append(self._step(sample, clip_param, T, mark))
         # one download of every minibatch's stats
-        means = torch.stack(all_stats).mean(dim=0).tolist()
-        return dict(zip(STAT_KEYS, means))
+        return _means(torch.stack(all_stats))
+
+    # --------------------------------------------------- update (device batch)
+    def _minibatch_plan(self, batch: Dict, rng: np.random.RandomState, update_idx: int):
+        """What update_device and update_device_scan share: the env count's
+        check, the [K, n] minibatch index matrix (ppo_epoch permutations of
+        the envs, each cut into num_mini_batch slices, from the same
+        `rng.permutation` stream as the host generator) and the clip range.
+        Returns (T, rows, clip_param)."""
+        T, N = batch["value_preds"].shape[:2]
+        if N < self.cfg.num_mini_batch:
+            raise ValueError(f"num_envs ({N}) must be >= RL.PPO.num_mini_batch ({self.cfg.num_mini_batch}), the "
+                             f"host recurrent generator's constraint")
+        envs_per_batch = N // self.cfg.num_mini_batch
+        rows = []
+        for _ in range(self.cfg.ppo_epoch):
+            perm = rng.permutation(N)
+            for start in range(0, envs_per_batch * self.cfg.num_mini_batch, envs_per_batch):
+                rows.append(perm[start : start + envs_per_batch])
+        return T, np.asarray(rows, np.int64), self.clip_param(update_idx)
+
+    def _gather_step(self, batch: Dict, idx: torch.Tensor, clip_param: float, T: int, clock=None) -> torch.Tensor:
+        """The minibatch of env columns `idx` gathered from the device batch,
+        then one optimizer step; with a `clock`, split into "gather",
+        "forward", "backward" and "optimizer"."""
+        mark: Callable[[str], None] = clock.mark if clock else _no_mark
+        if clock:
+            clock.start()
+
+        def take(v):
+            return v.index_select(1, idx)
+
+        sample = (
+            {k: take(v) for k, v in batch["obs"].items()}, batch["hidden0"].index_select(0, idx),
+            {k: take(v) for k, v in batch["actions"].items()}, {k: take(v) for k, v in batch["prev_actions"].items()},
+            *(take(batch[k]) for k in ("value_preds", "returns", "masks", "old_log_probs", "advantages")),
+        )
+        mark("gather")
+        return self._step(sample, clip_param, T, mark)
+
+    def update_device(self, batch: Dict, rng: np.random.RandomState, update_idx: int = 0,
+                      clock=None) -> Dict[str, float]:
+        """The PPO update over a batch on the card, one minibatch's indices
+        uploaded at a time; the stats read back once."""
+        T, rows, clip_param = self._minibatch_plan(batch, rng, update_idx)
+        device = batch["value_preds"].device
+        all_stats = [self._gather_step(batch, torch.from_numpy(row).to(device), clip_param, T, clock) for row in rows]
+        return _means(torch.stack(all_stats))
+
+    def minibatch_loop(self, batch: Dict, idx: torch.Tensor, clip_param: float, T: int, clock=None) -> torch.Tensor:
+        """The K minibatch steps of the index matrix idx [K, n] on the card,
+        enqueued without a read-back; returns their stats [K, 6] there."""
+        return torch.stack([self._gather_step(batch, idx[k], clip_param, T, clock) for k in range(idx.shape[0])])
+
+    def update_device_scan(self, batch: Dict, rng: np.random.RandomState, update_idx: int = 0,
+                           clock=None) -> Dict[str, float]:
+        """The PPO update over a batch on the card with the [K, n] index
+        matrix uploaded once and all K minibatch steps enqueued together; the
+        minibatches are update_device's, and so are the stats (one
+        read-back)."""
+        T, rows, clip_param = self._minibatch_plan(batch, rng, update_idx)
+        idx = upload({"idx": rows}, batch["value_preds"].device)["idx"]
+        return _means(self.minibatch_loop(batch, idx, clip_param, T, clock))
+
+
+def _means(stats: torch.Tensor) -> Dict[str, float]:
+    """[K, 6] stats on the device -> their means by name (one read-back)."""
+    return dict(zip(STAT_KEYS, stats.mean(dim=0).tolist()))

@@ -20,9 +20,15 @@ have forked, so the workers keep the default handlers, and restored when
 counter) is written to `RL.DDPPO.requeue_path` and restored on a restart
 with `RL.DDPPO.start_from_requeue`.
 
-The device-resident modes of the JAX package (`CUDA.ON_DEVICE_ROLLOUT`,
-`CUDA.PPO_UPDATE_SCAN`) and the data-parallel mesh wait for later slices:
-those keys raise NotImplementedError when set.
+With `CUDA.ON_DEVICE_ROLLOUT` no worker is forked: one probe env gives the
+spaces and closes, and `rl/device_rollout.DeviceRolloutCollector` runs each
+rollout on the card (the grid world, the act step, the reward and the
+auto-reset; one CUDA graph replay per env step, the bootstrap value and GAE
+in a second graph, one read-back of the episode stats). The PPO batch stays
+on the card for `WDDPPO.update_device`, or `update_device_scan` with
+`CUDA.PPO_UPDATE_SCAN` (which, as in the JAX package, takes effect only
+with the rollout on the card). The data-parallel mesh waits for the
+multi-process slice.
 """
 
 from __future__ import annotations
@@ -60,7 +66,6 @@ from vlnce_torch.utils.tensorboard import TensorboardWriter
 
 EXIT = {"flag": False}
 REQUEUE = {"flag": False}
-_RESIDENT_KEYS = ("ON_DEVICE_ROLLOUT", "PPO_UPDATE_SCAN")
 _ACTION_KEYS = ("pano", "offset", "distance")
 
 
@@ -97,13 +102,14 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
         # per update: {update, count_steps, stats...}; and the rollout's clocks
         self.update_history: List[Dict[str, float]] = []
         self.rollout_stats: Dict[str, float] = {}
+        self.collector = None  # the rollout on the card, with CUDA.ON_DEVICE_ROLLOUT
 
     # ----------------------------------------------------------------- spaces
-    def _set_observation_space(self, envs) -> None:
-        """Transformed obs space + per-frame history spaces
-        (reference:73-100)."""
+    def _set_observation_space(self, env_space) -> None:
+        """Transformed obs space + per-frame history spaces from one env's
+        observation space (reference:73-100)."""
         self.obs_transforms = get_active_obs_transforms(self.config)
-        observation_space = apply_obs_transforms_obs_space(envs.observation_spaces[0], self.obs_transforms)
+        observation_space = apply_obs_transforms_obs_space(env_space, self.obs_transforms)
         single_rgb, single_depth = observation_space["rgb"], observation_space["depth"]
         new = dict(observation_space.spaces)
         new["rgb_history"] = spaces.Box(0, 255, single_rgb.shape[1:], single_rgb.dtype)
@@ -169,16 +175,23 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
     # ------------------------------------------------------------------ train
     def train(self) -> None:
         config = self.config
-        for key in _RESIDENT_KEYS:
-            if bool(config.CUDA[key]):
-                raise _not_ported(f"CUDA.{key} (rl/device_rollout.py, the fused PPO update)", "'Device-resident loops'")
-
-        # the workers fork before the handlers are installed: they keep the
-        # default handlers, so close() can still end them
-        self.envs = construct_envs(config, get_env_class(config.ENV_NAME))
+        if bool(config.CUDA.ON_DEVICE_ROLLOUT):
+            # no env pool: the grid world steps on the card
+            # (rl/device_rollout.py); one probe env gives the spaces
+            probe = get_env_class(config.ENV_NAME)(config.clone())
+            try:
+                env_space = probe.observation_space
+            finally:
+                probe.close()
+            self.envs = None
+        else:
+            # the workers fork before the handlers are installed: they keep
+            # the default handlers, so close() can still end them
+            self.envs = construct_envs(config, get_env_class(config.ENV_NAME))
+            env_space = self.envs.observation_spaces[0]
         previous_handlers = add_signal_handlers()
         try:
-            self._train(config)
+            self._train(config, env_space)
         finally:
             for sig, handler in previous_handlers.items():
                 signal.signal(sig, handler)
@@ -187,34 +200,43 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
             # join any in-flight async checkpoint write before returning
             wait_for_pending()
 
-    def _train(self, config) -> None:
-        N = self.envs.num_envs
-        self._set_observation_space(self.envs)
+    def _train(self, config, env_space) -> None:
+        on_device = self.envs is None
+        N = int(config.NUM_ENVIRONMENTS) if on_device else self.envs.num_envs
+        self._set_observation_space(env_space)
         self._initialize_policy_rl(load_from_ckpt=False)
         self.step_clock = StepClock(self.policy.device) if self.time_train_steps else None
         ppo_cfg = config.RL.PPO
-        rollouts = ActionDictRolloutStorage(
-            ppo_cfg.num_steps, N, self.observation_space, config.MODEL.STATE_ENCODER.hidden_size,
-            num_recurrent_layers=self.policy.num_recurrent_layers,
-        )
-        observations = self.envs.reset()
-        obs_history = {
-            "rgb": np.zeros_like(rollouts.observations["rgb_history"][0]),
-            "depth": np.zeros_like(rollouts.observations["depth_history"][0]),
-        }
-        # two-group pipelined rollout collection: group A's simulators step
-        # while the card runs group B's act step; the device batch is carried
-        # per group, so no observation is uploaded twice
-        pipelined = bool(config.CUDA.PIPELINED_COLLECTION) and N >= 2
-        self._group_bounds = [(0, N // 2), (N // 2, N)] if pipelined else [(0, N)]
-        self._dev_batches = []
-        host_parts = []
-        for lo, hi in self._group_bounds:
-            dev_g, host_g = self._prepare_batch(observations[lo:hi], {k: v[lo:hi] for k, v in obs_history.items()})
-            self._dev_batches.append(dev_g)
-            host_parts.append(host_g)
-        for k in host_parts[0]:
-            rollouts.observations[k][0] = np.concatenate([p[k] for p in host_parts], axis=0)
+        rollouts = None
+        if on_device:
+            from vlnce_torch.rl.device_rollout import DeviceRolloutCollector
+
+            self.collector = DeviceRolloutCollector(self.policy, self.obs_transforms, config, N)
+            self.collector.initial_carry_and_obs()
+            update_device = self.agent.update_device_scan if bool(config.CUDA.PPO_UPDATE_SCAN) else self.agent.update_device
+        else:
+            rollouts = ActionDictRolloutStorage(
+                ppo_cfg.num_steps, N, self.observation_space, config.MODEL.STATE_ENCODER.hidden_size,
+                num_recurrent_layers=self.policy.num_recurrent_layers,
+            )
+            observations = self.envs.reset()
+            obs_history = {
+                "rgb": np.zeros_like(rollouts.observations["rgb_history"][0]),
+                "depth": np.zeros_like(rollouts.observations["depth_history"][0]),
+            }
+            # two-group pipelined rollout collection: group A's simulators
+            # step while the card runs group B's act step; the device batch
+            # is carried per group, so no observation is uploaded twice
+            pipelined = bool(config.CUDA.PIPELINED_COLLECTION) and N >= 2
+            self._group_bounds = [(0, N // 2), (N // 2, N)] if pipelined else [(0, N)]
+            self._dev_batches = []
+            host_parts = []
+            for lo, hi in self._group_bounds:
+                dev_g, host_g = self._prepare_batch(observations[lo:hi], {k: v[lo:hi] for k, v in obs_history.items()})
+                self._dev_batches.append(dev_g)
+                host_parts.append(host_g)
+            for k in host_parts[0]:
+                rollouts.observations[k][0] = np.concatenate([p[k] for p in host_parts], axis=0)
 
         current_episode_reward = np.zeros((N, 1), np.float32)
         running_episode_stats = {"count": np.zeros((N, 1), np.float32), "reward": np.zeros((N, 1), np.float32)}
@@ -234,7 +256,7 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
         rng_np = np.random.RandomState(config.TASK_CONFIG.SEED)
         t_start = time.time()
         timing = {"rollout_time": 0.0, "act_time": 0.0, "first_act_time": 0.0, "env_time": 0.0, "update_time": 0.0,
-                  "act_steps": 0, "env_steps": 0}
+                  "first_rollout_time": 0.0, "first_update_time": 0.0, "act_steps": 0, "env_steps": 0}
 
         os.makedirs(config.CHECKPOINT_FOLDER, exist_ok=True)
         update = start_update
@@ -243,10 +265,19 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
                 if EXIT["flag"]:
                     break
                 t0 = time.time()
-                for _step in range(ppo_cfg.num_steps):
-                    with annotate("rollout_step"):
-                        self._collect_rollout_step(rollouts, current_episode_reward, running_episode_stats, timing)
-                    count_steps += N
+                if on_device:
+                    with annotate("rollout"):
+                        device_batch, n_steps = self.collector.collect_device(
+                            current_episode_reward, running_episode_stats, self.generator)
+                    count_steps += n_steps
+                    timing["env_steps"] += n_steps
+                    if update == start_update:  # holds the kernels' build and the graphs' capture
+                        timing["first_rollout_time"] = time.time() - t0
+                else:
+                    for _step in range(ppo_cfg.num_steps):
+                        with annotate("rollout_step"):
+                            self._collect_rollout_step(rollouts, current_episode_reward, running_episode_stats, timing)
+                        count_steps += N
                 timing["rollout_time"] += time.time() - t0
 
                 # one cumulative snapshot per update; logging takes the delta
@@ -256,19 +287,15 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
 
                 t0 = time.time()
                 with annotate("ppo_update"):
-                    last_obs = {k: torch.cat([b[k] for b in self._dev_batches]) for k in self._dev_batches[0]}
-                    rest = to_device({
-                        "hidden": rollouts.recurrent_hidden_states[rollouts.step],
-                        "masks": rollouts.masks[rollouts.step],
-                        **{k: v[rollouts.step] for k, v in rollouts.prev_actions.items()},
-                    }, self.policy.device)
-                    next_value = self.policy.get_value(
-                        last_obs, rest["hidden"], {k: rest[k] for k in _ACTION_KEYS}, rest["masks"]
-                    )
-                    rollouts.compute_returns(next_value.cpu().numpy(), ppo_cfg.use_gae, ppo_cfg.gamma, ppo_cfg.tau)
-                    stats = self.agent.update(rollouts, rng_np, update_idx=update, clock=self.step_clock)
-                    rollouts.after_update()
+                    if on_device:
+                        # the bootstrap value and GAE ran in the rollout's
+                        # second graph; the minibatches gather on the card
+                        stats = update_device(device_batch, rng_np, update_idx=update, clock=self.step_clock)
+                    else:
+                        stats = self._update_from_storage(rollouts, rng_np, update)
                 timing["update_time"] += time.time() - t0
+                if update == start_update:  # holds the libraries' warm-up
+                    timing["first_update_time"] = time.time() - t0
                 self.update_history.append({"update": update, "count_steps": count_steps, **stats})
 
                 if update % config.RL.LOG_INTERVAL == 0:
@@ -292,6 +319,22 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
             if REQUEUE["flag"]:
                 self._save_interrupted_state(update, count_steps)
         self.rollout_stats = timing
+
+    def _update_from_storage(self, rollouts, rng_np, update: int) -> Dict[str, float]:
+        """The bootstrap value of the last observations, the returns on the
+        host, and `WDDPPO.update` over the rollout storage."""
+        ppo_cfg = self.config.RL.PPO
+        last_obs = {k: torch.cat([b[k] for b in self._dev_batches]) for k in self._dev_batches[0]}
+        rest = to_device({
+            "hidden": rollouts.recurrent_hidden_states[rollouts.step],
+            "masks": rollouts.masks[rollouts.step],
+            **{k: v[rollouts.step] for k, v in rollouts.prev_actions.items()},
+        }, self.policy.device)
+        next_value = self.policy.get_value(last_obs, rest["hidden"], {k: rest[k] for k in _ACTION_KEYS}, rest["masks"])
+        rollouts.compute_returns(next_value.cpu().numpy(), ppo_cfg.use_gae, ppo_cfg.gamma, ppo_cfg.tau)
+        stats = self.agent.update(rollouts, rng_np, update_idx=update, clock=self.step_clock)
+        rollouts.after_update()
+        return stats
 
     def _rl_state(self, update: int, count_steps: int) -> Dict:
         return dict(config=self.config, optim_state=self.optimizer.state_dict(),
@@ -409,7 +452,7 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
         envs = construct_envs_auto_reset_false(config, get_env_class(config.ENV_NAME))
         self.envs = envs
         N = envs.num_envs
-        self._set_observation_space(envs)
+        self._set_observation_space(envs.observation_spaces[0])
         self._initialize_policy_rl(load_from_ckpt=os.path.exists(checkpoint_path), ckpt_path=checkpoint_path)
         device = self.policy.device
 

@@ -12,9 +12,11 @@ then the IL accumulation step of `parallel/il_step.py`. Gradients accumulate
 over `effective_batch_size / IL.batch_size` batches before each masked Adam
 step. Every epoch writes `ckpt.{epoch}.ckpt` with its optimizer state.
 
-The device-resident recollection of the JAX package is not ported yet: its
-keys `CUDA.ON_DEVICE_RECOLLECT` and `CUDA.RECOLLECT_RESIDENT` raise
-NotImplementedError when set.
+With `CUDA.ON_DEVICE_RECOLLECT` the GT trajectories are rendered on the card
+(`trainers/device_recollect.py`, no env pool) and come back through the same
+collate and upload. With `CUDA.RECOLLECT_RESIDENT` as well, each batch is
+rendered on the card with its obs transforms (B2 inside the render step)
+and stays there: the accumulation step takes it as it is, time-major.
 """
 
 from __future__ import annotations
@@ -29,13 +31,11 @@ from vlnce_torch.data.prefetch import PrefetchIterator
 from vlnce_torch.data.recollection import TeacherRecollectionDataset
 from vlnce_torch.parallel.il_step import build_il_accum_step
 from vlnce_torch.registry import registry
-from vlnce_torch.trainers.base_trainer import BaseVLNCETrainer, _not_ported
+from vlnce_torch.trainers.base_trainer import BaseVLNCETrainer
 from vlnce_torch.utils.checkpoints import wait_for_pending
 from vlnce_torch.utils.logging import logger
 from vlnce_torch.utils.profiling import StepClock
 from vlnce_torch.utils.tensorboard import TensorboardWriter
-
-_RESIDENT_KEYS = ("ON_DEVICE_RECOLLECT", "RECOLLECT_RESIDENT")
 
 
 @registry.register_trainer(name="recollect_trainer")
@@ -52,11 +52,9 @@ class RecollectTrainer(BaseVLNCETrainer):
         # dataset's re-simulation counts of the run
         self.loss_history: List[Tuple[int, float, float, float]] = []
         self.resimulation: Dict[str, float] = {}
+        self._resident = False  # batches rendered on the card and kept there
 
     def train(self) -> None:
-        for key in _RESIDENT_KEYS:
-            if bool(self.config.CUDA[key]):
-                raise _not_ported(f"CUDA.{key} (device-resident recollection)", "'Device-resident loops'")
         config = self.config.defrost()
         config.TASK_CONFIG.ENVIRONMENT.ITERATOR_OPTIONS.MAX_SCENE_REPEAT_STEPS = -1
         config.IL.RECOLLECT_TRAINER.gt_path = config.IL.RECOLLECT_TRAINER.gt_file
@@ -64,6 +62,7 @@ class RecollectTrainer(BaseVLNCETrainer):
         self.config = config
 
         dataset = TeacherRecollectionDataset(config)
+        self._resident = dataset.resident
         self.obs_transforms = dataset.obs_transforms
         self._initialize_policy(
             config,
@@ -117,4 +116,5 @@ class RecollectTrainer(BaseVLNCETrainer):
             clock = self.step_clock
             accum_step = build_il_accum_step(self.policy, self.optimizer, apply, **({"mark": clock.mark} if clock else {}))
             self._steps[apply] = lambda *batch: accum_step(float(accumulation), *batch)
-        return self._il_update(self._steps[apply], observations, prev_actions, masks, corrected, weights)
+        return self._il_update(self._steps[apply], observations, prev_actions, masks, corrected, weights,
+                               resident=self._resident)

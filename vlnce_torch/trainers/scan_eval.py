@@ -174,7 +174,9 @@ class StepGraph:
         main.wait_stream(side)
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # thread_local: another thread may launch work meanwhile (recollection
+        # captures its render step on the trainer's prefetch thread)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.commit(self.compute())
         self.capture_launches = {k: v - before[k] for k, v in _launch_counts().items()}
         self.graph = graph
@@ -201,9 +203,13 @@ def policy_cache(policy) -> Dict[tuple, object]:
 
 
 def cached(policy, key: tuple, build: Callable):
-    cache = policy_cache(policy)
+    return cached_in(policy_cache(policy), key, build, _CACHE_MAX)
+
+
+def cached_in(cache: Dict, key: tuple, build: Callable, limit: int):
+    """cache[key], built on a miss; a FIFO of at most `limit` entries."""
     if key not in cache:
-        while len(cache) >= _CACHE_MAX:
+        while len(cache) >= limit:
             cache.pop(next(iter(cache)))
         cache[key] = build()
     return cache[key]
