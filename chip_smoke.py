@@ -2,7 +2,9 @@
 """Card check of the PyTorch port: builds its CUDA kernels, holds each against
 its plain PyTorch version, and drives the RxR CMA act step, eval and inference
 (over host simulators and in the closed loop on the card), the R2R CMA DAgger
-training (with host and on-device collection), the RxR CMA and Seq2Seq
+training (with host and on-device collection, the latter also with the
+trajectory bank on the card), the feature-bank route of the scan eval, the
+RxR CMA and Seq2Seq
 recollect training (re-simulated on the host, and rendered on the card), and
 the DD-PPO training of the waypoint policy (with host and on-device rollouts)
 at full width.
@@ -49,7 +51,7 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    does (the recurrence: one product, given the gates);
 7. training: `run_exp(cma_pm_da_aug_tune.yaml, "train")` at full width in
    bf16 over 8 forked workers (synthetic scenes, 224x224 / 256x256 frames):
-   2 DAgger iterations (beta 1.0, then 0.5) of 16 episodes and 2 epochs at
+   2 DAgger iterations (beta 1.0, then 0.5) of 8 episodes and 2 epochs at
    batch size 5, then `run_exp(..., "eval")` of the last checkpoint; B1 must
    be launched exactly twice forward per collection step and twice forward
    and twice backward (on the cluster route, each with one weight-gradient
@@ -116,16 +118,16 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    gap exceeds it; the card's renderer at 480x640 against the host
    GridWorldSim at 8 seeded poses (depth atol 1e-3, RGB off by more than 1
    on under 2% of the pixels);
-17. `phase_device_dagger` (after phase 7): phase 7's training with
-   CUDA.ON_DEVICE_DAGGER (the collection on the card: renderer, act, the
+17. `phase_device_dagger` (after phase 7): phase 7's training, with rounds
+   of 16 episodes, with CUDA.ON_DEVICE_DAGGER (the collection on the card: renderer, act, the
    device expert, the beta mix, the step, one graph replay per step): B1
    captured twice per collect step, frozen weights bit-equal, the store's
    32 episodes with round 0's actions the expert's, the action loss
    falling; then the scan eval of the last checkpoint;
-18. `phase_device_recollect` (after phase 9): phase 9's training with
-   CUDA.ON_DEVICE_RECOLLECT (the GT trajectories rendered on the card, one
-   graph replay per step, one read-back per chunk), then with
-   CUDA.RECOLLECT_RESIDENT as well (B2 captured twice per render step, the
+18. `phase_device_recollect` (after phase 9): phase 9's training, cut to
+   its first epoch, with CUDA.ON_DEVICE_RECOLLECT (the GT trajectories
+   rendered on the card, one graph replay per step, one read-back per
+   chunk), then with CUDA.RECOLLECT_RESIDENT as well (B2 captured twice per render step, the
    batch kept on the card); one chunk's frames against the host simulator
    stepped along the same actions, and the render's env-steps/s beside
    phase 9's re-simulation;
@@ -140,7 +142,22 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    kernel against the eager one with its plain version (f32, N=4, T=8, the
    same uniforms): values and log-probs at phase 4's tolerance, positions
    and rewards within 1e-5 while the actions agree;
-21. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+21. `phase_device_dagger_resident` (after phase 17): phase 17's training
+   with CUDA.DAGGER_RESIDENT (the collected rows kept on the card in the
+   trajectory bank, the train batches gathered there: no upload, no store),
+   in three runs: per batch, with RESIDENT_EPOCH_SCAN (each run of an
+   epoch's batches enqueued under set_sync_debug_mode("error"), one
+   read-back per run), and with DAGGER_ARCHIVE_STORE (the store must hold
+   the bank's rows); per train step 2 + 2 + 2 launches of B1 on the cluster
+   route; the losses against phase 17's and each other's within
+   RESIDENT_LOSS_RTOL; the bank's size, the collection's rate beside phase
+   17's, the train step's split, the enqueued epoch's ms per batch;
+22. `phase_feature_bank`: the port's encode_scene_bank writes the banks of
+   two synthetic scenes at full width (2 m lattice, 24 headings), then the
+   R2R CMA scan eval with CUDA.FEATURE_BANK_DIR (the lookup in place of the
+   renderer inside the graph, B1 twice per step), its actions against the
+   same rollouts run eagerly, its rate beside the rendered scan eval's;
+23. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -958,6 +975,7 @@ def phase_env_step_parts(trainer, dev, steps: int = 6):
 
 R2R_EXP = "vlnce_torch/config/experiments/r2r_baselines/cma_pm_da_aug_tune.yaml"
 TRAIN_EPISODES, TRAIN_EPOCHS, TRAIN_ITERATIONS = 16, 2, 2
+HOST_TRAIN_EPISODES = 8  # phase_training's rounds (the forked pool's collection is the script's slowest loop)
 
 
 def build_train_step(dev, dtype: str, T: int = TRAIN_T, N: int = TRAIN_B, seed: int = 5, mark=None):
@@ -1102,7 +1120,7 @@ def phase_training(dev):
             "CHECKPOINT_FOLDER", ckpts,
         ]
         train_opts = common + [
-            "IL.load_from_ckpt", False, "IL.DAGGER.iterations", TRAIN_ITERATIONS, "IL.DAGGER.update_size", TRAIN_EPISODES,
+            "IL.load_from_ckpt", False, "IL.DAGGER.iterations", TRAIN_ITERATIONS, "IL.DAGGER.update_size", HOST_TRAIN_EPISODES,
             "IL.epochs", TRAIN_EPOCHS, "IL.batch_size", TRAIN_B, "CUDA.PIPELINED_COLLECTION", True,
             "IL.DAGGER.lmdb_features_dir", os.path.join(tmp, "trajectories"),
         ]
@@ -1135,7 +1153,7 @@ def phase_training(dev):
         assert launches == {"gru_sequence": 2 * collect_steps + 2 * train_steps, "gru_sequence_backward": 2 * train_steps,
                             "gru_weight_gradient": 2 * train_steps, "fused_resize_normalize": 0}, launches
         assert _cluster_launches() == 2 * train_steps, "B1's backward did not take the cluster route in training"
-        assert [r["beta"] for r in rounds] == [1.0, 0.5] and all(r["episodes"] >= TRAIN_EPISODES for r in rounds), rounds
+        assert [r["beta"] for r in rounds] == [1.0, 0.5] and all(r["episodes"] >= HOST_TRAIN_EPISODES for r in rounds), rounds
         for r in rounds:
             print(f"collection round {r['data_it']} (beta {r['beta']}): {r['episodes']} episodes, {r['env_steps']} env steps in "
                   f"{r['collect_steps']} collect steps of two groups of {N_ENVS // 2}; {r['env_steps'] / r['total_time']:.1f} env-steps/s "
@@ -1511,7 +1529,291 @@ def phase_device_dagger(dev, host_rounds):
         assert sorted(stats) == sorted(RXR_MEASURES) and all(math.isfinite(v) for v in stats.values()), stats
         print(f"scan eval of {os.path.basename(last)}: {len(evaluator._last_eval_episode_stats)} episodes, {t['env_steps']} env steps "
               f"in {t['segments']} segments, stats {json.dumps({k: round(v, 4) for k, v in stats.items()})}")
-    return launches, eval_launches
+    return launches, eval_launches, {"rounds": rounds, "history": history}
+
+
+# ---------------------------------------------------------------------------
+# the trajectory bank on the card (CUDA.DAGGER_RESIDENT, RESIDENT_EPOCH_SCAN,
+# DAGGER_ARCHIVE_STORE) and the feature-bank route of the loops on the card
+# ---------------------------------------------------------------------------
+
+# the losses of the resident runs against the store-wired run: the same
+# batches (the bank's rows are the store's, f16 features read back as f32 in
+# both) through the same train step, so they differ only where a reduction
+# order changes between two runs of the card's kernels (on an H100: bit-equal
+# in the first round, under 2e-7 relative after it); the bound is far below
+# what a wrong row, weight or mask moves (the action loss changes by about
+# 1e-2 between the batches of one epoch)
+RESIDENT_LOSS_RTOL = 1e-4
+
+
+def _resident_opts(tmp):
+    return [
+        "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_SCENES", N_ENVS,
+        "TASK_CONFIG.DATASET.NUM_EPISODES", 64, "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40,
+        "NUM_ENVIRONMENTS", N_ENVS, "TENSORBOARD_DIR", "", "VERBOSE", False, "LOG_FILE", os.path.join(tmp, "run.log"),
+        "CUDA.ON_DEVICE_DAGGER", True, "CUDA.DAGGER_RESIDENT", True, "IL.load_from_ckpt", False,
+        "IL.DAGGER.iterations", TRAIN_ITERATIONS, "IL.DAGGER.update_size", TRAIN_EPISODES, "IL.epochs", TRAIN_EPOCHS,
+        "IL.batch_size", TRAIN_B,
+    ]
+
+
+def phase_device_dagger_resident(dev, wired):
+    """`run_exp(cma_pm_da_aug_tune.yaml, "train")` at phase_device_dagger's
+    sizes and seed with CUDA.DAGGER_RESIDENT: the collected rows stay on the
+    card in the trajectory bank, the train batches are gathered there (no
+    upload, no store). Three runs: (a) per batch; (b) with
+    RESIDENT_EPOCH_SCAN, each run of an epoch's batches enqueued under
+    set_sync_debug_mode("error") and read back once; (c) with
+    DAGGER_ARCHIVE_STORE, whose store must hold the bank's rows. (a)'s losses
+    against phase_device_dagger's (the same episodes, draws and batches) and
+    (b)'s against (a)'s within RESIDENT_LOSS_RTOL."""
+    from vlnce_torch.data.device_bank import DeviceTrajectoryBank
+    from vlnce_torch.data.trajectory_store import TrajectoryStoreReader
+    from vlnce_torch.run import run_exp
+    from vlnce_torch.trainers.dagger_trainer import DaggerTrainer
+
+    out, results = {}, {}
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        for name, extra in (("device_dagger_resident", []),
+                            ("device_dagger_resident_scan", ["CUDA.RESIDENT_EPOCH_SCAN", True]),
+                            ("device_dagger_resident_archive", ["CUDA.DAGGER_ARCHIVE_STORE", True])):
+            scan = name.endswith("_scan")
+            store = os.path.join(tmp, name, "trajectories")
+            opts = _resident_opts(tmp) + extra + ["CHECKPOINT_FOLDER", os.path.join(tmp, name, "checkpoints"),
+                                                  "IL.DAGGER.lmdb_features_dir", store]
+            epochs, runs, per_batch = [], [], []
+            real_epoch, real_enqueue, real_update = (DaggerTrainer._run_fused_epoch, DeviceTrajectoryBank.enqueue_steps,
+                                                     DaggerTrainer._update_agent)
+
+            def counted_enqueue(self, step, idx, *args):
+                runs.append(idx.shape[0])  # one run of K steps, one read-back
+                return real_enqueue(self, step, idx, *args)
+
+            def timed_epoch(self, riter):
+                t0 = time.perf_counter()
+                triples = real_epoch(self, riter)  # ends in the last run's read-back
+                epochs.append((time.perf_counter() - t0, len(triples)))
+                return triples
+
+            def timed_update(self, *args, **kwargs):
+                t0 = time.perf_counter()
+                triple = real_update(self, *args, **kwargs)  # ends in the step's read-back
+                per_batch.append(time.perf_counter() - t0)
+                return triple
+
+            DaggerTrainer._run_fused_epoch, DaggerTrainer._update_agent = timed_epoch, timed_update
+            DeviceTrajectoryBank.enqueue_steps = counted_enqueue
+            DaggerTrainer.time_train_steps = not scan
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            try:
+                with sync_checked(*([(DeviceTrajectoryBank, "enqueue_steps")] if scan else [])):
+                    trainer = run_exp(R2R_EXP, "train", opts)
+            finally:
+                DaggerTrainer._run_fused_epoch, DaggerTrainer._update_agent = real_epoch, real_update
+                DeviceTrajectoryBank.enqueue_steps = real_enqueue
+                DaggerTrainer.time_train_steps = False
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_launches()
+            rounds, history, bank = trainer.collection_stats, trainer.loss_history, trainer._bank
+            steps = len(history)
+            assert steps > 0 and all(r["graph"] and r["chunk_readbacks"] == 0 for r in rounds), rounds
+            assert launches == {"gru_sequence": 3 * 2 + 2 * steps, "gru_sequence_backward": 2 * steps,
+                                "gru_weight_gradient": 2 * steps, "fused_resize_normalize": 0}, (name, launches)
+            assert _cluster_launches() == 2 * steps, "B1's backward did not take the cluster route"
+            assert len(bank) == TRAIN_ITERATIONS * TRAIN_EPISODES and bank.device.type == "cuda"
+            losses = np.array([h[2:] for h in history])
+            assert np.isfinite(losses).all(), "non-finite training loss"
+            print(f"{name}: run_exp {wall:.1f} s; launches {json.dumps(launches)} (the collection graph's probe, "
+                  f"warm-up and capture, then 2 + 2 + 2 per train step over {steps} train steps, the backward on the "
+                  f"cluster route); bank of {len(bank)} episodes, {bank.num_steps} steps, {bank.nbytes() / 2**20:.1f} MiB "
+                  f"on the card ({bank.nbytes() / bank.num_steps / 1e6:.4f} MB a step: "
+                  + ", ".join(f"{k} {tuple(v)} {bank.data[k].dtype}" for k, v in bank.feat_shapes.items())
+                  + f"); peak card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            for r, w in zip(rounds, wired["rounds"]):
+                print(f"{name} collection round {r['data_it']} (beta {r['beta']}): {r['episodes']} episodes, "
+                      f"{r['env_steps']} env steps, {r['segments']} segments, {r['readbacks']} read-backs of the done "
+                      f"flags, {r['chunk_readbacks']} of rows; {r['env_steps'] / r['seconds']:.1f} env-steps/s "
+                      f"({r['seconds']:.3f} s), {r['env_steps'] / r['total_time']:.1f} with the bank's assembly "
+                      f"({r['total_time']:.3f} s); store-wired (phase_device_dagger, this run) "
+                      f"{w['env_steps'] / w['seconds']:.1f} and {w['env_steps'] / w['total_time']:.1f} with the store's writes")
+            results[name] = (trainer, losses)
+            if scan:
+                per_epoch = [1e3 * s / n for s, n in epochs]
+                n_epochs = TRAIN_ITERATIONS * TRAIN_EPOCHS
+                assert len(epochs) == n_epochs and sum(n for _, n in epochs) == steps
+                print(f"{name}: the enqueued epochs {', '.join(f'{ms:.2f}' for ms in per_epoch)} ms per batch "
+                      f"(batches {[n for _, n in epochs]}); {len(runs)} read-backs in {n_epochs} epochs (runs of K = {runs}), "
+                      f"under set_sync_debug_mode('error')")
+            else:
+                clock = trainer.step_clock.totals()
+                first = dict(trainer.step_clock.first)
+                warm = {k: (clock[k] - first[k]) / (steps - 1) for k in clock}
+                order = ("upload", "forward", "backward", "optimizer")
+                print(f"{name}: train step by CUDA events, mean of the {steps - 1} steps after the first: "
+                      f"{sum(warm.values()):.2f} ms = " + ", ".join(f"{k} {warm[k]:.2f}" for k in order)
+                      + f" ms; per batch on the host clock (the gather, the step, its read-back) "
+                      f"{1e3 * np.mean(per_batch[1:]):.2f} ms after the first, {steps} read-backs in "
+                      f"{TRAIN_ITERATIONS * TRAIN_EPOCHS} epochs; T values {json.dumps(trainer.train_lengths, sort_keys=True)}")
+            if name.endswith("_archive"):
+                reader = TrajectoryStoreReader(store)
+                assert len(reader) == len(bank)
+                data = {k: v.float().cpu().numpy() for k, v in bank.data.items()}
+                prev, oracle = bank.prev.cpu().numpy(), bank.oracle.cpu().numpy()
+                for e in range(len(bank)):
+                    obs, p, o = reader.get(e)
+                    lo, T = int(bank.offsets[e]), int(bank.lengths[e])
+                    assert np.array_equal(p, prev[lo : lo + T]) and np.array_equal(o, oracle[lo : lo + T]), e
+                    for k, shape in bank.feat_shapes.items():
+                        assert np.array_equal(obs[k].astype(np.float32), data[k][lo : lo + T].reshape((T,) + shape)), (e, k)
+                reader.close()
+                print(f"{name}: the store holds the bank's {len(bank)} episodes row for row")
+            out[name] = launches
+
+        # the same bank and weights, one epoch at a time, in turns: per batch (each step read back, as
+        # _il_update does) and enqueued (one read-back per run)
+        from vlnce_torch.data.device_bank import ResidentBatchIterator, run_fused_epoch
+        from vlnce_torch.parallel.il_step import build_il_train_step
+
+        trainer = results["device_dagger_resident"][0]
+        step = build_il_train_step(trainer.policy, trainer.optimizer)
+        turns = {"per_batch": [], "enqueued": []}
+        for turn in ("per_batch", "enqueued", "enqueued", "per_batch") * 2:
+            riter = ResidentBatchIterator(trainer._bank, batch_size=TRAIN_B, seed=7, time_major=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if turn == "per_batch":
+                n = len([torch.stack(step(*batch)).tolist() for batch in riter])
+            else:
+                n = len(run_fused_epoch(riter, step))
+            turns[turn].append(1e3 * (time.perf_counter() - t0) / n)
+        print(f"device_dagger_resident: one epoch of {n} batches (T {sorted({trainer._bank.batch_T(b) for b in ResidentBatchIterator(trainer._bank, TRAIN_B, seed=7)._epoch_batches()})}) "
+              f"in turns on the same bank: per batch with a read-back each "
+              + ", ".join(f"{ms:.2f}" for ms in turns["per_batch"]) + " ms per batch; enqueued "
+              + ", ".join(f"{ms:.2f}" for ms in turns["enqueued"]) + f" ms per batch; medians {np.median(turns['per_batch']):.2f} "
+              f"and {np.median(turns['enqueued']):.2f}")
+
+        wired_losses = np.array([h[2:] for h in wired["history"]])
+        for name, ref_name, ref in (("device_dagger_resident", "phase_device_dagger", wired_losses),
+                                    ("device_dagger_resident_scan", "device_dagger_resident", results["device_dagger_resident"][1]),
+                                    ("device_dagger_resident_archive", "device_dagger_resident", results["device_dagger_resident"][1])):
+            losses = results[name][1]
+            assert losses.shape == ref.shape, (name, losses.shape, ref.shape)
+            rel = np.abs(losses - ref) / np.maximum(np.abs(ref), 1e-6)
+            round0 = np.array([h[0] == 0 for h in results[name][0].loss_history])
+            print(f"{name} losses against {ref_name}'s: {losses.shape[0]} batches, largest relative difference "
+                  f"{rel.max():.3e} (round 0: {rel[round0].max():.3e}); bound {RESIDENT_LOSS_RTOL}")
+            assert rel.max() <= RESIDENT_LOSS_RTOL, (name, rel.max())
+    return out
+
+
+BANK_SCENES = 2  # scenes of the feature-bank phase's episodes, one bank each
+BANK_SPACING, BANK_HEADINGS = 2.0, 24  # lattice meters (poses at most 1.41 m from a node); one bin per 15-degree turn
+
+
+def phase_feature_bank(dev):
+    """The feature-bank route at full width: the port's encode_scene_bank
+    writes the banks of the synthetic scenes (the frozen ResNet50s of the
+    seeded R2R CMA policy at every lattice node and heading bin), then
+    `run_exp(cma_pm_da_aug_tune.yaml, "eval")` with EVAL.ON_DEVICE_SCAN and
+    CUDA.FEATURE_BANK_DIR (one graph replay per step, the lookup in place of
+    the renderer, B1 twice per step), held against the same rollouts run
+    eagerly, beside the rendered scan eval of the same episodes."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.data.feature_bank import encode_scene_bank, lattice_nodes, save_scene_bank
+    from vlnce_torch.envs.device_sim import camera_specs_from_config
+    from vlnce_torch.envs.gridworld import get_scene
+    from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
+    from vlnce_torch.models.cma_policy import CMAPolicy
+    from vlnce_torch.run import run_exp
+    from vlnce_torch.tasks.datasets import make_dataset
+    from vlnce_torch.trainers import scan_eval
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        bank_dir = os.path.join(tmp, "banks")
+        os.makedirs(bank_dir)
+        common = [
+            "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_SCENES", BANK_SCENES,
+            "TASK_CONFIG.DATASET.NUM_EPISODES", 64, "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40,
+            "TENSORBOARD_DIR", "", "VERBOSE", False, "LOG_FILE", os.path.join(tmp, "run.log"),
+            "EVAL.ON_DEVICE_SCAN", True, "EVAL.SCAN_BATCH", N_ENVS, "EVAL.EPISODE_COUNT", N_ENVS,
+            "EVAL.SAMPLE", False, "EVAL.USE_CKPT_CONFIG", False, "EVAL_CKPT_PATH_DIR", os.path.join(tmp, "none.pth"),
+        ]
+        cfg = get_config(R2R_EXP, common)
+        eval_cfg = cfg.clone()
+        eval_cfg.defrost()
+        eval_cfg.TASK_CONFIG.DATASET.SPLIT = cfg.EVAL.SPLIT
+        eval_cfg.freeze()
+        episodes = list(make_dataset(eval_cfg.TASK_CONFIG.DATASET.TYPE, eval_cfg.TASK_CONFIG.DATASET).episodes)[:N_ENVS]
+        # the seeded weights the eval starts from (no checkpoint): the same config gives the same draw
+        policy = CMAPolicy.from_config(cfg, observation_space_from_config(cfg.TASK_CONFIG), action_space_from_config(cfg.TASK_CONFIG))
+        specs = camera_specs_from_config(cfg.TASK_CONFIG.SIMULATOR)
+        headings = (2.0 * np.pi / BANK_HEADINGS) * np.arange(BANK_HEADINGS, dtype=np.float32)
+        _reset_launches()
+        poses = chunks = 0
+        encode_s = save_s = 0.0
+        for scene_id in sorted({ep.scene_id for ep in episodes}):
+            scene = get_scene(scene_id)
+            nodes = lattice_nodes(scene, BANK_SPACING)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rgb, depth, rgb_shape, depth_shape = encode_scene_bank(policy, [], specs, scene, nodes, headings, chunk=256)
+            t1 = time.perf_counter()  # the features are on the host: the card is done
+            assert np.isfinite(rgb).all() and np.isfinite(depth).all()
+            save_scene_bank(os.path.join(bank_dir, f"{os.path.splitext(os.path.basename(scene_id))[0]}.npz"), nodes, rgb,
+                            depth, rgb_shape, depth_shape)
+            encode_s, save_s = encode_s + t1 - t0, save_s + time.perf_counter() - t1
+            poses += rgb.shape[0] * rgb.shape[1]
+            chunks += -(-rgb.shape[0] * rgb.shape[1] // 256)
+        out["feature_bank_encode"] = _read_launches()
+        assert out["feature_bank_encode"] == {"gru_sequence": 2 * chunks, "gru_sequence_backward": 0, "gru_weight_gradient": 0,
+                                              "fused_resize_normalize": 0}, out["feature_bank_encode"]
+        print(f"feature bank: {len(os.listdir(bank_dir))} scene banks, {poses} poses ({BANK_SPACING} m lattice, "
+              f"{BANK_HEADINGS} headings) encoded in {encode_s:.2f} s ({poses / encode_s:.1f} poses/s: the renderer and "
+              f"the frozen ResNet50s at 224x224 and 256x256 in bf16, {chunks} chunks of at most 256, the features' "
+              f"read-back), saved in {save_s:.2f} s; features {rgb_shape} and {depth_shape}, "
+              f"{sum(os.path.getsize(os.path.join(bank_dir, f)) for f in os.listdir(bank_dir)) / 2**20:.1f} MiB of npz")
+        del policy
+
+        rates, recorded = {}, []
+        real_rollouts = scan_eval.run_scan_rollouts
+
+        def recording(policy, transforms, config, episodes, *args, **kwargs):
+            actions = real_rollouts(policy, transforms, config, episodes, *args, **kwargs)
+            recorded.append(((policy, transforms, config, episodes), actions))
+            return actions
+
+        for name, extra in (("rendered", []), ("feature_bank_scan_eval", ["CUDA.FEATURE_BANK_DIR", bank_dir,
+                                                                         "CUDA.FEATURE_BANK_MAX_DIST", 1.5])):
+            _reset_launches()
+            scan_eval.run_scan_rollouts = recording
+            try:
+                evaluator = run_exp(R2R_EXP, "eval", common + extra + ["RESULTS_DIR", os.path.join(tmp, name)])
+            finally:
+                scan_eval.run_scan_rollouts = real_rollouts
+            launches = _read_launches()
+            t = _check_scan_run(evaluator, launches, (2, 0), name)
+            with open(os.path.join(tmp, name, f"stats_ckpt_0_{cfg.EVAL.SPLIT}.json")) as f:
+                stats = json.load(f)
+            assert sorted(stats) == sorted(RXR_MEASURES) and all(math.isfinite(v) for v in stats.values()), stats
+            rates[name] = t["env_steps"] / t["seconds"]
+            print(f"{name} scan eval: {len(evaluator._last_eval_episode_stats)} episodes, {t['env_steps']} env steps in "
+                  f"{t['segments']} segments of {t['seg_len']} at B={t['batch']}: {rates[name]:.1f} env-steps/s "
+                  f"({t['seconds']:.3f} s: the chunks' host setup {t['setup_seconds']:.3f} s, the capture "
+                  f"{t['capture_seconds']:.3f} s); stats {json.dumps({k: round(v, 4) for k, v in stats.items()})}")
+            if extra:
+                out[name] = launches
+                args, graphed = recorded[-1]
+                eager = real_rollouts(*args, eager=True)
+                same = sum(np.array_equal(a, b) for a, b in zip(graphed, eager))
+                print(f"{name}: the graphed rollouts against the same rollouts run eagerly: {same} of {len(eager)} "
+                      f"episodes' actions equal; env-steps/s {rates[name]:.1f} with the bank, {rates['rendered']:.1f} rendered")
+                assert same == len(eager), "the graphed bank route disagrees with its eager run"
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2583,7 +2885,7 @@ def phase_device_recollect(dev, host_rate):
 
     out = {}
     with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
-        _, train_opts = _recollect_opts(tmp, RECOLLECT_EPOCHS, 2 * RECOLLECT_N)
+        _, train_opts = _recollect_opts(tmp, 1, 2 * RECOLLECT_N)  # phase_recollect's run cut to its first epoch
         for name, extra, per_step in (("device_recollect", [], (2, 2, 2, 2)),
                                       ("device_recollect_resident", ["CUDA.RECOLLECT_RESIDENT", True], (2, 2, 2, 0))):
             opts = train_opts + ["CUDA.ON_DEVICE_RECOLLECT", True, *extra,
@@ -2593,7 +2895,7 @@ def phase_device_recollect(dev, host_rate):
             graphs = sim["capture_launches"]
             want = {"gru_sequence": 0, "fused_resize_normalize": 2 if extra else 0}
             assert graphs and all(g == want for g in graphs), graphs
-            assert os.path.exists(os.path.join(tmp, name, f"ckpt.{RECOLLECT_EPOCHS - 1}.ckpt"))
+            assert os.path.exists(os.path.join(tmp, name, "ckpt.0.ckpt"))
             print(f"{name}: {len(graphs)} render graphs (one per T_pad), each captured with {json.dumps(want)} per step; "
                   f"{sim['replays']} replays; the render {sim['env_steps']} env steps of {sim['episodes']} episodes in "
                   f"{sim['seconds']:.2f} s on the prefetch thread ({sim['env_steps'] / sim['seconds']:.1f} env-steps/s, the "
@@ -2651,29 +2953,41 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    phase_seconds = {}
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        result = phase(*args)
+        phase_seconds[phase.__name__] = round(time.perf_counter() - t0, 1)
+        return result
+
     torch.backends.cuda.matmul.allow_tf32 = False
     name = phase_device()
-    phase_build()
-    kernels = [phase_gru(dev), *phase_gru_backward(dev), phase_resize(dev)]
-    paths = {"act_phase": phase_main_path(dev)[0]}
-    paths["eval"], paths["inference"], host_eval_rate = phase_serving(dev)
-    paths["scan_eval"], paths["scan_inference"] = phase_scan_eval(dev, host_eval_rate)
-    phase_scan_against_plain(dev)
-    paths["training"], paths["training_eval"], host_rounds = phase_training(dev)
-    paths["device_dagger"], paths["device_dagger_eval"] = phase_device_dagger(dev, host_rounds)
-    paths["train_step"] = phase_train_step(dev)
-    phase_train_step_against_plain(dev)
-    shapes = phase_recollect_shapes(dev)
-    paths["recollect"], paths["recollect_eval"], resim_rate = phase_recollect(dev)
-    paths["device_recollect"], paths["device_recollect_resident"] = phase_device_recollect(dev, resim_rate)
-    phase_recollect_against_plain(dev)
-    paths["seq2seq"], paths["seq2seq_eval"] = phase_seq2seq(dev)
-    wp_shapes = phase_waypoint_shapes(dev)
-    paths["waypoint"], paths["waypoint_eval"], wp_host = phase_waypoint(dev)
+    timed(phase_build)
+    kernels = [timed(phase_gru, dev), *timed(phase_gru_backward, dev), timed(phase_resize, dev)]
+    paths = {"act_phase": timed(phase_main_path, dev)[0]}
+    paths["eval"], paths["inference"], host_eval_rate = timed(phase_serving, dev)
+    paths["scan_eval"], paths["scan_inference"] = timed(phase_scan_eval, dev, host_eval_rate)
+    timed(phase_scan_against_plain, dev)
+    paths["training"], paths["training_eval"], host_rounds = timed(phase_training, dev)
+    paths["device_dagger"], paths["device_dagger_eval"], wired = timed(phase_device_dagger, dev, host_rounds)
+    resident = timed(phase_device_dagger_resident, dev, wired)
+    for path in ("device_dagger_resident", "device_dagger_resident_scan", "device_dagger_resident_archive"):
+        paths[path] = resident[path]
+    paths.update(timed(phase_feature_bank, dev))
+    paths["train_step"] = timed(phase_train_step, dev)
+    timed(phase_train_step_against_plain, dev)
+    shapes = timed(phase_recollect_shapes, dev)
+    paths["recollect"], paths["recollect_eval"], resim_rate = timed(phase_recollect, dev)
+    paths["device_recollect"], paths["device_recollect_resident"] = timed(phase_device_recollect, dev, resim_rate)
+    timed(phase_recollect_against_plain, dev)
+    paths["seq2seq"], paths["seq2seq_eval"] = timed(phase_seq2seq, dev)
+    wp_shapes = timed(phase_waypoint_shapes, dev)
+    paths["waypoint"], paths["waypoint_eval"], wp_host = timed(phase_waypoint, dev)
     (paths["device_waypoint"], paths["device_waypoint_scan"],
-     paths["device_waypoint_eval"]) = phase_device_waypoint(dev, wp_host)
-    phase_waypoint_against_plain(dev)
-    phase_device_waypoint_against_plain(dev)
+     paths["device_waypoint_eval"]) = timed(phase_device_waypoint, dev, wp_host)
+    timed(phase_waypoint_against_plain, dev)
+    timed(phase_device_waypoint_against_plain, dev)
     for k, extra, wp in zip(kernels, (shapes["forward"], shapes["backward"], shapes["weight"], shapes["resize"]),
                             (wp_shapes["forward"], wp_shapes["backward"], wp_shapes["weight"], {})):
         k.update(extra)
@@ -2683,6 +2997,7 @@ def main() -> int:
             k[f"launches_{path}"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]] for launches in paths.values())
     assert all(k["launches"] > 0 for k in kernels), "a kernel was launched on no path"
+    print(f"chip_smoke: seconds by phase {json.dumps(phase_seconds)}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s (the build included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

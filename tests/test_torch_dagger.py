@@ -274,15 +274,6 @@ def test_beta_mix_takes_the_experts_action_where_the_draw_says_so(runs, tmp_path
     reader.close()
 
 
-@pytest.mark.parametrize("key", ["ON_DEVICE_DAGGER", "DAGGER_RESIDENT", "RESIDENT_EPOCH_SCAN"])
-def test_device_resident_keys_raise_naming_the_roadmap(runs, tmp_path, key):
-    # on-device collection runs since the device-resident loops came; its feature-bank route waits
-    bank = ["CUDA.FEATURE_BANK_MAX_DIST", 1.5] if key == "ON_DEVICE_DAGGER" else []
-    trainer = _torch_trainer(tmp_path, runs["torch_ckpt"], [f"CUDA.{key}", True, *bank])
-    with pytest.raises(NotImplementedError, match=f"CUDA.{key}.*ROADMAP.md"):
-        trainer.train()
-
-
 def test_async_writer_never_leaves_a_torn_file(tmp_path, monkeypatch):
     """While the writer thread is inside torch.save the old file stays whole;
     a snapshot is a copy, so changing the live tensor afterwards does not

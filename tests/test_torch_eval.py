@@ -251,8 +251,9 @@ def test_eval_polls_a_directory_in_mtime_order(tmp_path, checkpoints):
 
 
 @pytest.mark.parametrize("opts,match", [
-    # the scan eval runs since the device-resident loops came; its feature-bank route waits
-    (["EVAL.ON_DEVICE_SCAN", True, "CUDA.FEATURE_BANK_DIR", "data/feature_bank"], "ON_DEVICE_SCAN"),
+    # the scan eval and its feature-bank route run since the device-resident loops came; imported scene geometry waits
+    pytest.param(["EVAL.ON_DEVICE_SCAN", True, "TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", "data/scene_geometry"],
+                 "GEOMETRY_DIR", id="opts0-ON_DEVICE_SCAN"),
     (["VIDEO_OPTION", ["disk"]], "VIDEO_OPTION"),
     (["EVAL.EVAL_NONLEARNING", True], "nonlearning"),
 ])

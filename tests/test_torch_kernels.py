@@ -760,3 +760,157 @@ def test_resident_render_graph_matches_eager(tmp_path):
     steps = [s.step for s in cache.values()]
     assert steps and all(s.graph is not None and s.capture_launches == {"gru_sequence": 0, "fused_resize_normalize": 2}
                          for s in steps)
+
+
+# ---------------------------------------------------------------------------
+# the trajectory bank on the card and the feature-bank route
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_resident_collection_packs_the_store_payloads_on_the_card():
+    """collect_episodes_resident on the card (graph) against the same
+    collection run eagerly and against the store-wired payloads of the same
+    draws: the bank's rows equal (f16 features within 1e-5 of each other,
+    the rows of the store payload exactly), and its gathers on the card
+    equal the same bank's gathers on the CPU."""
+    from vlnce_torch.data.device_bank import DeviceTrajectoryBank
+    from vlnce_torch.trainers.device_dagger import collect_episodes_on_device, collect_episodes_resident
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg, policy, episodes = _scan_case(dev, ["CUDA.DAGGER_SEGMENT", 4])
+    banks = {}
+    for eager in (False, True):
+        stats = {}
+        banks[eager] = collect_episodes_resident(policy, [], cfg, episodes, 0.5, torch.Generator(device=dev).manual_seed(3),
+                                                 stats=stats, eager=eager)
+        assert stats["graph"] == (not eager) and stats["chunk_readbacks"] == 0 and stats["readbacks"] == stats["segments"]
+    wired = collect_episodes_on_device(policy, [], cfg, episodes, 0.5, torch.Generator(device=dev).manual_seed(3))
+    bank, eager_bank = banks[False], banks[True]
+    np.testing.assert_array_equal(bank.lengths, eager_bank.lengths)
+    assert bank.device.type == "cuda" and len(bank) == len(wired) == 6
+    for e, (obs, prev, oracle) in enumerate(wired):
+        lo, T = int(bank.offsets[e]), int(bank.lengths[e])
+        np.testing.assert_array_equal(bank.prev[lo : lo + T].cpu().numpy(), prev)
+        np.testing.assert_array_equal(bank.oracle[lo : lo + T].cpu().numpy(), oracle)
+        for k, shape in bank.feat_shapes.items():
+            rows = bank.data[k][lo : lo + T].float().cpu().numpy().reshape((T,) + shape)
+            np.testing.assert_array_equal(rows, obs[k].astype(np.float32), err_msg=k)
+            np.testing.assert_allclose(rows, eager_bank.data[k][lo : lo + T].float().cpu().numpy().reshape(rows.shape),
+                                       rtol=0, atol=1e-5, err_msg=k)
+    host = DeviceTrajectoryBank({k: v.cpu() for k, v in bank.data.items()}, bank.prev.cpu(), bank.oracle.cpu(),
+                                bank.instruction.cpu(), bank.offsets, bank.lengths, bank.feat_shapes, bank.trash_index)
+    for ids in ([0, 3], [5, 1, 2]):
+        for time_major in (False, True):
+            got, want = bank.gather_batch(ids, 3.2, time_major=time_major), host.gather_batch(ids, 3.2, time_major=time_major)
+            for k in got[0]:
+                assert torch.equal(got[0][k].cpu(), want[0][k]), k
+            for a, b in zip(got[1:], want[1:]):
+                assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_enqueued_epoch_waits_for_the_card_only_at_its_read_backs():
+    """run_fused_epoch over a bank on the card with the enqueue under
+    set_sync_debug_mode("error"): one read-back per run, and the losses and
+    parameters of the per-batch path from the same start (TF32 off): losses
+    within 1e-5; parameters within 1e-5 of their scale where Adam's second
+    moment is above 1e-12, and within 2 x lr x steps elsewhere (a gradient
+    that is zero by the formula, such as the attention keys' bias, is noise
+    on the card, and Adam scales noise to steps of lr), as
+    tests/test_torch_ppo.py holds them."""
+    from vlnce_torch.data.device_bank import DeviceTrajectoryBank, ResidentBatchIterator, run_fused_epoch
+    from vlnce_torch.parallel.il_step import build_il_train_step
+    from vlnce_torch.parallel.optim import masked_adam
+    from vlnce_torch.trainers.device_dagger import collect_episodes_resident
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg, policy, episodes = _scan_case(dev, ["CUDA.DAGGER_SEGMENT", 4])
+    bank = collect_episodes_resident(policy, [], cfg, episodes, 1.0)
+    start = {k: v.clone() for k, v in policy.state_dict().items()}
+    results = {}
+    for mode in ("per_batch", "enqueued"):
+        policy.load_state_dict(start)
+        optimizer = masked_adam(1e-3, policy, cfg.MODEL)
+        step = build_il_train_step(policy, optimizer)
+        riter = ResidentBatchIterator(bank, batch_size=2, seed=5, time_major=True)
+        if mode == "per_batch":
+            losses = [torch.stack(step(*batch)).tolist() for batch in riter]
+        else:
+            enqueue, runs = DeviceTrajectoryBank.enqueue_steps, []
+
+            def checked(self, step, idx, *args):
+                runs.append(idx.shape[0])
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return enqueue(self, step, idx, *args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+
+            DeviceTrajectoryBank.enqueue_steps = checked
+            try:
+                losses = run_fused_epoch(riter, step)
+            finally:
+                DeviceTrajectoryBank.enqueue_steps = enqueue
+            assert sum(runs) == len(losses) == 3 and len(runs) >= 1
+        moments = {name: optimizer.state[p]["exp_avg_sq"] for name, p in policy.named_parameters() if p in optimizer.state}
+        results[mode] = (np.asarray(losses), {k: v.clone() for k, v in policy.state_dict().items()}, moments)
+    np.testing.assert_allclose(results["enqueued"][0], results["per_batch"][0], rtol=1e-5)
+    moments = results["per_batch"][2]
+    assert moments
+    for k, v in results["enqueued"][1].items():
+        ref = results["per_batch"][1][k]
+        if k not in moments:  # frozen: untouched
+            assert torch.equal(v, ref) and torch.equal(v, start[k]), k
+            continue
+        diff = (v - ref).abs()
+        real = moments[k] > 1e-12
+        assert float((diff * real).max()) <= 1e-5 + 1e-5 * float(ref.abs().max()), k
+        assert float(diff.max()) <= 2 * 1e-3 * 3, k
+    policy.load_state_dict(start)
+
+
+@pytest.mark.cuda
+def test_feature_bank_route_graph_matches_eager(tmp_path):
+    """Banks of the episodes' scenes written by encode_scene_bank on the
+    card, then the scan eval and the DAgger collection with
+    CUDA.FEATURE_BANK_DIR: the lookup inside the captured step gives the
+    eager step's actions and payloads; the lookup on the card equals the
+    CPU's."""
+    from vlnce_torch.data import feature_bank
+    from vlnce_torch.envs.device_sim import camera_specs_from_config
+    from vlnce_torch.envs.gridworld import get_scene
+    from vlnce_torch.trainers.device_dagger import collect_episodes_on_device
+    from vlnce_torch.trainers.scan_eval import run_scan_rollouts
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    bank_opts = ["CUDA.FEATURE_BANK_DIR", str(tmp_path), "CUDA.FEATURE_BANK_MAX_DIST", 2.2, "CUDA.DAGGER_SEGMENT", 4,
+                 "EVAL.SCAN_BATCH", 4, "EVAL.SCAN_SEGMENT", 5]
+    cfg, policy, episodes = _scan_case(dev, bank_opts)
+    headings = (2.0 * np.pi / 8) * np.arange(8, dtype=np.float32)
+    for scene_id in sorted({ep.scene_id for ep in episodes}):
+        scene = get_scene(scene_id)
+        nodes = feature_bank.lattice_nodes(scene, 3.0)
+        out = feature_bank.encode_scene_bank(policy, [], camera_specs_from_config(cfg.TASK_CONFIG.SIMULATOR), scene, nodes,
+                                             headings, chunk=64)
+        feature_bank.save_scene_bank(str(tmp_path / f"{feature_bank._scene_key(scene_id)}.npz"), nodes, *out)
+    actions = {eager: run_scan_rollouts(policy, [], cfg, episodes, eager=eager) for eager in (False, True)}
+    assert [a.tolist() for a in actions[False]] == [a.tolist() for a in actions[True]]
+    payloads = {eager: collect_episodes_on_device(policy, [], cfg, episodes, 0.5, torch.Generator(device=dev).manual_seed(3),
+                                                  eager=eager) for eager in (False, True)}
+    for (obs, prev, oracle), (e_obs, e_prev, e_oracle) in zip(payloads[False], payloads[True]):
+        np.testing.assert_array_equal(prev, e_prev)
+        np.testing.assert_array_equal(oracle, e_oracle)
+        for k in ("rgb_features", "depth_features"):
+            np.testing.assert_array_equal(obs[k], e_obs[k], err_msg=k)  # looked up, not computed: exact
+    bank = feature_bank.load_bank_batch(str(tmp_path), episodes[:4], device=dev)
+    host = feature_bank.load_bank_batch(str(tmp_path), episodes[:4])
+    pos = torch.tensor([[1.3, 0.0, 2.9], [7.5, 0.0, 3.1], [40.0, 0.0, 1.0], [4.4, 0.0, 9.9]])
+    heading = torch.tensor([0.3, -2.0, 4.0, 7.9])
+    got = feature_bank.lookup_features(bank, pos.to(dev), heading.to(dev), max_dist=2.2)
+    want = feature_bank.lookup_features(host, pos, heading, max_dist=2.2)
+    for k in got:
+        assert torch.equal(got[k].cpu(), want[k]), k

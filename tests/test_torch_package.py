@@ -53,6 +53,8 @@ NEW_MODULES = [
     "vlnce_torch.rl.ppo", "vlnce_torch.trainers.ddppo_waypoint_trainer", "vlnce_torch.tasks.discrete_planner",
     # the device-resident grid world, scan eval and on-device DAgger
     "vlnce_torch.envs.device_sim", "vlnce_torch.trainers.scan_eval", "vlnce_torch.trainers.device_dagger",
+    # the trajectory bank on the card and the feature-bank route
+    "vlnce_torch.data.device_bank", "vlnce_torch.data.feature_bank",
 ]
 
 
@@ -144,6 +146,7 @@ def test_training_keys_of_the_cuda_section():
     assert cfg.CUDA.DAGGER_SEGMENT == jcfg.TPU.DAGGER_SEGMENT == 32
     assert cfg.CUDA.FEATURE_BANK_DIR == jcfg.TPU.FEATURE_BANK_DIR == ""
     assert cfg.CUDA.FEATURE_BANK_MAX_DIST == jcfg.TPU.FEATURE_BANK_MAX_DIST == 0.0
+    assert cfg.CUDA.DAGGER_ARCHIVE_STORE is jcfg.TPU.DAGGER_ARCHIVE_STORE is False
 
 
 def test_waypoint_configs_match_jax():

@@ -246,17 +246,6 @@ def test_rxr_scan_eval_and_inference_match_jax(tmp_path, rxr_checkpoints):
         assert len(steps) >= 2 and all(sorted(s) == ["heading", "position", "stop"] for s in steps)
 
 
-@pytest.mark.parametrize("key,value", [("FEATURE_BANK_DIR", "data/feature_bank"), ("FEATURE_BANK_MAX_DIST", 1.5)])
-def test_feature_bank_keys_raise_naming_the_roadmap(tmp_path, rxr_checkpoints, key, value):
-    _, port_path = rxr_checkpoints
-    opts = SMALL_OPTS + ["CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32", f"CUDA.{key}", value]
-    opts += _rxr_opts(tmp_path)
-    with pytest.raises(NotImplementedError, match="FEATURE_BANK.*ROADMAP.md section A, 'Device-resident loops'"):
-        run_exp(RXR_CMA, "eval", opts + ["EVAL_CKPT_PATH_DIR", port_path])
-    with pytest.raises(NotImplementedError, match="FEATURE_BANK.*ROADMAP.md section A, 'Device-resident loops'"):
-        run_exp(RXR_CMA, "inference", opts + ["INFERENCE.CKPT_PATH", port_path])
-
-
 # ---------------------------------------------------------------------------
 # on-device DAgger collection
 # ---------------------------------------------------------------------------

@@ -90,14 +90,31 @@ _C.CUDA.PROFILE_DIR = ""  # if set, training writes a torch.profiler trace here
 # segment of DAGGER_SEGMENT steps (requires GridWorldSim-v0)
 _C.CUDA.ON_DEVICE_DAGGER = False
 _C.CUDA.DAGGER_SEGMENT = 32  # env steps per segment in device collection
-# the trajectory bank on the card and the fused epoch scan: keys kept so
-# configs merge; not ported yet
+# collect->train on the card: collected frozen-encoder features stay in
+# device memory as a DeviceTrajectoryBank feeding the IL train step directly,
+# with no device->store->device round trip (data/device_bank.py). Requires
+# ON_DEVICE_DAGGER (or preload_lmdb_features, which uploads the store once).
 _C.CUDA.DAGGER_RESIDENT = False
+# with DAGGER_RESIDENT: each run of an epoch's train steps (one padded
+# length) is enqueued with its index matrix uploaded once and its losses
+# read back once (data/device_bank.run_fused_epoch)
 _C.CUDA.RESIDENT_EPOCH_SCAN = False
-# precomputed visual feature bank in place of the renderer in the
-# device-resident loops (the route of real scenes): keys kept so configs
-# merge; not ported yet (any non-default value raises)
+# with DAGGER_RESIDENT: also archive collected trajectories into the
+# trajectory store after each round's collection; off by default, the store
+# is only needed for preloading later runs
+_C.CUDA.DAGGER_ARCHIVE_STORE = False
+# precomputed per-(node, heading) visual feature bank directory
+# (data/feature_bank.py; written with encode_scene_bank + save_scene_bank).
+# When set, the loops on the card (EVAL / INFERENCE.ON_DEVICE_SCAN,
+# ON_DEVICE_DAGGER) look the frozen features up in place of rendering, into
+# the encoders' rgb_features / depth_features bypass: the route by which
+# real scenes ride the loops on the card.
 _C.CUDA.FEATURE_BANK_DIR = ""
+# coverage guard for bank lookups (meters; 0 = off). Poses farther than this
+# from every bank node receive ZERO features instead of the nearest node's
+# wrong view, and episode starts outside coverage fail loudly at load
+# (data/feature_bank.py lookup_features / check_bank_coverage). Lattice
+# spacing s puts true poses up to s/sqrt(2) from a node: set this >= that.
 _C.CUDA.FEATURE_BANK_MAX_DIST = 0.0
 # recollection rendered on the card (trainers/device_recollect.py): the GT
 # trajectories re-rendered along their actions, one CUDA graph replay per

@@ -201,18 +201,18 @@ class BaseVLNCETrainer:
             f"Initialized policy {config.MODEL.policy_name} on {self.policy.device}: {self.policy.num_params()} params"
         )
 
-    def _il_update(self, step, observations, prev_actions, masks, corrected, weights,
-                   resident: bool = False) -> Tuple[float, float, float]:
+    def _il_update(self, step, observations, prev_actions, masks, corrected, weights) -> Tuple[float, float, float]:
         """One IL step on a collated batch (numpy: observations [T*N, ...],
         prev_actions and masks [T*N, 1], corrected and weights [T, N]): one
         pinned, asynchronous upload per array, the obs transforms on the flat
         [T*N, ...] observations, the reshape to time-major [T, N, ...], then
         `step(obs_tn, prev, masks, corrected, weights)`, whose (loss,
         action_loss, aux_loss) come back in the step's one synchronisation
-        with the device. With `resident`, the observations are already the
-        step's time-major inputs on the device (rendered there, transformed)
-        and only the [T, N] rest is uploaded. `step_clock` (if any) gets the
-        "upload" mark."""
+        with the device. Tensors are taken as they are: observations given as
+        tensors are the step's time-major inputs on the device already
+        (rendered there and transformed, or gathered from the trajectory
+        bank), and so is any of the [T, N] rest given as a tensor; only numpy
+        arrays are uploaded. `step_clock` (if any) gets the "upload" mark."""
         clock = self.step_clock
         T, N = corrected.shape
         self.train_lengths[T] = self.train_lengths.get(T, 0) + 1
@@ -220,14 +220,13 @@ class BaseVLNCETrainer:
         if clock:
             clock.start()
         with annotate("il_upload"):
-            if resident:
+            if all(torch.is_tensor(v) for v in observations.values()):
                 obs_tn = observations
             else:
                 obs_dev = apply_obs_transforms_batch(to_device(observations, device), self.obs_transforms)
                 obs_tn = {k: v.reshape((T, N) + tuple(v.shape[1:])) for k, v in obs_dev.items()}
-            rest = to_device(
-                {"prev": prev_actions, "masks": masks, "corrected": corrected, "weights": weights}, device
-            )
+            rest = {"prev": prev_actions, "masks": masks, "corrected": corrected, "weights": weights}
+            rest.update(to_device({k: v for k, v in rest.items() if not torch.is_tensor(v)}, device))
             if clock:
                 clock.mark("upload")
         with annotate("il_step"):

@@ -19,9 +19,17 @@ vlnce_baselines/dagger_trainer.py:234-610):
 With `CUDA.ON_DEVICE_DAGGER` the collection runs on the card instead
 (`trainers/device_dagger.py`: the device-resident grid world, the device
 expert and the policy, one CUDA graph replay per env step) and its episodes
-go into the same store. The trajectory bank on the device and the fused
-epoch scan are not ported yet: their keys `CUDA.DAGGER_RESIDENT` and
-`CUDA.RESIDENT_EPOCH_SCAN` raise NotImplementedError when set.
+go into the same store. With `CUDA.DAGGER_RESIDENT` as well they stay on the
+card in a trajectory bank (`data/device_bank.py`) that the train step
+gathers its batches from, with no store between them (the store only as an
+archive, `CUDA.DAGGER_ARCHIVE_STORE`); with `IL.DAGGER.preload_lmdb_features`
+the bank is the store uploaded once. `CUDA.RESIDENT_EPOCH_SCAN` then
+enqueues each run of an epoch's train steps with one read-back per run.
+Bank batches need no prefetch thread: they have no host work to hide.
+
+The JAX trainer's multi-process and mesh branches (rank-local stores,
+`_resident_mesh`, the fused epoch's fallbacks) have no counterpart on one
+card.
 """
 
 from __future__ import annotations
@@ -42,13 +50,11 @@ from vlnce_torch.envs.env_utils import construct_envs, get_env_class
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms
 from vlnce_torch.parallel.il_step import build_il_train_step
 from vlnce_torch.registry import registry
-from vlnce_torch.trainers.base_trainer import BaseVLNCETrainer, _not_ported
+from vlnce_torch.trainers.base_trainer import BaseVLNCETrainer
 from vlnce_torch.utils.checkpoints import wait_for_pending
 from vlnce_torch.utils.logging import logger
 from vlnce_torch.utils.profiling import SectionTimers, StepClock, annotate, maybe_profile
 from vlnce_torch.utils.tensorboard import TensorboardWriter
-
-_RESIDENT_KEYS = ("DAGGER_RESIDENT", "RESIDENT_EPOCH_SCAN")
 
 
 def make_collect_step(policy, transforms, expert_uuid: str) -> Callable:
@@ -86,6 +92,7 @@ class DaggerTrainer(BaseVLNCETrainer):
         self.features_dir = config.IL.DAGGER.lmdb_features_dir.format(split=config.TASK_CONFIG.DATASET.SPLIT)
         super().__init__(config)
         self._train_step = None  # built lazily once the policy exists
+        self._bank = None  # the DeviceTrajectoryBank (CUDA.DAGGER_RESIDENT), joined across rounds
         # every batch's (dagger_it, epoch, loss, action_loss, aux_loss), and
         # each collection round's counts and clocks
         self.loss_history: List[Tuple[int, int, float, float, float]] = []
@@ -96,14 +103,6 @@ class DaggerTrainer(BaseVLNCETrainer):
         """What `train` does before its first collection round: the store, the
         config the rounds run under, the policy and its optimizer. Returns
         that config."""
-        for key in _RESIDENT_KEYS:
-            if bool(self.config.CUDA[key]):
-                raise _not_ported(f"CUDA.{key} (device-resident DAgger)", "'Device-resident loops'")
-        if bool(self.config.CUDA.ON_DEVICE_DAGGER):
-            from vlnce_torch.trainers.scan_eval import check_feature_bank
-
-            check_feature_bank(self.config, "CUDA.ON_DEVICE_DAGGER")
-
         if self.config.IL.DAGGER.preload_lmdb_features:
             if store_length(self.features_dir) == 0:
                 raise RuntimeError(f"no preloaded trajectories at {self.features_dir}")
@@ -134,29 +133,39 @@ class DaggerTrainer(BaseVLNCETrainer):
 
     def train(self) -> None:
         config = self._setup_training()
+        resident = bool(config.CUDA.DAGGER_RESIDENT)
+        fused = resident and self._fused_epoch_ok()
         with TensorboardWriter(config.TENSORBOARD_DIR, purge_step=0) as writer, maybe_profile(config.CUDA.PROFILE_DIR):
             for dagger_it in range(config.IL.DAGGER.iterations):
                 step_id = 0
-                if not config.IL.DAGGER.preload_lmdb_features:
-                    self._update_dataset(dagger_it + (1 if config.IL.load_from_ckpt else 0))
-                gc.collect()
+                reader = None
+                data_it = dagger_it + (1 if config.IL.load_from_ckpt else 0)
+                if resident:
+                    diter = self._resident_iterator(data_it, seed=config.TASK_CONFIG.SEED + dagger_it)
+                else:
+                    if not config.IL.DAGGER.preload_lmdb_features:
+                        self._update_dataset(data_it)
+                    gc.collect()
 
-                reader = TrajectoryStoreReader(self.features_dir)
-                diter = TrajectoryBatchIterator(
-                    reader,
-                    batch_size=config.IL.batch_size,
-                    use_iw=config.IL.use_iw,
-                    inflection_weight_coef=config.IL.inflection_weight_coef,
-                    seed=config.TASK_CONFIG.SEED + dagger_it,
-                )
-                # store read + decode + collate run in a background thread,
-                # overlapping the train step (IL.prefetch_batches)
-                diter = PrefetchIterator(diter, depth=config.IL.prefetch_batches)
+                    reader = TrajectoryStoreReader(self.features_dir)
+                    diter = TrajectoryBatchIterator(
+                        reader,
+                        batch_size=config.IL.batch_size,
+                        use_iw=config.IL.use_iw,
+                        inflection_weight_coef=config.IL.inflection_weight_coef,
+                        seed=config.TASK_CONFIG.SEED + dagger_it,
+                    )
+                    # store read + decode + collate run in a background thread,
+                    # overlapping the train step (IL.prefetch_batches)
+                    diter = PrefetchIterator(diter, depth=config.IL.prefetch_batches)
 
                 for epoch in range(config.IL.epochs):
                     loss = action_loss = aux_loss = float("nan")
-                    for batch in diter:
-                        loss, action_loss, aux_loss = self._update_agent(*batch)
+                    if fused:
+                        triples = self._run_fused_epoch(diter)
+                    else:
+                        triples = (self._update_agent(*batch) for batch in diter)
+                    for loss, action_loss, aux_loss in triples:
                         self.loss_history.append((dagger_it, epoch, loss, action_loss, aux_loss))
                         writer.add_scalar(f"train_loss_iter_{dagger_it}", loss, step_id)
                         writer.add_scalar(f"train_action_loss_iter_{dagger_it}", action_loss, step_id)
@@ -169,18 +178,91 @@ class DaggerTrainer(BaseVLNCETrainer):
                         f"ckpt.{dagger_it * config.IL.epochs + epoch}.ckpt",
                         extra_state={"epoch": epoch, "step_id": step_id, "dagger_it": dagger_it},
                     )
-                reader.close()
+                if reader is not None:
+                    reader.close()
         # join any in-flight async checkpoint write: callers may load the
         # last checkpoint the moment train() returns
         wait_for_pending()
 
     # ------------------------------------------------------------- the update
-    def _update_agent(self, observations, prev_actions, masks, corrected, weights) -> Tuple[float, float, float]:
-        """One IL step on a collated batch (see `_il_update`)."""
+    def _get_train_step(self):
         if self._train_step is None:
             clock = self.step_clock
             self._train_step = build_il_train_step(self.policy, self.optimizer, **({"mark": clock.mark} if clock else {}))
-        return self._il_update(self._train_step, observations, prev_actions, masks, corrected, weights)
+        return self._train_step
+
+    def _update_agent(self, observations, prev_actions, masks, corrected, weights) -> Tuple[float, float, float]:
+        """One IL step on a collated batch, or on a bank batch already on the
+        card (see `_il_update`)."""
+        return self._il_update(self._get_train_step(), observations, prev_actions, masks, corrected, weights)
+
+    def _fused_epoch_ok(self) -> bool:
+        """Whether the enqueued epoch (CUDA.RESIDENT_EPOCH_SCAN) runs. On one
+        process with no mesh it is the key itself; the JAX trainer's
+        multi-process and mesh fallbacks have no counterpart here."""
+        return bool(self.config.CUDA.RESIDENT_EPOCH_SCAN)
+
+    def _run_fused_epoch(self, riter) -> List[Tuple[float, float, float]]:
+        """One epoch over the bank with each run of batches enqueued and read
+        back once (data/device_bank.run_fused_epoch); batch composition and
+        order are the per-batch path's. Returns (loss, action_loss,
+        aux_loss) per batch."""
+        from vlnce_torch.data.device_bank import run_fused_epoch
+
+        return run_fused_epoch(riter, self._get_train_step())
+
+    # ----------------------------------------------------- resident pipeline
+    def _resident_iterator(self, data_it: int, seed: int):
+        """The batches of a round with CUDA.DAGGER_RESIDENT: collection keeps
+        the frozen-encoder features on the card (a DeviceTrajectoryBank) and
+        the iterator gathers the train batches there; the store is bypassed,
+        or written as an archive. Banks are joined across rounds, as the
+        store accumulates. With preload_lmdb_features the bank is the store,
+        uploaded once."""
+        from vlnce_torch.data.device_bank import DeviceTrajectoryBank, ResidentBatchIterator
+
+        config = self.config
+        instr_uuid = str(config.MODEL.INSTRUCTION_ENCODER.sensor_uuid)
+        if config.IL.DAGGER.preload_lmdb_features:
+            if self._bank is None:
+                reader = TrajectoryStoreReader(self.features_dir)
+                self._bank = DeviceTrajectoryBank.from_store(reader, instr_uuid=instr_uuid, device=self.policy.device)
+                reader.close()
+                logger.info(f"uploaded trajectory store to device bank: {len(self._bank)} episodes, "
+                            f"{self._bank.nbytes() / 2**20:.1f} MiB")
+        else:
+            if not bool(config.CUDA.ON_DEVICE_DAGGER):
+                raise RuntimeError(
+                    "CUDA.DAGGER_RESIDENT needs CUDA.ON_DEVICE_DAGGER (device collection) or "
+                    "IL.DAGGER.preload_lmdb_features (one-time store upload); the host env-pool collector cannot "
+                    "feed the device bank directly"
+                )
+            from vlnce_torch.trainers.device_dagger import collect_episodes_resident
+
+            t_start = time.perf_counter()
+            episodes, beta = self._collection_plan(data_it)
+            stats: Dict[str, float] = {}
+            new_bank = collect_episodes_resident(self.policy, self.obs_transforms, config, episodes, beta,
+                                                 self.generator, stats=stats)
+            self.collection_stats.append({
+                **stats, "data_it": data_it, "beta": beta, "episodes": len(new_bank),
+                "bank_bytes": new_bank.nbytes(), "total_time": time.perf_counter() - t_start,
+            })
+            logger.info(f"[collection it {data_it}] {len(new_bank)} episodes resident, {new_bank.num_steps} steps in "
+                        f"{time.perf_counter() - t_start:.1f}s ({stats.get('segments', 0)} segments)")
+            if bool(config.CUDA.DAGGER_ARCHIVE_STORE):
+                writer = TrajectoryStoreWriter(self.features_dir, drop_existing=False)
+                new_bank.write_to_store(writer, fp16=bool(config.IL.DAGGER.lmdb_fp16))
+                writer.close()
+            self._bank = new_bank if self._bank is None else self._bank.extend(new_bank)
+        return ResidentBatchIterator(
+            self._bank,
+            batch_size=config.IL.batch_size,
+            use_iw=config.IL.use_iw,
+            inflection_weight_coef=config.IL.inflection_weight_coef,
+            seed=seed,
+            time_major=True,  # the train step's layout, straight from the gather
+        )
 
     # --------------------------------------------------------- collection
     def _collection_plan(self, data_it: int):

@@ -2,7 +2,7 @@
 act + device expert + beta mix + sim step, one CUDA graph replay per env
 step, one read-back of the done flags per segment.
 
-Port of the store-wired half of vlnce_tpu/trainers/device_dagger.py. The
+Port of vlnce_tpu/trainers/device_dagger.py. The
 host collection loop (dagger_trainer._update_dataset) renders on the host
 and crosses to the card at every env step. Here the device-resident grid
 world (envs/device_sim.py) and its expert (`expert_action`, the host
@@ -12,9 +12,7 @@ segment machinery of trainers/scan_eval.py (`StepGraph`: one step captured,
 replayed; eager on the CPU). Each step writes its row of the store payload
 (progress, prev_action, oracle, done_before and the frozen encoders'
 features, flattened) into output tensors; after a segment the done flags
-come back in one read-back and the rows are kept on the card, and after a
-chunk its rows come back in one bulk copy, in the schema the trajectory
-store expects (`collect_episodes_on_device`).
+come back in one read-back and the rows are kept on the card.
 
 Wire dtypes are JAX's: bf16 features leave the segment as f16 clamped to
 the f16 range (exact for bf16 values in range), f32 rows as f16 where
@@ -26,11 +24,22 @@ expert, policy)` takes a second uniform: both are drawn per segment from
 the trainer's generator into a [DAGGER_SEGMENT, 2, B] tensor outside the
 graph. beta sits in a device scalar, so one graph serves every round.
 
+Two consumers share the chunk loop `_chunk_rollouts`:
+
+- `collect_episodes_on_device`: after a chunk its rows come back in one bulk
+  copy, in the schema the trajectory store expects;
+- `collect_episodes_resident` (CUDA.DAGGER_RESIDENT): nothing but the done
+  flags comes back; the rows are packed on the card, episode-major, into a
+  `data/device_bank.DeviceTrajectoryBank` that the IL train step reads
+  directly.
+
+With CUDA.FEATURE_BANK_DIR the step looks the frozen features up in a
+precomputed bank (data/feature_bank.py) in place of rendering; the
+looked-up features are the payload rows, in the store and in the bank, and
+the device expert, which steers by the scene's geometry, is unchanged.
+
 Episode selection is the JAX path's: the first update_size episodes in
-dataset order (`DaggerTrainer._collection_plan`). The trajectory bank on
-the card (`collect_episodes_resident`, CUDA.DAGGER_RESIDENT) and the
-feature-bank route (CUDA.FEATURE_BANK_DIR) are not ported (ROADMAP.md
-section A, 'Device-resident loops').
+dataset order (`DaggerTrainer._collection_plan`).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from vlnce_torch.data.feature_bank import lookup_features
 from vlnce_torch.envs.device_sim import (
     SceneBatch,
     _pad_grid,
@@ -51,11 +61,13 @@ from vlnce_torch.envs.device_sim import (
     progress_batch,
     render_batch,
     step_batch,
+    upload,
 )
 from vlnce_torch.envs.gridworld import get_scene
 from vlnce_torch.models.distributions import Categorical
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch
-from vlnce_torch.trainers.scan_eval import StepGraph, cached, check_feature_bank, chunk_tensors
+from vlnce_torch.trainers.scan_eval import StepGraph, bank_key, bank_setup, cached, chunk_tensors, load_chunk_bank
+from vlnce_torch.utils.logging import logger
 
 _F16_MAX = 65504.0
 
@@ -87,10 +99,11 @@ class DaggerSegment:
     """The collection loop's segment for a chunk of B episodes: `seg_len`
     env steps per `run()`, one read-back of the done flags. State, inputs
     and the payload rows are fixed tensors on the policy's device; `load()`
-    copies a chunk in."""
+    copies a chunk in. With `bank` (a FeatureBankBatch) the step looks the
+    frozen features up in it in place of rendering."""
 
     def __init__(self, policy, transforms, specs, config, seg_len: int, scenes: SceneBatch, tensors: Dict[str, torch.Tensor],
-                 eager: bool = False):
+                 eager: bool = False, bank=None, bank_max_dist: float = 0.0):
         task_cfg = config.TASK_CONFIG
         sim_cfg = task_cfg.SIMULATOR
         device = policy.device
@@ -115,9 +128,14 @@ class DaggerSegment:
         self.beta = torch.zeros((), device=device)
         self.draws = torch.zeros(seg_len, 2, B, device=device)
         self.segments = self.readbacks = 0
+        self.bank = None if bank is None else bank.clone()
 
         def compute():
-            obs = render_batch(self.scenes, self.pos, self.heading, specs)
+            if self.bank is not None:
+                obs = lookup_features(self.bank, self.pos, self.heading, max_dist=bank_max_dist)
+                feats = dict(obs)  # the lookup is the frozen-feature payload (the encoders take it as is)
+            else:
+                obs = render_batch(self.scenes, self.pos, self.heading, specs)
             obs[instr_uuid] = self.inputs["instruction"]
             obs["progress"] = progress_batch(self.scenes, self.pos)
             batch = apply_obs_transforms_batch(obs, transforms)
@@ -136,7 +154,7 @@ class DaggerSegment:
                 "oracle": expert,
                 "done_before": self.done,
             }
-            for k, v in policy.visual_features().items():
+            for k, v in (feats if self.bank is not None else policy.visual_features()).items():
                 emit[k] = _wire(v.reshape(B, -1), store_f16)
             pos, heading = step_batch(self.scenes, self.pos, self.heading, a, forward_step, turn_angle, allow_sliding)
             pos = torch.where(self.done[:, None], self.pos, pos)
@@ -158,15 +176,20 @@ class DaggerSegment:
         # one probe step for the payload's keys, shapes and dtypes
         with torch.no_grad():
             emit = compute()[5]
-        self.feat_shapes = {k: tuple(policy.visual_features()[k].shape[1:]) for k in emit if k.endswith("_features")}
+        if self.bank is not None:
+            self.feat_shapes = {"rgb_features": self.bank.rgb_shape, "depth_features": self.bank.depth_shape}
+        else:
+            self.feat_shapes = {k: tuple(policy.visual_features()[k].shape[1:]) for k in emit if k.endswith("_features")}
         self.rows = {k: torch.zeros((seg_len,) + tuple(v.shape), dtype=v.dtype, device=device) for k, v in emit.items()}
         self.flags = torch.zeros(seg_len + 1, B, dtype=torch.uint8, device=device)
         self.rows["done_before"] = self.flags[:seg_len].view(torch.bool)  # the read-back's rows
         self.step = StepGraph(compute, commit, device, eager=eager)
 
-    def load(self, scenes: SceneBatch, tensors: Dict[str, torch.Tensor], beta: float) -> None:
+    def load(self, scenes: SceneBatch, tensors: Dict[str, torch.Tensor], beta: float, bank=None) -> None:
         for dst, src in zip(self.scenes, scenes):
             dst.copy_(src)
+        if bank is not None:
+            self.bank.copy_(bank)
         for k, v in self.inputs.items():
             v.copy_(tensors[k])
         self.pos.copy_(tensors["pos"])
@@ -191,12 +214,13 @@ class DaggerSegment:
 def _chunk_rollouts(policy, transforms, config, episodes: List, beta: float, generator=None, stats=None,
                     eager: bool = False):
     """The beta-mixed collection, chunk by chunk. Yields (real, instruction
-    [B, ...] numpy, pieces, done_before [T, B] numpy, feat_shapes) per chunk
-    of NUM_ENVIRONMENTS episodes: `pieces` are the segments' payload rows on
-    the card ([seg_len, B, ...] each)."""
+    [B, ...] on the card, pieces, done_before [T, B] numpy, feat_shapes) per
+    chunk of NUM_ENVIRONMENTS episodes: `pieces` are the segments' payload
+    rows on the card ([seg_len, B, ...] each)."""
     task_cfg = config.TASK_CONFIG
     check_scene_geometry(task_cfg.SIMULATOR)
-    check_feature_bank(config, "CUDA.ON_DEVICE_DAGGER")
+    # the feature-bank route: its shapes and the episodes' coverage are checked here, before any chunk
+    bank = bank_setup(config, episodes)
     specs = camera_specs_from_config(task_cfg.SIMULATOR)
     T_max = int(task_cfg.ENVIRONMENT.MAX_EPISODE_STEPS)
     B = max(1, int(config.NUM_ENVIRONMENTS))
@@ -215,15 +239,17 @@ def _chunk_rollouts(policy, transforms, config, episodes: List, beta: float, gen
         t_setup = time.perf_counter()
         ef, gxz = _expert_arrays(chunk)
         scenes, tensors = chunk_tensors(chunk, instr_uuid, task_cfg, device, {"expert_field": ef, "goal_xz": gxz})
+        chunk_bank = None if bank is None else load_chunk_bank(bank, chunk, device)
         setup_seconds += time.perf_counter() - t_setup
         key = ("dagger", tuple(specs), B, seg_len, bool(config.IL.DAGGER.lmdb_fp16),
                float(task_cfg.TASK.SHORTEST_PATH_SENSOR.GOAL_RADIUS), task_cfg.SIMULATOR.TURN_ANGLE,
                task_cfg.SIMULATOR.FORWARD_STEP_SIZE, bool(task_cfg.SIMULATOR.HABITAT_SIM_V0.ALLOW_SLIDING),
                tuple(type(t).__name__ for t in transforms), instr_uuid, tuple(scenes.occupancy.shape),
-               tuple(tensors["instruction"].shape), eager)
+               tuple(tensors["instruction"].shape), eager, bank_key(bank, chunk_bank))
         segment = cached(policy, key, lambda: DaggerSegment(policy, transforms, specs, config, seg_len, scenes, tensors,
-                                                            eager=eager))
-        segment.load(scenes, tensors, beta)
+                                                            eager=eager, bank=chunk_bank,
+                                                            bank_max_dist=0.0 if bank is None else bank[1]))
+        segment.load(scenes, tensors, beta, chunk_bank)
         if counts is None:  # the segment may come from the cache, with counts of earlier calls
             counts = (segment.segments, segment.readbacks, segment.step.replays)
         pieces, done_rows = [], []
@@ -235,8 +261,7 @@ def _chunk_rollouts(policy, transforms, config, episodes: List, beta: float, gen
             t += seg_len
             if done_after.all():
                 break
-        instruction = tensors["instruction"].cpu().numpy()
-        yield real, instruction, pieces, np.concatenate(done_rows, axis=0)[:T_max], segment.feat_shapes
+        yield real, tensors["instruction"], pieces, np.concatenate(done_rows, axis=0)[:T_max], segment.feat_shapes
     if stats is not None and segment is not None:
         stats.update({
             "seconds": time.perf_counter() - t0, "setup_seconds": setup_seconds, "segments": segment.segments - counts[0],
@@ -275,11 +300,12 @@ def collect_episodes_on_device(policy, transforms, config, episodes: List, beta:
     instr_uuid = str(config.MODEL.INSTRUCTION_ENCODER.sensor_uuid)
     results = []
     chunk_readbacks = 0
-    for real, instr_np, pieces, done_before, feat_shapes in _chunk_rollouts(
+    for real, instruction, pieces, done_before, feat_shapes in _chunk_rollouts(
         policy, transforms, config, episodes, beta, generator, stats=stats, eager=eager
     ):
         # one bulk read-back per chunk: the rows crossed nowhere else
         seq = {k: torch.cat([p[k] for p in pieces])[:T_max].cpu().numpy() for k in pieces[0]}
+        instr_np = instruction.cpu().numpy()
         chunk_readbacks += 1
         lengths = _episode_lengths(done_before, real, T_max)
         for b in range(real):
@@ -302,3 +328,59 @@ def collect_episodes_on_device(policy, transforms, config, episodes: List, beta:
         stats["chunk_readbacks"] = chunk_readbacks
         stats["env_steps"] = int(sum(len(r[1]) for r in results))
     return results
+
+
+def _build_pack(pieces: List[Dict[str, torch.Tensor]], T_cut: int, sel: torch.Tensor, keys) -> Dict[str, torch.Tensor]:
+    """A chunk's pack on the card (the JAX module's `_build_pack`, without
+    the jit it builds): the segments' rows joined along time and cut to the
+    step cap, then the episode-major valid rows `sel` of the flat [t * B +
+    b] rows taken by one `index_select` per key. prev_action and oracle
+    become int32."""
+    out = {}
+    for k in keys:
+        seq = torch.cat([p[k] for p in pieces])[:T_cut]
+        g = seq.reshape((seq.shape[0] * seq.shape[1],) + tuple(seq.shape[2:])).index_select(0, sel)
+        out[k] = g.to(torch.int32) if k in ("prev_action", "oracle") else g
+    return out
+
+
+def collect_episodes_resident(policy, transforms, config, episodes: List, beta: float, generator=None,
+                              progress_cb=None, stats: Optional[Dict] = None, eager: bool = False):
+    """Collect `episodes` on the card and keep them there: returns a
+    DeviceTrajectoryBank whose rows never visit the host. Per chunk the only
+    read-backs are the done flags (one per segment); the rows are packed
+    episode-major by `_build_pack` with the one small upload of its `sel`
+    index. `stats` as `collect_episodes_on_device` fills it (with
+    `chunk_readbacks` 0)."""
+    from vlnce_torch.data.device_bank import DeviceTrajectoryBank
+
+    T_max = int(config.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS)
+    B = max(1, int(config.NUM_ENVIRONMENTS))
+    device = policy.device
+    row_chunks, prev_chunks, oracle_chunks, instr_chunks = [], [], [], []
+    all_lengths: List[int] = []
+    shapes: Dict[str, tuple] = {}
+    for real, instruction, pieces, done_before, feat_shapes in _chunk_rollouts(
+        policy, transforms, config, episodes, beta, generator, stats=stats, eager=eager
+    ):
+        lengths = _episode_lengths(done_before, real, T_max)
+        T_cut = min(sum(int(p["oracle"].shape[0]) for p in pieces), T_max)
+        # the episode-major flat (t, b) indices of the episodes' rows
+        sel = np.concatenate([np.arange(lengths[b], dtype=np.int64) * B + b for b in range(real)])
+        packed = _build_pack(pieces, T_cut, upload({"sel": sel}, device)["sel"], tuple(pieces[0]))
+        prev_chunks.append(packed.pop("prev_action"))
+        oracle_chunks.append(packed.pop("oracle"))
+        row_chunks.append(packed)
+        instr_chunks.append(instruction[:real])
+        all_lengths.extend(int(x) for x in lengths)
+        shapes = {**feat_shapes, "progress": (1,)}
+        if progress_cb is not None:
+            for _ in range(real):
+                progress_cb()
+    bank = DeviceTrajectoryBank.from_rows(row_chunks, prev_chunks, oracle_chunks, instr_chunks, all_lengths, shapes,
+                                          instr_uuid=str(config.MODEL.INSTRUCTION_ENCODER.sensor_uuid))
+    if stats is not None:
+        stats["chunk_readbacks"] = 0
+        stats["env_steps"] = bank.num_steps
+    logger.info(f"device bank: {len(bank)} episodes, {bank.num_steps} steps, {bank.nbytes() / 2**20:.1f} MiB resident")
+    return bank

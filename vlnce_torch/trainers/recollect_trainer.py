@@ -116,5 +116,4 @@ class RecollectTrainer(BaseVLNCETrainer):
             clock = self.step_clock
             accum_step = build_il_accum_step(self.policy, self.optimizer, apply, **({"mark": clock.mark} if clock else {}))
             self._steps[apply] = lambda *batch: accum_step(float(accumulation), *batch)
-        return self._il_update(self._steps[apply], observations, prev_actions, masks, corrected, weights,
-                               resident=self._resident)
+        return self._il_update(self._steps[apply], observations, prev_actions, masks, corrected, weights)

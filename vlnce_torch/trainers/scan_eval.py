@@ -31,11 +31,16 @@ The measures are the host loop's: the recorded actions are replayed through
 the port's host VLNTask with no cameras (`metrics_from_actions`), so every
 measure comes from the same code as in the host eval loop.
 
+With `CUDA.FEATURE_BANK_DIR` the step looks the frozen features up in the
+scenes' precomputed banks (data/feature_bank.py) in place of rendering: the
+bank tensors are fixed per shape like the scenes, and each chunk copies its
+banks in. The banks' shapes and the episodes' coverage
+(`CUDA.FEATURE_BANK_MAX_DIST`) are checked when the loop starts.
+
 Left out of the JAX module: `_eval_mesh` (the card is one device, so there
-is no mesh and nothing is sharded), and the feature-bank route
-(`CUDA.FEATURE_BANK_DIR` raises, ROADMAP.md section A, 'Device-resident
-loops'). `VIDEO_OPTION` raises as in the host loop. Imported scene geometry
-(`SIMULATOR.GEOMETRY_DIR`) raises as the host simulator does.
+is no mesh and nothing is sharded). `VIDEO_OPTION` raises as in the host
+loop. Imported scene geometry (`SIMULATOR.GEOMETRY_DIR`) raises as the host
+simulator does.
 """
 
 from __future__ import annotations
@@ -44,11 +49,18 @@ import json
 import math
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from vlnce_torch.data.feature_bank import (
+    FeatureBankBatch,
+    check_bank_coverage,
+    load_bank_batch,
+    load_bank_shapes,
+    lookup_features,
+)
 from vlnce_torch.envs.device_sim import (
     SceneBatch,
     camera_specs_from_config,
@@ -74,13 +86,34 @@ _CACHE_ATTR = "_scan_segment_cache"
 _CACHE_MAX = 8
 
 
-def check_feature_bank(config, path: str) -> None:
-    """The feature-bank route (precomputed features in place of the renderer)
-    waits for real scenes and data/feature_bank.py: any non-default key
-    raises."""
-    if str(config.CUDA.FEATURE_BANK_DIR or "") or float(config.CUDA.FEATURE_BANK_MAX_DIST or 0.0):
-        raise _not_ported(f"CUDA.FEATURE_BANK_DIR / FEATURE_BANK_MAX_DIST (the feature-bank route of {path})",
-                          "'Device-resident loops'")
+def bank_setup(config, episodes) -> Optional[Tuple[str, float, tuple]]:
+    """The feature-bank route of a loop on the card: None without
+    CUDA.FEATURE_BANK_DIR, else (bank_dir, max_dist, (rgb_shape,
+    depth_shape)), after the shapes are read from the first episode's bank
+    and every episode's start is checked against the banks' coverage."""
+    bank_dir = str(config.CUDA.FEATURE_BANK_DIR or "")
+    if not bank_dir:
+        return None
+    max_dist = float(config.CUDA.FEATURE_BANK_MAX_DIST or 0.0)
+    shapes = load_bank_shapes(bank_dir, episodes[0])
+    check_bank_coverage(bank_dir, episodes, max_dist)
+    return bank_dir, max_dist, shapes
+
+
+def bank_key(setup: Optional[Tuple[str, float, tuple]], bank: Optional[FeatureBankBatch]) -> Optional[tuple]:
+    """What a segment's graph depends on in the bank route: the radius and the tensors' shapes."""
+    if setup is None:
+        return None
+    return (setup[1], tuple(bank.node_pos.shape), tuple(bank.rgb.shape), tuple(bank.depth.shape), bank.rgb_shape,
+            bank.depth_shape)
+
+
+def load_chunk_bank(setup: Tuple[str, float, tuple], chunk: List, device) -> FeatureBankBatch:
+    """A chunk's banks on `device` in one upload, of the shapes `bank_setup` read."""
+    bank = load_bank_batch(setup[0], chunk, device=device)
+    if (bank.rgb_shape, bank.depth_shape) != setup[2]:
+        raise ValueError(f"feature-bank shapes changed across chunks: {(bank.rgb_shape, bank.depth_shape)} vs {setup[2]}")
+    return bank
 
 
 def _check_supported(config) -> None:
@@ -97,7 +130,6 @@ def _check_supported(config) -> None:
             f"{_RXR_ACTIONS}, got {actions}"
         )
     check_scene_geometry(config.TASK_CONFIG.SIMULATOR)
-    check_feature_bank(config, "EVAL.ON_DEVICE_SCAN")
 
 
 def _episode_batch_arrays(episodes, instr_uuid: str = "instruction", task_cfg=None) -> Dict[str, np.ndarray]:
@@ -220,10 +252,13 @@ class ScanSegment:
     per `run()`, one read-back. Its state (poses, tilt, recurrent state,
     previous actions, done flags, the step counter g) and its inputs (the
     chunk's scenes and instructions, the segment's uniforms) are fixed
-    tensors on the policy's device; `load()` copies a chunk into them."""
+    tensors on the policy's device; `load()` copies a chunk into them. With
+    `bank` (a FeatureBankBatch) the step looks the frozen features up in it
+    in place of rendering."""
 
     def __init__(self, policy, transforms, specs, sim_cfg, deterministic: bool, seg_len: int, scenes: SceneBatch,
-                 instruction: torch.Tensor, instr_uuid: str = "instruction", use_tilt: bool = False, eager: bool = False):
+                 instruction: torch.Tensor, instr_uuid: str = "instruction", use_tilt: bool = False, eager: bool = False,
+                 bank: Optional[FeatureBankBatch] = None, bank_max_dist: float = 0.0):
         device = policy.device
         B = scenes.occupancy.shape[0]
         self.B, self.seg_len, self.device = B, seg_len, device
@@ -250,9 +285,13 @@ class ScanSegment:
         self.logits = torch.zeros(B, policy.num_actions, device=device)  # the last step's, for checks
         self.segments = self.readbacks = 0
         self.deterministic = deterministic
+        self.bank = None if bank is None else bank.clone()
 
         def compute():
-            obs = render_batch(self.scenes, self.pos, self.heading, specs, tilt=self.tilt if use_tilt else None)
+            if self.bank is not None:
+                obs = lookup_features(self.bank, self.pos, self.heading, max_dist=bank_max_dist)
+            else:
+                obs = render_batch(self.scenes, self.pos, self.heading, specs, tilt=self.tilt if use_tilt else None)
             obs[instr_uuid] = self.instruction
             obs["progress"] = progress_batch(self.scenes, self.pos)
             batch = apply_obs_transforms_batch(obs, transforms)
@@ -285,11 +324,14 @@ class ScanSegment:
 
         self.step = StepGraph(compute, commit, device, eager=eager)
 
-    def load(self, scenes: SceneBatch, instruction: torch.Tensor, pos: torch.Tensor, heading: torch.Tensor) -> None:
+    def load(self, scenes: SceneBatch, instruction: torch.Tensor, pos: torch.Tensor, heading: torch.Tensor,
+             bank: Optional[FeatureBankBatch] = None) -> None:
         """Start a chunk: its inputs into the segment's tensors, the state
         reset. Device copies only."""
         for dst, src in zip(self.scenes, scenes):
             dst.copy_(src)
+        if bank is not None:
+            self.bank.copy_(bank)
         self.instruction.copy_(instruction)
         self.pos.copy_(pos)
         self.heading.copy_(heading)
@@ -325,6 +367,7 @@ def run_scan_rollouts(policy, transforms, config, episodes: List, generator: Opt
     instr_uuid = str(getattr(config.MODEL.INSTRUCTION_ENCODER, "sensor_uuid", "instruction"))
     use_tilt = "LOOK_UP" in list(task_cfg.TASK.POSSIBLE_ACTIONS)
     device = policy.device
+    bank = bank_setup(config, episodes)
 
     all_actions: List[np.ndarray] = []
     t0 = time.perf_counter()
@@ -336,15 +379,17 @@ def run_scan_rollouts(policy, transforms, config, episodes: List, generator: Opt
         chunk = chunk + [chunk[-1]] * (B - real)  # a padded last chunk keeps the graph's shapes
         t_setup = time.perf_counter()
         scenes, arrays = chunk_tensors(chunk, instr_uuid, task_cfg, device)
+        chunk_bank = None if bank is None else load_chunk_bank(bank, chunk, device)
         setup_seconds += time.perf_counter() - t_setup
         key = ("eval", tuple(specs), B, seg_len, deterministic, instr_uuid, use_tilt,
                tuple(type(t).__name__ for t in transforms), tuple(scenes.occupancy.shape),
                tuple(arrays["instruction"].shape), task_cfg.SIMULATOR.FORWARD_STEP_SIZE, task_cfg.SIMULATOR.TURN_ANGLE,
-               eager)
+               eager, bank_key(bank, chunk_bank))
         segment = cached(policy, key, lambda: ScanSegment(
             policy, transforms, specs, task_cfg.SIMULATOR, deterministic, seg_len, scenes, arrays["instruction"],
-            instr_uuid=instr_uuid, use_tilt=use_tilt, eager=eager))
-        segment.load(scenes, arrays["instruction"], arrays["pos"], arrays["heading"])
+            instr_uuid=instr_uuid, use_tilt=use_tilt, eager=eager, bank=chunk_bank,
+            bank_max_dist=0.0 if bank is None else bank[1]))
+        segment.load(scenes, arrays["instruction"], arrays["pos"], arrays["heading"], chunk_bank)
         if counts is None:  # the segment may come from the cache, with counts of earlier calls
             counts = (segment.segments, segment.readbacks, segment.step.replays)
         collected = []
