@@ -108,44 +108,48 @@ def pair():
             "cfg": add_pano_sensors_to_config(cfg)}
 
 
-def _collector(pair, extra=(), **kwargs):
-    cfg = pair["cfg"]
+def _merged(cfg, extra):
     if extra:
         cfg = cfg.clone()
         cfg.defrost()
         cfg.merge_from_list(list(extra))
         cfg.freeze()
-    collector = DeviceRolloutCollector(pair["policy"], get_active_obs_transforms(cfg), cfg, N, **kwargs)
+    return cfg
+
+
+def _collector(pair, extra=(), num_envs=N, **kwargs):
+    cfg = _merged(pair["cfg"], extra)
+    collector = DeviceRolloutCollector(pair["policy"], get_active_obs_transforms(cfg), cfg, num_envs, **kwargs)
     collector.initial_carry_and_obs()
     return collector
 
 
 def _collect(collector, generator=None):
     """One rollout: (the batch as numpy, the episode stats, the episode rewards)."""
-    rewards = np.zeros((N, 1), np.float32)
-    stats = {"count": np.zeros((N, 1), np.float32)}
+    rewards = np.zeros((collector.B, 1), np.float32)
+    stats = {"count": np.zeros((collector.B, 1), np.float32)}
     batch, n = collector.collect_device(rewards, stats, generator)
-    assert n == T * N
+    assert n == collector.T * collector.B
     return _tree(batch), stats, rewards
 
 
-@pytest.fixture(scope="module")
-def greedy(pair):
-    """ROLLOUTS consecutive greedy rollouts of each package, each policy's
-    act wrapped on its instance to pass deterministic=True."""
+def _greedy_runs(pair, rollouts, num_envs=N, extra=(), jax_extra=()):
+    """`rollouts` consecutive greedy rollouts of each package, each policy's
+    act wrapped on its instance to pass deterministic=True; `extra` and
+    `jax_extra` are merged into the port's and JAX's configs."""
     jax_policy, policy = pair["jax_policy"], pair["policy"]
     jax_act, act = jax_policy._act_impl, policy.act
     jax_policy._act_impl = lambda p, o, r, pa, m, key, det: jax_act(p, o, r, pa, m, key, True)
     policy.act = lambda *a, **k: act(*a, **{**k, "deterministic": True})
     try:
-        jcfg = pair["jcfg"]
-        jax_collector = JaxCollector(jax_policy, jax_get_transforms(jcfg), jcfg, N)
+        jcfg = _merged(pair["jcfg"], jax_extra)
+        jax_collector = JaxCollector(jax_policy, jax_get_transforms(jcfg), jcfg, num_envs)
         jax_collector.initial_carry_and_obs()
-        collector = _collector(pair)
+        collector = _collector(pair, extra, num_envs)
         runs = {"jax": [], "port": []}
-        for r in range(ROLLOUTS):
-            rewards = np.zeros((N, 1), np.float32)
-            stats = {"count": np.zeros((N, 1), np.float32)}
+        for r in range(rollouts):
+            rewards = np.zeros((num_envs, 1), np.float32)
+            stats = {"count": np.zeros((num_envs, 1), np.float32)}
             batch, _ = jax_collector.collect_device(rewards, stats, jax.random.PRNGKey(r))
             carry = [_np(x) for x in jax.tree_util.tree_leaves(jax_collector._carry)]
             runs["jax"].append((_tree(batch), stats, rewards, list(jax_collector._slot_ptr), carry))
@@ -157,12 +161,19 @@ def greedy(pair):
     return runs, collector
 
 
+@pytest.fixture(scope="module")
+def greedy(pair):
+    """ROLLOUTS consecutive greedy rollouts of each package."""
+    return _greedy_runs(pair, ROLLOUTS)
+
+
 def _close(got, want, name):
     np.testing.assert_allclose(got, want.reshape(got.shape), rtol=RTOL, atol=ATOL, err_msg=name)
 
 
-def test_greedy_collect_device_matches_jax(greedy):
-    runs, collector = greedy
+def _assert_greedy_runs_match(runs):
+    """Each rollout's batch, episode stats and rewards, slot pointers and
+    final carry equal JAX's; returns the rollouts' pano actions."""
     panos = []
     for r, (port, ref) in enumerate(zip(runs["port"], runs["jax"])):
         batch, stats, rewards, slot_ptr, state = port
@@ -195,11 +206,81 @@ def test_greedy_collect_device_matches_jax(greedy):
         for name, ref_v in zip(names, jcarry):  # the JAX carry's leaves, prev actions in key order
             _close(state[name].astype(np.float64), ref_v.astype(np.float64), f"rollout {r} carry {name}")
         panos.append(batch["actions"]["pano"])
-    panos = np.concatenate(panos)
+    return np.concatenate(panos)
+
+
+def test_greedy_collect_device_matches_jax(greedy):
+    runs, collector = greedy
+    panos = _assert_greedy_runs_match(runs)
     # the rollouts moved, STOPped, and reset inside a rollout (MAX_EPISODE_STEPS 2 < T)
     assert (panos == 12).any() and (panos < 12).any()
     assert any((run[0]["masks"][1:] == 0).any() for run in runs["port"])
     assert collector.rollouts == collector.readbacks == ROLLOUTS and collector.replays == ROLLOUTS * T
+
+
+# grid sizes of the train split's four scenes: three sizes, the largest
+# only in scene 3, so that a queue without it pads to a smaller grid
+MIXED_SIZES = {"synth_scene_0": 20.0, "synth_scene_1": 24.0, "synth_scene_2": 20.0, "synth_scene_3": 28.0}
+
+
+@pytest.mark.parametrize("source", ["bank", "queue"])
+def test_greedy_collect_device_on_imported_scenes_of_mixed_sizes_matches_jax(pair, tmp_path, monkeypatch, source):
+    """The train split's scenes imported as lattice exports of three grid
+    sizes, one slot, T=2, three rollouts: greedy rollouts of both packages
+    agree, from the episode bank and from per-rollout queues. Both pad the
+    bank to the split's largest grid and a queue to its own largest
+    (blocked, +inf, `nearest` edge-repeated); the padded size is part of
+    the result (walls are shaded by the grid's width), and the first queue
+    (scenes 0, 1, 2) pads to a smaller grid than the later ones."""
+    import vlnce_tpu.rl.device_rollout as jax_device_rollout
+    import vlnce_torch.rl.device_rollout as device_rollout
+    from vlnce_tpu.envs import scene_import as jax_scene_import
+    from vlnce_tpu.envs.gridworld import get_scene as jax_get_scene
+    from vlnce_torch.envs.gridworld import get_scene
+    from vlnce_torch.tasks.datasets import make_dataset
+
+    from tests.torch_port_cases import SceneRegistrySnapshot, assert_imported, export_synthetic_geometry
+
+    geometry = tmp_path / "geometry"
+    opts = ["RL.PPO.num_steps", 2, "TASK_CONFIG.DATASET.NUM_EPISODES", 8,
+            "TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", str(geometry)]
+    bank = ("EPISODE_BANK_MAX", 8192 if source == "bank" else 2)
+    grids = {"jax": [], "port": []}
+    builders = {"jax": jax_device_rollout.build_episode_queue, "port": device_rollout.build_episode_queue}
+    for name, module in (("jax", jax_device_rollout), ("port", device_rollout)):
+        def record_grid(*args, _build=builders[name], _grids=grids[name]):
+            queue = _build(*args)
+            _grids.append(queue.occupancy.shape[-1])
+            return queue
+
+        monkeypatch.setattr(module, "build_episode_queue", record_grid)
+    with SceneRegistrySnapshot():
+        dataset = _merged(pair["cfg"], opts).TASK_CONFIG.DATASET
+        scene_ids = sorted({e.scene_id for e in make_dataset(dataset.TYPE, dataset).episodes})
+        export_synthetic_geometry(str(geometry), scene_ids, MIXED_SIZES)
+        runs, collector = _greedy_runs(pair, 3, num_envs=1, extra=opts + ["CUDA." + bank[0], bank[1]],
+                                       jax_extra=opts + ["TPU." + bank[0], bank[1]])
+        assert_imported(scene_ids)
+        assert all(isinstance(jax_get_scene(s), jax_scene_import.ImportedScene) for s in scene_ids)
+        sizes = [get_scene(s).n for s in scene_ids]
+        # the padded arrays themselves, fills and `nearest`'s edge included:
+        # the bank, or a queue whose slots pad scenes 0, 1, 2 to scene 3's grid
+        eps = collector._slot_streams[0]
+        slots = [eps] if source == "bank" else [eps[0:3], eps[3:6]]
+        got, want = builders["port"](slots, "cpu"), builders["jax"](slots)
+        for field in device_rollout.EpisodeQueue._fields:
+            np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)), err_msg=field)
+        assert got.occupancy.shape[-1] == max(sizes) and bool(got.occupancy[0, 0, -1, -1])
+    assert len(set(sizes)) == 3 and (collector._bank_episodes is None) == (source == "queue")
+    _assert_greedy_runs_match(runs)
+    assert any((run[0]["masks"] == 0).any() for run in runs["port"][1:])  # a slot reset between rollouts
+    assert grids["port"] == grids["jax"]
+    if source == "bank":
+        assert grids["port"] == [max(sizes)] and collector.builds == 1
+    else:
+        assert len(grids["port"]) == 3 and grids["port"][0] < max(sizes) == grids["port"][-1]
+        assert collector.builds == len(set(grids["port"])) == len(collector._graphs)
+    assert collector.replays == 3 * 2
 
 
 def test_bank_and_per_rollout_queue_give_the_same_batch(pair):

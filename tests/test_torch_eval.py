@@ -34,6 +34,7 @@ from vlnce_tpu.utils.checkpoints import save_checkpoint as jax_save_checkpoint
 import vlnce_torch.tasks  # noqa: F401
 from vlnce_tpu.tasks import sensors as jax_sensors
 from vlnce_torch.tasks import sensors as port_sensors
+from vlnce_torch.config import get_config
 from vlnce_torch.envs import Env
 from vlnce_torch.envs.batch import stack_obs
 from vlnce_torch.models.convert import state_dict_from_jax_params
@@ -250,19 +251,96 @@ def test_eval_polls_a_directory_in_mtime_order(tmp_path, checkpoints):
     assert sorted(os.listdir(tmp_path / "evals")) == ["stats_ckpt_0_val_unseen.json", "stats_ckpt_1_val_unseen.json"]
 
 
+def test_eval_of_a_directory_of_jax_checkpoints(tmp_path, checkpoints):
+    """`run --run-type eval` over a directory of files the JAX package wrote
+    (`.ckpt` and `.msgpack`, both flax msgpack) gives the JAX eval's measures.
+    The files carry a config that differs from the run's (6 steps per
+    episode against 12) and EVAL.USE_CKPT_CONFIG is on: both packages
+    evaluate under the file's config."""
+    import os
+    import shutil
+
+    jax_path, _ = checkpoints
+    params = _jax_params(jax_path)
+    file_cfg = _jax_config(_loop_opts(tmp_path, ["TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 6]))
+    ckpts = tmp_path / "jax_ckpts"
+    jax_save_checkpoint(str(ckpts / "ckpt.0.ckpt"), params, config=file_cfg)
+    shutil.copy(ckpts / "ckpt.0.ckpt", ckpts / "ckpt.1.msgpack")
+    for age, name in enumerate(["ckpt.0.ckpt", "ckpt.1.msgpack"]):
+        os.utime(ckpts / name, (3000 + age, 3000 + age))
+
+    jax_trainer = _MarginRecordingJaxTrainer(_jax_config(_loop_opts(tmp_path, [
+        "EVAL.USE_CKPT_CONFIG", True, "RESULTS_DIR", str(tmp_path / "jax_evals")])))
+    jax_stats = jax_trainer._eval_checkpoint(str(ckpts / "ckpt.0.ckpt"), _NullWriter(), 0)
+    jax_episodes = jax_trainer._last_eval_episode_stats
+    assert np.concatenate(jax_trainer.margins).min() > 1e-3
+
+    trainer = run_exp(RXR_CMA, "eval", SMALL_OPTS + _loop_opts(tmp_path, [
+        "CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32", "EVAL.USE_CKPT_CONFIG", True,
+        "RESULTS_DIR", str(tmp_path / "port_evals"), "EVAL_CKPT_PATH_DIR", str(ckpts)]))
+    assert sorted(os.listdir(tmp_path / "port_evals")) == ["stats_ckpt_0_val_unseen.json", "stats_ckpt_1_val_unseen.json"]
+    episodes = trainer._last_eval_episode_stats
+    assert list(episodes) == list(jax_episodes)
+    # the file's config ran: no episode took more than its 6 steps, some took all of them
+    assert max(s["steps_taken"] for s in episodes.values()) == 6
+    for ep_id, stats in episodes.items():
+        for k in MEASURES:
+            np.testing.assert_allclose(stats[k], jax_episodes[ep_id][k], rtol=0, atol=1e-6, err_msg=f"episode {ep_id} {k}")
+    for index in (0, 1):
+        with open(tmp_path / "port_evals" / f"stats_ckpt_{index}_val_unseen.json") as f:
+            written = json.load(f)
+        for k in MEASURES:
+            np.testing.assert_allclose(written[k], jax_stats[k], rtol=0, atol=1e-6)
+
+
+def _jax_params(path):
+    from vlnce_tpu.utils.checkpoints import load_checkpoint as jax_load_checkpoint
+
+    return jax_load_checkpoint(path)["state_dict"]
+
+
 @pytest.mark.parametrize("opts,match", [
-    # the scan eval and its feature-bank route run since the device-resident loops came; imported scene geometry waits
-    pytest.param(["EVAL.ON_DEVICE_SCAN", True, "TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", "data/scene_geometry"],
+    # the scan eval and its feature-bank route run since the device-resident loops came, and on imported scene
+    # geometry since the scene import came: the case runs the scan eval on an export of the split's scenes
+    pytest.param(["EVAL.ON_DEVICE_SCAN", True, "TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", "{geometry}"],
                  "GEOMETRY_DIR", id="opts0-ON_DEVICE_SCAN"),
     (["VIDEO_OPTION", ["disk"]], "VIDEO_OPTION"),
+    # the nonlearning agents run since their port came
     (["EVAL.EVAL_NONLEARNING", True], "nonlearning"),
 ])
 def test_parts_that_wait_raise_and_name_the_roadmap(tmp_path, checkpoints, opts, match):
+    """VIDEO_OPTION waits for the video path and raises naming the roadmap.
+    The other two cases raised so until their parts came, and now run: the
+    scan eval over imported geometry (every scene it ran is an ImportedScene
+    away from the origin, not the procedural fallback of a missing export)
+    and the nonlearning agent's eval, each writing its stats file."""
+    from vlnce_torch.tasks.datasets import make_dataset
+
+    from tests.torch_port_cases import SceneRegistrySnapshot, assert_imported, export_synthetic_geometry
+
     _, port_path = checkpoints
-    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP.md section A"):
-        run_exp(RXR_CMA, "eval", SMALL_OPTS + _loop_opts(tmp_path, [
-            "CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32",
-            "RESULTS_DIR", str(tmp_path / "evals"), "EVAL_CKPT_PATH_DIR", port_path, *opts]))
+    opts = [str(tmp_path / "geometry") if o == "{geometry}" else o for o in opts]
+    run_opts = SMALL_OPTS + _loop_opts(tmp_path, [
+        "CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32",
+        "RESULTS_DIR", str(tmp_path / "evals"), "EVAL_CKPT_PATH_DIR", port_path, *opts])
+    if match == "VIDEO_OPTION":
+        with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP.md section A"):
+            run_exp(RXR_CMA, "eval", run_opts)
+        return
+    with SceneRegistrySnapshot():
+        if match == "GEOMETRY_DIR":
+            split = get_config(RXR_CMA, run_opts).TASK_CONFIG.DATASET.clone()
+            split.defrost()
+            split.SPLIT = "val_unseen"
+            scene_ids = {e.scene_id for e in make_dataset(split.TYPE, split).episodes}
+            export_synthetic_geometry(str(tmp_path / "geometry"), scene_ids)
+        trainer = run_exp(RXR_CMA, "eval", run_opts)
+        if match == "GEOMETRY_DIR":
+            assert trainer.last_loop_timing["env_steps"] > 0
+            assert_imported(scene_ids)
+            assert (tmp_path / "evals" / "stats_ckpt_0_val_unseen.json").exists()
+        else:
+            assert trainer is None and (tmp_path / "evals" / "stats_RandomAgent_val_unseen.json").exists()
 
 
 def test_trainer_checkpoint_carries_its_config_into_eval(tmp_path, checkpoints):

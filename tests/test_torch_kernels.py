@@ -638,10 +638,11 @@ def test_device_sim_on_the_card_matches_the_cpu():
 # ---------------------------------------------------------------------------
 
 
-def _rollout_case(dev):
+def _rollout_case(dev, extra=()):
     """The synthetic waypoint config at 32x32 frames on `dev` in f32 (2
-    slots, 4 steps, episodes of at most 3 waypoints), its policy with the
-    stop head spread so that some steps STOP, and the obs transforms."""
+    slots, 4 steps, episodes of at most 3 waypoints; `extra` overrides),
+    its policy with the stop head spread so that some steps STOP, and the
+    obs transforms."""
     from vlnce_torch.config import get_config
     from vlnce_torch.config.default import add_pano_sensors_to_config
     from vlnce_torch.envs import spaces
@@ -650,7 +651,7 @@ def _rollout_case(dev):
 
     cfg = add_pano_sensors_to_config(get_config("vlnce_torch/config/experiments/synthetic/smoke_waypoint.yaml", [
         "CUDA.DEVICE", str(dev), "CUDA.PRECISION.compute_dtype", "float32", "NUM_ENVIRONMENTS", 2, "RL.PPO.num_steps", 4,
-        "RL.PPO.num_mini_batch", 2, "TASK_CONFIG.DATASET.NUM_EPISODES", 6, "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 3]))
+        "RL.PPO.num_mini_batch", 2, "TASK_CONFIG.DATASET.NUM_EPISODES", 6, "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 3, *extra]))
     img = (32, 32)
     space = spaces.Dict({
         "rgb": spaces.Box(0, 255, (12,) + img + (3,), np.uint8), "depth": spaces.Box(0.0, 1.0, (12,) + img + (1,), np.float32),
@@ -712,6 +713,52 @@ def test_rollout_graph_matches_eager():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(stats).all())
+
+
+@pytest.mark.cuda
+def test_rollout_graphs_per_grid_size_match_eager(tmp_path, monkeypatch):
+    """DD-PPO's rollout over the synthetic split's four scenes imported as
+    lattice exports of three grid sizes, from per-rollout queues
+    (CUDA.EPISODE_BANK_MAX 2), one slot, T=2, episodes of at most 2 steps:
+    each queue pads to its own largest grid, so the first rollout (scenes
+    0, 1, 2) and the later ones (scene 3 among them) run on two pairs of
+    graphs, captured per size; the graphed rollouts against the same run
+    eagerly, as test_rollout_graph_matches_eager holds them."""
+    from vlnce_torch.envs import device_sim, gridworld
+    from vlnce_torch.envs.scene_import import ImportedScene, save_scene_geometry, scene_from_graph
+    from vlnce_torch.rl.device_rollout import DeviceRolloutCollector
+    from vlnce_torch.utils.nav_graph import LatticeGraph
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.setattr(gridworld, "_SCENE_PROVIDERS", list(gridworld._SCENE_PROVIDERS))
+    monkeypatch.setattr(gridworld, "_REGISTERED_SCENES", dict(gridworld._REGISTERED_SCENES))
+    monkeypatch.setattr(device_sim, "_NEAREST_FREE_CACHE", {})  # the procedural scenes' maps, by the same ids
+    for k, size in enumerate((20.0, 24.0, 20.0, 28.0)):
+        stem = f"synth_scene_{k}"
+        save_scene_geometry(str(tmp_path / f"{stem}.npz"), scene_from_graph(stem, LatticeGraph(-2.0, -2.0, size, size, 1.0)))
+    cfg, policy, transforms = _rollout_case(dev, [
+        "NUM_ENVIRONMENTS", 1, "RL.PPO.num_steps", 2, "TASK_CONFIG.DATASET.NUM_EPISODES", 8,
+        "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 2, "CUDA.EPISODE_BANK_MAX", 2,
+        "TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", str(tmp_path)])
+    runs = {}
+    for eager in (False, True):
+        c = DeviceRolloutCollector(policy, transforms, cfg, 1, eager=eager)
+        c.initial_carry_and_obs()
+        gen = torch.Generator(device=dev).manual_seed(5)
+        runs[eager] = [{k: (v.clone() if not isinstance(v, dict) else {a: b.clone() for a, b in v.items()})
+                        for k, v in c.collect_device(np.zeros((1, 1), np.float32), {}, gen)[0].items()} for _ in range(3)]
+        assert c._bank_episodes is None and c.builds == len(c._graphs) == 2 and c.replays == 6
+        assert all((step.graph is None) == eager and (boot.graph is None) == eager for _, step, boot in c._graphs.values())
+    for k in range(4):
+        scene = gridworld.get_scene(f"synthetic/synth_scene_{k}.glb")
+        assert isinstance(scene, ImportedScene) and scene.origin != (0.0, 0.0)
+    for g, e in zip(runs[False], runs[True]):
+        for k in g["actions"]:
+            np.testing.assert_allclose(g["actions"][k].cpu().numpy(), e["actions"][k].cpu().numpy(), rtol=0, atol=1e-5, err_msg=k)
+        assert torch.equal(g["actions"]["pano"], e["actions"]["pano"]) and torch.equal(g["masks"], e["masks"])
+        for k in ("value_preds", "old_log_probs", "rewards", "returns", "advantages"):
+            np.testing.assert_allclose(g[k].cpu().numpy(), e[k].cpu().numpy(), rtol=0, atol=1e-5, err_msg=k)
 
 
 _RXR_SMALL = [
@@ -914,3 +961,75 @@ def test_feature_bank_route_graph_matches_eager(tmp_path):
     want = feature_bank.lookup_features(host, pos, heading, max_dist=2.2)
     for k in got:
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# imported scene geometry on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_imported_scene_scan_step_graph_matches_eager_plain(tmp_path, monkeypatch):
+    """Scan eval over two imported scenes (lattice exports in frames away
+    from the origin, of two grid sizes: one chunk and one graph each) with
+    the resize transform on, so that B1 and B2 both run in the step: the
+    step captured in a CUDA graph through the kernels against the same step
+    run eagerly with their plain versions (TF32 off), the same greedy
+    actions; every scene run is an ImportedScene."""
+    import vlnce_torch.models.rnn_state_encoder as rse
+    import vlnce_torch.ops.obs_transforms as ot
+    from vlnce_torch.config import get_config
+    from vlnce_torch.envs import gridworld
+    from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
+    from vlnce_torch.models.cma_policy import CMAPolicy
+    from vlnce_torch.envs.scene_import import ImportedScene, apply_scene_geometry, save_scene_geometry, scene_from_graph
+    from vlnce_torch.ops.obs_transforms import apply_obs_transforms_obs_space, get_active_obs_transforms
+    from vlnce_torch.tasks.episodes import InstructionData, NavigationGoal, VLNEpisode
+    from vlnce_torch.tasks.geometry import quat_from_heading
+    from vlnce_torch.trainers.scan_eval import run_scan_rollouts
+    from vlnce_torch.utils.nav_graph import LatticeGraph
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.setattr(gridworld, "_SCENE_PROVIDERS", list(gridworld._SCENE_PROVIDERS))
+    monkeypatch.setattr(gridworld, "_REGISTERED_SCENES", dict(gridworld._REGISTERED_SCENES))
+    boxes = {"imported/lattice_a.glb": (-21.0, 13.0, 16.0, 16.0), "imported/lattice_b.glb": (7.0, -31.0, 24.0, 24.0)}
+    episodes, rng = [], np.random.RandomState(0)
+    for scene_id, box in boxes.items():
+        graph = LatticeGraph(*box)
+        stem = scene_id.split("/")[-1][:-4]
+        save_scene_geometry(str(tmp_path / f"{stem}.npz"), scene_from_graph(stem, graph))
+        nodes = [np.asarray(d["position"]) for d in graph.nodes.values()]
+        for i in range(4):
+            a, b = rng.choice(len(nodes), 2, replace=False)
+            episodes.append(VLNEpisode(
+                episode_id=f"{stem}_{i}", trajectory_id=str(i), scene_id=scene_id,
+                start_position=[float(x) for x in nodes[a]],
+                start_rotation=[float(x) for x in quat_from_heading(rng.uniform(0, 2 * np.pi))],
+                instruction=InstructionData(instruction_text="walk", instruction_tokens=[2, 6, 9, 3]),
+                goals=[NavigationGoal(position=[float(x) for x in nodes[b]], radius=3.0)],
+                reference_path=[[float(x) for x in nodes[a]], [float(x) for x in nodes[b]]]))
+    cfg = get_config("vlnce_torch/config/experiments/r2r_baselines/cma_pm_da_aug_tune.yaml", _R2R_SMALL + [
+        "CUDA.DEVICE", str(dev), "TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", str(tmp_path), "EVAL.SCAN_BATCH", 4,
+        "EVAL.SCAN_SEGMENT", 6, "RL.POLICY.OBS_TRANSFORMS.ENABLED_TRANSFORMS", ["ResizeShortestEdge"],
+        "RL.POLICY.OBS_TRANSFORMS.RESIZE_SHORTEST_EDGE.SIZE", 24])
+    transforms = get_active_obs_transforms(cfg)
+    space = apply_obs_transforms_obs_space(observation_space_from_config(cfg.TASK_CONFIG), transforms)
+    policy = CMAPolicy.from_config(cfg, space, action_space_from_config(cfg.TASK_CONFIG))
+    with torch.no_grad():
+        policy.action_distribution.linear.weight.mul_(300.0)
+        policy.action_distribution.linear.bias.copy_(torch.tensor([-0.5, 1.0, 0.5, 0.5]))
+    assert len(transforms) == 1
+    apply_scene_geometry(cfg.TASK_CONFIG.SIMULATOR)
+    stats, actions = {}, {}
+    actions["graph"] = run_scan_rollouts(policy, transforms, cfg, episodes, stats=stats)
+    monkeypatch.setattr(rse, "gru_sequence", gru_sequence_plain)
+    monkeypatch.setattr(ot, "fused_resize_normalize", fused_resize_normalize_plain)
+    actions["plain"] = run_scan_rollouts(policy, transforms, cfg, episodes, eager=True)
+    assert stats["graph"] and stats["captures"] == 2
+    assert stats["capture_launches"] == {"gru_sequence": 2, "fused_resize_normalize": 2}
+    assert [a.tolist() for a in actions["graph"]] == [a.tolist() for a in actions["plain"]]
+    assert any(len(a) > 1 for a in actions["graph"])
+    for scene_id in boxes:
+        scene = gridworld.get_scene(scene_id)
+        assert isinstance(scene, ImportedScene) and scene.origin != (0.0, 0.0)

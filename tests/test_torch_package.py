@@ -16,7 +16,7 @@ from tests.torch_port_cases import JAX_RXR_CMA, RXR_CMA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "vlnce_tpu", "gymnasium", "attr", "tqdm", "cv2", "msgpack", "lmdb")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "vlnce_tpu", "gymnasium", "attr", "tqdm", "cv2", "msgpack", "lmdb", "networkx")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -55,6 +55,10 @@ NEW_MODULES = [
     "vlnce_torch.envs.device_sim", "vlnce_torch.trainers.scan_eval", "vlnce_torch.trainers.device_dagger",
     # the trajectory bank on the card and the feature-bank route
     "vlnce_torch.data.device_bank", "vlnce_torch.data.feature_bank",
+    # the JAX package's checkpoints, the nonlearning agents, scene import and the command-line tools
+    "vlnce_torch.utils.msgpack_reader", "vlnce_torch.trainers.nonlearning_agents", "vlnce_torch.utils.nav_graph",
+    "vlnce_torch.envs.scene_import", "vlnce_torch.scripts", "vlnce_torch.scripts.ckpt_to_interrupted_state",
+    "vlnce_torch.scripts.export_scene_geometry", "vlnce_torch.scripts.generate_feature_bank",
 ]
 
 
@@ -99,12 +103,23 @@ def test_rxr_observation_space_after_transforms():
 
 def test_r2r_cma_configs_match_jax():
     """The port's copies of the R2R experiment YAMLs (ten CMA, seven
-    Seq2Seq) give the JAX package's model and IL settings, and point at the
-    port's task YAMLs; the nonlearning ones are not ported yet."""
+    Seq2Seq, the nonlearning agents' and the test-set inference's) give the
+    JAX package's model and IL settings, and point at the port's task YAMLs;
+    the two others equal the JAX package's outside the CUDA / TPU sections."""
     names = sorted(f for f in os.listdir(os.path.join(REPO, "vlnce_torch/config/experiments/r2r_baselines")))
-    assert len(names) == 17 and sum(n.startswith("cma") for n in names) == 10
+    assert names == sorted(os.listdir(os.path.join(REPO, "vlnce_tpu/config/experiments/r2r_baselines")))
+    assert len(names) == 19 and sum(n.startswith("cma") for n in names) == 10
     assert sum(n.startswith("seq2seq") for n in names) == 7
+    for name in ("nonlearning.yaml", "test_set_inference.yaml"):
+        jcfg = jax_get_config(f"vlnce_tpu/config/experiments/r2r_baselines/{name}").to_dict()
+        cfg = get_config(f"vlnce_torch/config/experiments/r2r_baselines/{name}").to_dict()
+        jcfg.pop("TPU"), cfg.pop("CUDA")
+        jcfg["BASE_TASK_CONFIG_PATH"] = jcfg["BASE_TASK_CONFIG_PATH"].replace("vlnce_tpu/", "vlnce_torch/")
+        assert json.dumps(cfg, sort_keys=True) == json.dumps(jcfg, sort_keys=True), name
+    assert get_config("vlnce_torch/config/experiments/r2r_baselines/nonlearning.yaml").EVAL.EVAL_NONLEARNING is True
     for name in names:
+        if name in ("nonlearning.yaml", "test_set_inference.yaml"):
+            continue
         jcfg = jax_get_config(f"vlnce_tpu/config/experiments/r2r_baselines/{name}")
         cfg = get_config(f"vlnce_torch/config/experiments/r2r_baselines/{name}")
         assert cfg.BASE_TASK_CONFIG_PATH == jcfg.BASE_TASK_CONFIG_PATH.replace("vlnce_tpu/", "vlnce_torch/")
@@ -175,28 +190,40 @@ def test_waypoint_configs_match_jax():
         get_config("vlnce_torch/config/experiments/r2r_waypoint/1-wpn-cc.yaml", ["TPU.ON_DEVICE_ROLLOUT", True])
 
 
-def test_resident_rl_keys_raise_naming_the_roadmap_heading(monkeypatch):
+def test_resident_rl_keys_raise_naming_the_roadmap_heading(monkeypatch, tmp_path):
     """CUDA.ON_DEVICE_ROLLOUT and CUDA.PPO_UPDATE_SCAN (the rollout on the
     card and the enqueued PPO update) train since their slice came
-    (tests/test_torch_device_rollout.py); imported scene geometry, which the
-    rollout would render, is not ported: with it they raise naming the
-    roadmap's heading, and no env pool is built."""
-    import pytest
-
+    (tests/test_torch_device_rollout.py), and since the scene import came
+    they train on imported scene geometry too: each trains one update on an
+    export of every scene of the split (in a frame away from the origin),
+    builds no env pool, and writes its checkpoint. (Until then both raised
+    here naming the roadmap's heading.)"""
     import vlnce_torch.trainers  # noqa: F401
     from vlnce_torch.envs import rl_envs  # noqa: F401
     from vlnce_torch.registry import registry
+    from vlnce_torch.tasks.datasets import make_dataset
     from vlnce_torch.trainers import ddppo_waypoint_trainer
+
+    from tests.torch_port_cases import SceneRegistrySnapshot, assert_imported, export_synthetic_geometry
 
     def no_pool(*args, **kwargs):
         raise AssertionError("the env pool was constructed")
 
     monkeypatch.setattr(ddppo_waypoint_trainer, "construct_envs", no_pool)
     for key in ("ON_DEVICE_ROLLOUT", "PPO_UPDATE_SCAN"):
-        cfg = get_config("vlnce_torch/config/experiments/synthetic/smoke_waypoint.yaml",
-                         ["CUDA.DEVICE", "cpu", "CUDA.ON_DEVICE_ROLLOUT", True, f"CUDA.{key}", True,
-                          "TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", "data/scene_geometry"])
-        trainer = registry.get_trainer("ddppo-waypoint")(cfg)
-        with pytest.raises(NotImplementedError, match="GEOMETRY_DIR.*ROADMAP.md section A, 'Left by the serving slice'"):
+        with SceneRegistrySnapshot():
+            cfg = get_config("vlnce_torch/config/experiments/synthetic/smoke_waypoint.yaml", [
+                "CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32", "CUDA.ON_DEVICE_ROLLOUT", True,
+                f"CUDA.{key}", True, "TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", str(tmp_path / key / "geometry"),
+                "CHECKPOINT_FOLDER", str(tmp_path / key / "ckpts"), "RL.NUM_UPDATES", 1, "RL.PPO.num_steps", 2,
+                "TASK_CONFIG.DATASET.NUM_EPISODES", 4,
+                "TASK_CONFIG.SIMULATOR.RGB_SENSOR.HEIGHT", 16, "TASK_CONFIG.SIMULATOR.RGB_SENSOR.WIDTH", 16,
+                "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT", 16, "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH", 16,
+            ])
+            scene_ids = {e.scene_id for e in make_dataset(cfg.TASK_CONFIG.DATASET.TYPE, cfg.TASK_CONFIG.DATASET).episodes}
+            export_synthetic_geometry(str(tmp_path / key / "geometry"), scene_ids)
+            trainer = registry.get_trainer("ddppo-waypoint")(cfg)
             trainer.train()
-        assert trainer.envs is None
+            assert trainer.envs is None and trainer.collector is not None and trainer.collector.rollouts == 1
+            assert_imported(scene_ids)
+            assert os.path.exists(tmp_path / key / "ckpts" / "ckpt.0.ckpt")

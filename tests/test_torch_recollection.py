@@ -256,23 +256,34 @@ def test_preload_holds_whole_episodes_of_their_gt_length(start, tmp_path):
 
 @pytest.mark.parametrize("key", ["ON_DEVICE_RECOLLECT", "RECOLLECT_RESIDENT"])
 def test_device_resident_keys_raise_naming_the_roadmap(start, tmp_path, key, monkeypatch):
-    # recollection on the card trains since its slice came (tests/test_torch_device_recollect.py);
-    # imported scene geometry, which it would render, is not ported: with it the device path
-    # raises naming the roadmap, before any env pool is built
+    # recollection on the card trains since its slice came (tests/test_torch_device_recollect.py), and on imported
+    # scene geometry since the scene import came (until then it raised here naming the roadmap): the shortest-path
+    # oracle's GT trajectories over an export of every scene of the split (host envs), then one epoch rendered on
+    # the card, with no env pool
     from vlnce_torch.data import recollection
+    from vlnce_torch.tasks.datasets import make_dataset
+
+    from tests.torch_port_cases import SceneRegistrySnapshot, assert_imported, export_synthetic_geometry
 
     def no_pool(*args, **kwargs):
         raise AssertionError("the env pool was constructed")
 
-    monkeypatch.setattr(recollection, "construct_envs", no_pool)
-    trajectories = tmp_path / "trajectories.json.gz"
-    with gzip.open(trajectories, "wt") as f:
-        json.dump({"0": [[0, 1, 1], [1, 0, 0]]}, f)
-    trainer = registry.get_trainer("recollect_trainer")(_config(tmp_path, start["torch_ckpt"], [
-        "CUDA.ON_DEVICE_RECOLLECT", True, f"CUDA.{key}", True, "TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", "data/scene_geometry",
-        "IL.RECOLLECT_TRAINER.preload_trajectories_file", True, "IL.RECOLLECT_TRAINER.trajectories_file", str(trajectories)]))
-    with pytest.raises(NotImplementedError, match="GEOMETRY_DIR.*ROADMAP.md section A, 'Left by the serving slice'"):
+    geometry = ["TASK_CONFIG.SIMULATOR.GEOMETRY_DIR", str(tmp_path / "geometry")]
+    with SceneRegistrySnapshot():
+        cfg = _config(tmp_path, start["torch_ckpt"], geometry)
+        scene_ids = {e.scene_id for e in make_dataset(cfg.TASK_CONFIG.DATASET.TYPE, cfg.TASK_CONFIG.DATASET).episodes}
+        export_synthetic_geometry(str(tmp_path / "geometry"), scene_ids)
+        trajectories = tmp_path / "trajectories.json.gz"
+        with gzip.open(trajectories, "wt") as f:
+            json.dump(_collector(TeacherRecollectionDataset, cfg).collect_dataset(), f)
+        monkeypatch.setattr(recollection, "construct_envs", no_pool)
+        trainer = registry.get_trainer("recollect_trainer")(_config(tmp_path, start["torch_ckpt"], geometry + [
+            "CUDA.ON_DEVICE_RECOLLECT", True, f"CUDA.{key}", True,
+            "IL.RECOLLECT_TRAINER.preload_trajectories_file", True, "IL.RECOLLECT_TRAINER.trajectories_file", str(trajectories)]))
         trainer.train()
+        assert_imported(scene_ids)
+    assert trainer.resimulation["episodes"] >= EPISODES and np.isfinite(np.array([h[1:] for h in trainer.loss_history])).all()
+    assert load_checkpoint(str(tmp_path / "checkpoints" / "ckpt.0.ckpt"))["extra_state"]["epoch"] == 0
 
 
 @pytest.mark.parametrize("accumulation", [1, 2])

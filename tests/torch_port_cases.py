@@ -8,6 +8,8 @@ perturbed from a numpy seed so that no parameter keeps a trivial value; the
 port gets those weights through `state_dict_from_jax_params`.
 """
 
+import copy
+
 import numpy as np
 import torch
 from gymnasium import spaces as gym_spaces
@@ -417,3 +419,72 @@ def waypoint_prev_actions(rng, shape, wypt_cfg):
                 if wypt_cfg.continuous_distance else rng.randint(0, wypt_cfg.discrete_distances, shape + (1,)))
     return {"pano": rng.randint(0, 13, shape + (1,)).astype(np.float32), "offset": offset.astype(np.float32),
             "distance": distance.astype(np.float32)}
+
+
+# ---------------------------------------------------------------------------
+# imported scene geometry (envs/scene_import.py)
+# ---------------------------------------------------------------------------
+
+
+def export_synthetic_geometry(geometry_dir, scene_ids, sizes=None):
+    """An export for each scene id: a 1 m lattice from -2 m to -2 + size m on
+    both axes, size 20 unless `sizes` maps the scene's stem to another (so
+    every synthetic episode's integer start and goal lies on a node), in a
+    frame whose grid origin is (-3, -3), not 0. Returns the stems."""
+    import os
+
+    from vlnce_torch.envs.scene_import import _scene_stem, save_scene_geometry, scene_from_graph
+    from vlnce_torch.utils.nav_graph import LatticeGraph
+
+    stems = sorted({_scene_stem(s) for s in scene_ids})
+    for stem in stems:
+        size = (sizes or {}).get(stem, 20.0)
+        save_scene_geometry(os.path.join(geometry_dir, f"{stem}.npz"),
+                            scene_from_graph(stem, LatticeGraph(-2.0, -2.0, size, size, 1.0)))
+    return stems
+
+
+def assert_imported(scene_ids):
+    """The scenes the loops ran are imported, in a frame away from the origin
+    (not the procedural scenes that a missing export falls back to)."""
+    from vlnce_torch.envs.gridworld import get_scene
+    from vlnce_torch.envs.scene_import import ImportedScene
+
+    for scene_id in scene_ids:
+        scene = get_scene(scene_id)
+        assert isinstance(scene, ImportedScene) and scene.origin != (0.0, 0.0), (scene_id, type(scene).__name__)
+
+
+class SceneRegistrySnapshot:
+    """Scene registration is process-global in both packages: a snapshot of
+    every registry, restored on exit, so that imported test scenes never
+    leak into other tests' procedural scene ids."""
+
+    def __enter__(self):
+        from vlnce_torch.envs import device_sim, gridworld, scene_import
+        from vlnce_tpu.envs import device_sim as jax_device_sim, gridworld as jax_gridworld, scene_import as jax_scene_import
+
+        names = {"gridworld": ("_REGISTERED_SCENES", "_SCENE_PROVIDERS"),
+                 "scene_import": ("_STEM_SCENES", "_GEOMETRY_DIRS", "_APPLIED_PICKLES", "_STEM_PROVIDER_INSTALLED"),
+                 "device_sim": ("_NEAREST_FREE_CACHE",)}
+        self.modules = [(m, names[kind]) for kind, ms in (("gridworld", (gridworld, jax_gridworld)),
+                                                          ("scene_import", (scene_import, jax_scene_import)),
+                                                          ("device_sim", (device_sim, jax_device_sim))) for m in ms]
+        self.saved = [(m, name, copy.copy(getattr(m, name))) for m, names in self.modules for name in names]
+        # the nearest-free-cell maps are cached by scene id: a procedural
+        # scene's map would stand in for an import of the same id
+        device_sim._NEAREST_FREE_CACHE.clear()
+        jax_device_sim._NEAREST_FREE_CACHE.clear()
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, value in self.saved:
+            current = getattr(m, name)
+            if isinstance(current, dict):
+                current.clear()
+                current.update(value)
+            elif isinstance(current, list):
+                current[:] = value
+            else:
+                setattr(m, name, value)
+        return False

@@ -13,7 +13,10 @@ vlnce_torch.run --run-type {train,eval,inference}` over the host env layer
 measures, forked vector envs) with checkpoints from `utils.checkpoints`: eval
 and inference (`trainers.base_trainer`), DAgger (`trainers.dagger_trainer`),
 the recollect trainer (`trainers.recollect_trainer`) and DD-PPO of the
-waypoint policy on one card (`trainers.ddppo_waypoint_trainer`, `rl/`).
+waypoint policy on one card (`trainers.ddppo_waypoint_trainer`, `rl/`),
+the closed loops on the card, imported scene geometry
+(`envs.scene_import`), the nonlearning agents, the JAX package's
+checkpoints (`utils.checkpoints`) and the command-line tools of `scripts/`.
 ROADMAP.md lists what is not ported yet.
 """
 

@@ -39,8 +39,8 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 
 from vlnce_torch.data.collate import collate_episodes, inflection_weights
-from vlnce_torch.envs.device_sim import check_scene_geometry
 from vlnce_torch.envs.env_utils import construct_envs, get_env_class
+from vlnce_torch.envs.scene_import import apply_scene_geometry
 from vlnce_torch.envs.sim import SimulatorActions
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_obs_space, get_active_obs_transforms
 from vlnce_torch.utils.logging import logger
@@ -176,7 +176,7 @@ class TeacherRecollectionDataset:
         sim_type = config.TASK_CONFIG.SIMULATOR.TYPE
         if sim_type != "GridWorldSim-v0":
             raise ValueError(f"CUDA.ON_DEVICE_RECOLLECT requires SIMULATOR.TYPE=GridWorldSim-v0 (got {sim_type!r})")
-        check_scene_geometry(config.TASK_CONFIG.SIMULATOR)
+        apply_scene_geometry(config.TASK_CONFIG.SIMULATOR)  # real-scene grids, if configured
         probe = get_env_class(config.ENV_NAME)(config.clone())
         try:
             self.obs_transforms = get_active_obs_transforms(self.config)

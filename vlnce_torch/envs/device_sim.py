@@ -22,10 +22,11 @@ these ops can be captured in a CUDA graph (the x, z columns of a pose are
 the slice `[:, 0::2]`, not a list index, which would copy the list from the
 host).
 
-Imported real-scene geometry (`SIMULATOR.GEOMETRY_DIR`) is not ported: the
-host simulator refuses it, and so does `check_scene_geometry` here. Every
-scene is procedural and sits at origin (0, 0); `SceneBatch.origin_xz` is
-carried through every function all the same.
+Imported real-scene geometry (`SIMULATOR.GEOMETRY_DIR`,
+`CONNECTIVITY_GRAPHS`; envs/scene_import.py) reaches these functions
+through `get_scene`, as procedural scenes do: an imported scene keeps its
+native world frame, so `SceneBatch.origin_xz` is nonzero, and chunks of
+mixed grid sizes pad to their largest (`scene_arrays`).
 """
 
 from __future__ import annotations
@@ -74,16 +75,6 @@ def camera_specs_from_config(sim_config) -> List[CameraSpec]:
             CameraSpec(cam.UUID, int(cam.HEIGHT), int(cam.WIDTH), float(cam.HFOV), orientation_y, kind, min_d, max_d, norm_d)
         )
     return specs
-
-
-def check_scene_geometry(sim_config) -> None:
-    """Raise where the config asks for imported scene geometry, as the host
-    GridWorldSim does: the scene import is not ported."""
-    if getattr(sim_config, "GEOMETRY_DIR", "") or getattr(sim_config, "CONNECTIVITY_GRAPHS", ""):
-        raise NotImplementedError(
-            "SIMULATOR.GEOMETRY_DIR / CONNECTIVITY_GRAPHS need envs/scene_import.py, which "
-            "vlnce_torch has not ported yet (ROADMAP.md section A, 'Left by the serving slice')"
-        )
 
 
 def upload(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

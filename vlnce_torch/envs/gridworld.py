@@ -59,7 +59,7 @@ def _generate_occupancy(scene_id: str) -> np.ndarray:
 
 class BaseScene:
     """Scene protocol shared by procedural GridWorld scenes and imported
-    real-scene geometry (a scene import, not ported yet): an occupancy grid at _RES
+    real-scene geometry (envs/scene_import.py): an occupancy grid at _RES
     meters per cell anchored at `origin` (world x, z of cell [0, 0]'s
     corner), colors for the raycast renderer, and a goal-keyed Dijkstra
     distance-field cache. All positions are WORLD coordinates — imported
@@ -152,7 +152,7 @@ class GridWorldScene(BaseScene):
 
 
 _SCENE_CACHE: Dict[str, BaseScene] = {}
-# imported real-scene geometry (a scene import registers here); never
+# imported real-scene geometry (envs/scene_import.py registers here); never
 # evicted — imports are explicit and bounded, unlike the procedural cache
 _REGISTERED_SCENES: Dict[str, BaseScene] = {}
 # providers consulted before procedural generation: scene_id -> Optional[Scene]
@@ -167,8 +167,8 @@ def register_scene(scene: BaseScene) -> None:
 
 
 def register_scene_provider(fn) -> None:
-    """Add a lazy scene source (scene_id -> Optional[BaseScene]), for
-    example one that serves exported real-scene geometry."""
+    """Add a lazy scene source (scene_id -> Optional[BaseScene]); used by
+    scene_import.set_geometry_dir to serve exported real-scene geometry."""
     if fn not in _SCENE_PROVIDERS:
         _SCENE_PROVIDERS.append(fn)
 
@@ -193,10 +193,12 @@ class GridWorldSim(Simulator):
     def __init__(self, config):
         self.config = config
         if getattr(config, "GEOMETRY_DIR", "") or getattr(config, "CONNECTIVITY_GRAPHS", ""):
-            raise NotImplementedError(
-                "SIMULATOR.GEOMETRY_DIR / CONNECTIVITY_GRAPHS need envs/scene_import.py, which "
-                "vlnce_torch has not ported yet (ROADMAP.md section A, 'Left by the serving slice')"
-            )
+            # install real-scene geometry sources in THIS process (forked
+            # VectorEnv workers construct their own sim, so each worker
+            # self-installs; envs/scene_import.py)
+            from vlnce_torch.envs.scene_import import apply_scene_geometry
+
+            apply_scene_geometry(config)
         self._scene: Optional[GridWorldScene] = None
         self._position = np.array([1.5, 0.0, 1.5])
         self._heading = 0.0

@@ -13,7 +13,9 @@ steps.
 `restore_optim_state` of the JAX package migrates flax checkpoints written
 before it masked its optimizer. The port has no such files: its checkpoints
 hold `optimizer.state_dict()`, which `load_state_dict` restores as it is, so
-there is nothing to migrate and no counterpart here.
+there is nothing to migrate. `load_optim_state` restores either that or the
+Adam state of a JAX checkpoint, which `utils/checkpoints.load_checkpoint`
+hands over keyed by parameter name (`{"optax_adam": ...}`).
 """
 
 from __future__ import annotations
@@ -106,3 +108,48 @@ def masked_adam(lr: float, policy, model_config, eps: float = 1e-8,
 
         optimizer.register_step_pre_hook(clip)
     return optimizer
+
+
+def load_optim_state(optimizer: torch.optim.Optimizer, policy, optim_state: Dict) -> None:
+    """Restore a checkpoint's optimizer state into `optimizer`, which was
+    built over `policy`'s parameters (`masked_adam`).
+
+    A port checkpoint holds `optimizer.state_dict()` and is loaded as it is.
+    A JAX checkpoint's optax Adam state (`{"optax_adam": {"step", "exp_avg",
+    "exp_avg_sq", "moment_keys"}}`) becomes torch Adam's per-parameter
+    `step`, `exp_avg` and `exp_avg_sq`: optax's count is the step t of the
+    bias corrections in both, and its mu and nu are the two moments. It
+    raises ValueError where the moments cannot be held equal: a parameter
+    this optimizer trains that has no moments in the file (the JAX mask froze
+    it), or one that it does not train with moments that are not zero."""
+    if "optax_adam" not in optim_state:
+        optimizer.load_state_dict(optim_state)
+        return
+    jax_state = optim_state["optax_adam"]
+    held = set(jax_state["moment_keys"])
+    name_of = {id(p): name for name, p in policy.named_parameters()}
+    step = torch.tensor(float(jax_state["step"]), dtype=torch.float32)
+    state, trained, index = {}, set(), 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = name_of[id(p)]
+            if name not in held:
+                raise ValueError(
+                    f"load_optim_state: the JAX checkpoint holds no Adam moments for {name}, which this optimizer "
+                    f"trains (the JAX mask froze it), so Adam cannot resume equal to the JAX run"
+                )
+            state[index] = {
+                "step": step.clone(),
+                "exp_avg": jax_state["exp_avg"][name].reshape(p.shape).clone(),
+                "exp_avg_sq": jax_state["exp_avg_sq"][name].reshape(p.shape).clone(),
+            }
+            trained.add(name)
+            index += 1
+    for name in sorted(held & set(name_of.values()) - trained):
+        if bool(jax_state["exp_avg"][name].any()) or bool(jax_state["exp_avg_sq"][name].any()):
+            raise ValueError(
+                f"load_optim_state: the JAX checkpoint holds nonzero Adam moments for {name}, which this "
+                f"optimizer keeps frozen, so Adam cannot resume equal to the JAX run"
+            )
+    current = optimizer.state_dict()
+    optimizer.load_state_dict({"state": state, "param_groups": current["param_groups"]})

@@ -4,7 +4,8 @@ A copy of the JAX package's namespaced registry, kept separate so that a
 policy registered here never replaces the reference's entry of the same name.
 Components self-register via decorators at import time; lookups are by
 (namespace, name). Registered so far: policies, observation transformers,
-trainers, envs, datasets, sensors, measures, task actions and simulators.
+trainers, envs, datasets, sensors, measures, task actions, simulators and
+the nonlearning agents.
 """
 
 from __future__ import annotations
@@ -62,6 +63,9 @@ class Registry:
     def register_simulator(self, to_register=None, *, name: Optional[str] = None):
         return self._register("simulator", to_register, name)
 
+    def register_agent(self, to_register=None, *, name: Optional[str] = None):
+        return self._register("agent", to_register, name)
+
     def get_trainer(self, name: str) -> Type:
         return self.get("trainer", name)
 
@@ -88,6 +92,9 @@ class Registry:
 
     def get_simulator(self, name: str) -> Type:
         return self.get("simulator", name)
+
+    def get_agent(self, name: str) -> Type:
+        return self.get("agent", name)
 
 
 registry = Registry()

@@ -29,7 +29,8 @@ the card for PPO.num_steps steps, and the PPO batch stays there for
   whole split (at most CUDA.EPISODE_BANK_MAX episodes) is uploaded once as a
   bank; a rollout then uploads only its [B, Q] slot map (Q = T + 1, one done
   per step at most) and gathers its queue from the bank on the card. Above
-  the cap each rollout uploads its queue.
+  the cap each rollout uploads its queue. Imported scenes of mixed sizes
+  pad to the split's largest grid.
 - **One read-back per rollout**: the episode stats, the slots' episode
   indices and the running episode rewards, in one copy.
 
@@ -55,8 +56,8 @@ import numpy as np
 import torch
 
 from vlnce_torch.envs.device_sim import (
+    _pad_grid,
     camera_specs_from_config,
-    check_scene_geometry,
     nearest_free_cell_map,
     render_arrays,
     upload,
@@ -64,6 +65,7 @@ from vlnce_torch.envs.device_sim import (
     waypoint_step,
 )
 from vlnce_torch.envs.gridworld import _RES, get_scene
+from vlnce_torch.envs.scene_import import apply_scene_geometry
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch
 from vlnce_torch.tasks.datasets import make_dataset
 from vlnce_torch.tasks.geometry import heading_from_quaternion
@@ -72,6 +74,7 @@ from vlnce_torch.utils.logging import logger
 
 _ACTION_KEYS = ("pano", "offset", "distance")
 _STAT_KEYS = ("reward", "count", "success", "distance_to_goal")
+_GRAPH_SIZES_MAX = 8  # grid sizes whose queue and graphs a collector keeps (a FIFO, as scan eval keeps its segments)
 
 
 class EpisodeQueue(NamedTuple):
@@ -119,12 +122,26 @@ def _episode_entry(ep) -> Dict[str, np.ndarray]:
     }
 
 
+_GRID_PAD_FILL = {"occupancy": True, "wall_colors": 0, "goal_field": np.inf}
+
+
 def build_episode_queue(episodes_by_slot: List[List], device) -> EpisodeQueue:
     """The episodes of every slot, stacked [S, Q, ...] on `device` in one
-    upload. Every grid has the procedural scenes' size: the JAX module pads
-    imported scenes of mixed sizes, and the port refuses imported geometry
-    (check_scene_geometry)."""
+    upload. Imported scenes of mixed sizes pad to the largest grid here as
+    `device_sim.build_scene_batch` pads them: blocked and +inf; `nearest`
+    pads by repeating its edge, so a padded lookup still names a navigable
+    cell of the scene. The padded size is part of the result: the render
+    shades walls by the grid's width."""
     entries_by_slot = [[_episode_entry(ep) for ep in slot] for slot in episodes_by_slot]
+    n = max(e["occupancy"].shape[0] for slot in entries_by_slot for e in slot)
+    for slot in entries_by_slot:
+        for e in slot:
+            m = e["occupancy"].shape[0]
+            if m == n:
+                continue
+            for f, fill in _GRID_PAD_FILL.items():
+                e[f] = _pad_grid(e[f], n, fill)
+            e["nearest"] = np.pad(e["nearest"], [(0, n - m), (0, n - m), (0, 0)], mode="edge")
     stacked = {f: np.stack([np.stack([e[f] for e in slot]) for slot in entries_by_slot]) for f in EpisodeQueue._fields}
     return EpisodeQueue(**upload(stacked, device))
 
@@ -184,7 +201,7 @@ class DeviceRolloutCollector:
                 f"CUDA.ON_DEVICE_ROLLOUT implements VLNCEWaypointEnv reward/done semantics "
                 f"(got ENV_NAME={config.ENV_NAME!r})"
             )
-        check_scene_geometry(task_cfg.SIMULATOR)
+        apply_scene_geometry(task_cfg.SIMULATOR)  # real-scene grids, if configured
 
         self.policy = policy
         self.transforms = obs_transforms
@@ -236,12 +253,18 @@ class DeviceRolloutCollector:
         self._bank_pos = {id(ep): i for i, ep in enumerate(eps)} if self._bank_episodes else None
 
         self._state: Optional[Dict[str, torch.Tensor]] = None  # the carry, set by initial_carry_and_obs
-        self._queue: Optional[EpisodeQueue] = None  # the graph's input queue [B, Q, ...]
-        self._step = self._bootstrap = None  # the graphs, built at the first collect
+        # a queue pads to its own largest grid, as the JAX module's does (it
+        # recompiles per size): the graphs' input queue [B, Q, ...] and both
+        # graphs for each grid size, a FIFO of _GRAPH_SIZES_MAX sizes
+        self._graphs: Dict[int, Tuple[EpisodeQueue, object, object]] = {}
+        self._queue: Optional[EpisodeQueue] = None  # the current size's input queue
+        self._step = self._bootstrap = None  # the current size's graphs
+        self._buffers: Optional[Dict] = None  # the outputs, shaped at the first collect
         # what the collections did, for the caller's accounting
-        self.rollouts = self.readbacks = 0
+        self.rollouts = self.readbacks = self.replays = self.builds = 0
         self.capture_seconds = 0.0
         self.capture_launches: Dict[str, Dict[str, int]] = {}
+        self.build_launches: Dict[str, int] = {}
 
     # -- episode scheduling ----------------------------------------------------
     def _slot_episode(self, slot: int, offset: int):
@@ -255,7 +278,8 @@ class DeviceRolloutCollector:
         itself is uploaded (bank = the flattened queue, identity map)."""
         if self._bank_episodes is not None:
             if self._bank is None:
-                self._bank = EpisodeQueue(*(a[0] for a in build_episode_queue([self._bank_episodes], self.device)))
+                bank = build_episode_queue([self._bank_episodes], self.device)
+                self._bank = EpisodeQueue(*(a[0] for a in bank))
             slot_map = np.asarray(
                 [[self._bank_pos[id(self._slot_episode(b, q))] for q in range(self.Q)] for b in range(self.B)], np.int64
             )
@@ -374,12 +398,23 @@ class DeviceRolloutCollector:
 
     # -- buffers and graphs --------------------------------------------------------
     def _build(self) -> None:
-        """The output buffers (shaped by one probe step on the loaded queue)
-        and both graphs."""
+        """Both graphs on the loaded queue; at the first build also the output
+        buffers, shaped by one probe step."""
         from vlnce_torch.trainers.scan_eval import StepGraph, _launch_counts
 
-        T, B, dev = self.T, self.B, self.device
         before = _launch_counts()
+        if self._buffers is None:
+            self._build_buffers()
+        self._step = StepGraph(self._compute, self._commit, self.device, eager=self.eager)
+        self._bootstrap = StepGraph(self._compute_bootstrap, self._commit_bootstrap, self.device, eager=self.eager)
+        self.builds += 1
+        self.capture_seconds += self._step.capture_seconds + self._bootstrap.capture_seconds
+        self.capture_launches = {"step": dict(self._step.capture_launches),
+                                 "bootstrap": dict(self._bootstrap.capture_launches)}
+        self.build_launches = {k: self.build_launches.get(k, 0) + v - before[k] for k, v in _launch_counts().items()}
+
+    def _build_buffers(self) -> None:
+        T, B, dev = self.T, self.B, self.device
         with torch.no_grad():
             probe = self._compute()
 
@@ -398,12 +433,6 @@ class DeviceRolloutCollector:
             "hidden0": torch.zeros_like(self._state["rnn"]),
         }
         del probe
-        self._step = StepGraph(self._compute, self._commit, dev, eager=self.eager)
-        self._bootstrap = StepGraph(self._compute_bootstrap, self._commit_bootstrap, dev, eager=self.eager)
-        self.capture_seconds = self._step.capture_seconds + self._bootstrap.capture_seconds
-        self.capture_launches = {"step": dict(self._step.capture_launches),
-                                 "bootstrap": dict(self._bootstrap.capture_launches)}
-        self.build_launches = {k: v - before[k] for k, v in _launch_counts().items()}
 
     def _load_queue(self, bank: EpisodeQueue, slot_map: np.ndarray) -> None:
         """The slots' queue into the graph's input tensors: the slot map's
@@ -446,16 +475,24 @@ class DeviceRolloutCollector:
         stats and the rollout's first recurrent state."""
         if self._state is None:
             raise RuntimeError("call initial_carry_and_obs() before collect_device()")
+        from vlnce_torch.trainers.scan_eval import cached_in
+
         bank, slot_map = self._rollout_inputs()
-        if self._queue is None:
-            B, Q, dev = self.B, self.Q, self.device
-            self._queue = EpisodeQueue(*(torch.empty((B, Q) + tuple(a.shape[1:]), dtype=a.dtype, device=dev) for a in bank))
+        B, Q, dev = self.B, self.Q, self.device
+        if self._buffers is None:
             self._uniforms = torch.zeros(self.T, 3, B, device=dev)
             self._stat_sums = torch.zeros(len(_STAT_KEYS), B, 1, device=dev)
+        n = int(bank.occupancy.shape[-1])
+        built = self._graphs.get(n)
+        if built is None:
+            self._queue = EpisodeQueue(*(torch.empty((B, Q) + tuple(a.shape[1:]), dtype=a.dtype, device=dev) for a in bank))
+        else:
+            self._queue, self._step, self._bootstrap = built
         self._load_queue(bank, slot_map)
         self._state["g"].zero_()
-        if self._step is None:
-            self._build()
+        if built is None:
+            self._build()  # the warm-ups compute on the loaded queue
+            cached_in(self._graphs, n, lambda: (self._queue, self._step, self._bootstrap), _GRAPH_SIZES_MAX)
         self._stat_sums.zero_()
         self._buffers["hidden0"].copy_(self._state["rnn"])
 
@@ -465,6 +502,7 @@ class DeviceRolloutCollector:
         self._uniforms.uniform_(0.0, 1.0, generator=generator)
         self._step.run(self.T)
         self._bootstrap.run(1)
+        self.replays += self.T
 
     def collect_device(self, current_episode_reward, running_episode_stats, generator=None):
         """One rollout of T steps on the card. Returns (the PPO batch, T x B):
@@ -498,7 +536,3 @@ class DeviceRolloutCollector:
         batch = {k: buf[k] for k in ("obs", "hidden0", "actions", "prev_actions", "value_preds", "returns", "masks",
                                      "old_log_probs", "advantages", "rewards", "masks_next")}
         return batch, self.T * B
-
-    @property
-    def replays(self) -> int:
-        return 0 if self._step is None else self._step.replays

@@ -9,7 +9,9 @@ CUDA.PRECISION.compute_dtype float32` to run on the CPU. `train` is DAgger
 (`TRAINER_NAME dagger`, the r2r_baselines/*.yaml experiments), the
 recollect trainer (`TRAINER_NAME recollect_trainer`, the rxr_baselines) or
 DD-PPO of the waypoint policy (`TRAINER_NAME ddppo-waypoint`, the
-r2r_waypoint/*.yaml experiments).
+r2r_waypoint/*.yaml experiments). `EVAL.EVAL_NONLEARNING` and
+`INFERENCE.INFERENCE_NONLEARNING` run a nonlearning agent instead
+(r2r_baselines/nonlearning.yaml).
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ def main() -> None:
 
 def run_exp(exp_config: str, run_type: str, opts=None):
     """Build the config and the trainer it names, run `run_type` on it, and
-    return the trainer (its `last_loop_timing` holds the loop's clocks)."""
+    return the trainer (its `last_loop_timing` holds the loop's clocks); a
+    nonlearning eval or inference runs its agent and returns None."""
     import torch
 
     from vlnce_torch.config import get_config
@@ -73,13 +76,16 @@ def run_exp(exp_config: str, run_type: str, opts=None):
     np.random.seed(config.TASK_CONFIG.SEED)
     torch.manual_seed(config.TASK_CONFIG.SEED)
 
-    if (run_type == "eval" and config.EVAL.EVAL_NONLEARNING) or (
-        run_type == "inference" and config.INFERENCE.INFERENCE_NONLEARNING
-    ):
-        raise NotImplementedError(
-            "the nonlearning agents (trainers/nonlearning_agents.py) are not ported to vlnce_torch yet "
-            "(ROADMAP.md section A, 'Left by the serving slice')"
-        )
+    # nonlearning shortcuts (reference run.py:71-77); they build no trainer
+    # and return None
+    from vlnce_torch.trainers.nonlearning_agents import evaluate_agent, nonlearning_inference
+
+    if run_type == "eval" and config.EVAL.EVAL_NONLEARNING:
+        evaluate_agent(config)
+        return None
+    if run_type == "inference" and config.INFERENCE.INFERENCE_NONLEARNING:
+        nonlearning_inference(config)
+        return None
 
     trainer_cls = registry.get_trainer(config.TRAINER_NAME)
     trainer = trainer_cls(config)

@@ -44,7 +44,7 @@ from vlnce_torch.ops.obs_transforms import (
     apply_obs_transforms_obs_space,
     get_active_obs_transforms,
 )
-from vlnce_torch.parallel.optim import masked_adam
+from vlnce_torch.parallel.optim import load_optim_state, masked_adam
 from vlnce_torch.registry import registry
 from vlnce_torch.utils.checkpoints import (
     config_from_checkpoint,
@@ -191,8 +191,9 @@ class BaseVLNCETrainer:
             ckpt = load_checkpoint(ckpt_path)
             load_policy_state_dict(self.policy, ckpt["state_dict"])
             if config.IL.is_requeue and "optim_state" in ckpt:
-                # load_state_dict moves the moments to their parameters' device
-                self.optimizer.load_state_dict(ckpt["optim_state"])
+                # load_state_dict moves the moments to their parameters' device;
+                # a JAX checkpoint's optax moments are carried across by name
+                load_optim_state(self.optimizer, self.policy, ckpt["optim_state"])
                 extra = ckpt.get("extra_state") or {}
                 self.start_epoch = int(extra.get("epoch", -1)) + 1
                 self.step_id = int(extra.get("step_id", 0))

@@ -55,6 +55,7 @@ from vlnce_torch.ops.obs_transforms import (
     apply_obs_transforms_obs_space,
     get_active_obs_transforms,
 )
+from vlnce_torch.parallel.optim import load_optim_state
 from vlnce_torch.registry import registry
 from vlnce_torch.rl.ppo import WDDPPO
 from vlnce_torch.rl.rollout_storage import ActionDictRolloutStorage
@@ -246,7 +247,7 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
         if self._interrupted_state is not None:
             load_policy_state_dict(self.policy, self._interrupted_state["state_dict"])
             if self._interrupted_state.get("optim_state"):
-                self.optimizer.load_state_dict(self._interrupted_state["optim_state"])
+                load_optim_state(self.optimizer, self.policy, self._interrupted_state["optim_state"])
             extra = self._interrupted_state.get("extra_state") or {}
             start_update = int(extra.get("update", 0))
             count_steps = int(extra.get("count_steps", 0))

@@ -56,7 +56,6 @@ from vlnce_torch.envs.device_sim import (
     SceneBatch,
     _pad_grid,
     camera_specs_from_config,
-    check_scene_geometry,
     expert_action,
     progress_batch,
     render_batch,
@@ -64,9 +63,18 @@ from vlnce_torch.envs.device_sim import (
     upload,
 )
 from vlnce_torch.envs.gridworld import get_scene
+from vlnce_torch.envs.scene_import import apply_scene_geometry
 from vlnce_torch.models.distributions import Categorical
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch
-from vlnce_torch.trainers.scan_eval import StepGraph, bank_key, bank_setup, cached, chunk_tensors, load_chunk_bank
+from vlnce_torch.trainers.scan_eval import (
+    SegmentTally,
+    StepGraph,
+    bank_key,
+    bank_setup,
+    cached,
+    chunk_tensors,
+    load_chunk_bank,
+)
 from vlnce_torch.utils.logging import logger
 
 _F16_MAX = 65504.0
@@ -218,7 +226,7 @@ def _chunk_rollouts(policy, transforms, config, episodes: List, beta: float, gen
     chunk of NUM_ENVIRONMENTS episodes: `pieces` are the segments' payload
     rows on the card ([seg_len, B, ...] each)."""
     task_cfg = config.TASK_CONFIG
-    check_scene_geometry(task_cfg.SIMULATOR)
+    apply_scene_geometry(task_cfg.SIMULATOR)  # real-scene grids, if configured
     # the feature-bank route: its shapes and the episodes' coverage are checked here, before any chunk
     bank = bank_setup(config, episodes)
     specs = camera_specs_from_config(task_cfg.SIMULATOR)
@@ -230,7 +238,8 @@ def _chunk_rollouts(policy, transforms, config, episodes: List, beta: float, gen
     seg_len = max(1, min(int(config.CUDA.DAGGER_SEGMENT), T_max))
     device = policy.device
     t0 = time.perf_counter()
-    segment = counts = None
+    segment = None
+    tally = SegmentTally()
     setup_seconds = 0.0
     for lo in range(0, len(episodes), B):
         chunk = episodes[lo : lo + B]
@@ -246,12 +255,11 @@ def _chunk_rollouts(policy, transforms, config, episodes: List, beta: float, gen
                task_cfg.SIMULATOR.FORWARD_STEP_SIZE, bool(task_cfg.SIMULATOR.HABITAT_SIM_V0.ALLOW_SLIDING),
                tuple(type(t).__name__ for t in transforms), instr_uuid, tuple(scenes.occupancy.shape),
                tuple(tensors["instruction"].shape), eager, bank_key(bank, chunk_bank))
-        segment = cached(policy, key, lambda: DaggerSegment(policy, transforms, specs, config, seg_len, scenes, tensors,
-                                                            eager=eager, bank=chunk_bank,
-                                                            bank_max_dist=0.0 if bank is None else bank[1]))
+        segment = cached(policy, key, tally.recording(lambda: DaggerSegment(
+            policy, transforms, specs, config, seg_len, scenes, tensors, eager=eager, bank=chunk_bank,
+            bank_max_dist=0.0 if bank is None else bank[1])))
         segment.load(scenes, tensors, beta, chunk_bank)
-        if counts is None:  # the segment may come from the cache, with counts of earlier calls
-            counts = (segment.segments, segment.readbacks, segment.step.replays)
+        tally.use(segment)  # a segment from the cache carries the counts of earlier calls
         pieces, done_rows = [], []
         t = 0
         while t < T_max:
@@ -263,12 +271,8 @@ def _chunk_rollouts(policy, transforms, config, episodes: List, beta: float, gen
                 break
         yield real, tensors["instruction"], pieces, np.concatenate(done_rows, axis=0)[:T_max], segment.feat_shapes
     if stats is not None and segment is not None:
-        stats.update({
-            "seconds": time.perf_counter() - t0, "setup_seconds": setup_seconds, "segments": segment.segments - counts[0],
-            "readbacks": segment.readbacks - counts[1], "replays": segment.step.replays - counts[2], "seg_len": seg_len,
-            "batch": B, "graph": segment.step.graph is not None, "capture_seconds": segment.step.capture_seconds,
-            "capture_launches": dict(segment.step.capture_launches),
-        })
+        stats.update({"seconds": time.perf_counter() - t0, "setup_seconds": setup_seconds, "seg_len": seg_len,
+                      "batch": B, **tally.stats()})
 
 
 def _episode_lengths(done_before: np.ndarray, real: int, T_max: int) -> np.ndarray:

@@ -28,7 +28,7 @@ steps re-render the final pose; each episode is cut back to its GT length.
   It feeds the IL accumulation step with no host round trip.
 
 Left out of the JAX module: the mesh argument (one card: nothing is
-sharded). Imported scene geometry raises, as the host simulator does.
+sharded).
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ from vlnce_torch.data.collate import _pad_to, inflection_weights
 from vlnce_torch.envs.device_sim import (
     SceneBatch,
     camera_specs_from_config,
-    check_scene_geometry,
     progress_batch,
     render_batch,
     scene_arrays,
@@ -51,6 +50,7 @@ from vlnce_torch.envs.device_sim import (
     step_tilt,
     upload,
 )
+from vlnce_torch.envs.scene_import import apply_scene_geometry
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch
 from vlnce_torch.trainers.scan_eval import StepGraph, _episode_batch_arrays, cached_in
 
@@ -168,7 +168,7 @@ def _chunk(config, episodes: List, trajectories: Dict, instr_uuid: str, quantum:
 def _render(config, kind: str, T_pad: int, scenes, on_dev, transforms, cache: Optional[Dict], eager: bool) -> RenderSteps:
     """The cached render loop of this chunk's shape, loaded and run."""
     sim_cfg = config.TASK_CONFIG.SIMULATOR
-    check_scene_geometry(sim_cfg)
+    apply_scene_geometry(sim_cfg)  # real-scene grids, if configured
     specs, motion = camera_specs_from_config(sim_cfg), _motion(sim_cfg)
     key = (kind, tuple(specs), tuple(scenes.occupancy.shape), T_pad, motion,
            tuple(type(t).__name__ for t in transforms or ()), eager)

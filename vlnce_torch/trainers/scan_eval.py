@@ -39,17 +39,22 @@ banks in. The banks' shapes and the episodes' coverage
 
 Left out of the JAX module: `_eval_mesh` (the card is one device, so there
 is no mesh and nothing is sharded). `VIDEO_OPTION` raises as in the host
-loop. Imported scene geometry (`SIMULATOR.GEOMETRY_DIR`) raises as the host
-simulator does.
+loop.
+
+Imported scene geometry (`SIMULATOR.GEOMETRY_DIR`, `CONNECTIVITY_GRAPHS`)
+is installed when the loop starts (`scene_import.apply_scene_geometry`). A
+chunk's grids pad to its largest scene, and the grid size is part of the
+graph's key, so chunks of a larger scene capture graphs of their own.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,7 +69,6 @@ from vlnce_torch.data.feature_bank import (
 from vlnce_torch.envs.device_sim import (
     SceneBatch,
     camera_specs_from_config,
-    check_scene_geometry,
     progress_batch,
     render_batch,
     scene_arrays,
@@ -72,6 +76,7 @@ from vlnce_torch.envs.device_sim import (
     step_tilt,
     upload,
 )
+from vlnce_torch.envs.scene_import import apply_scene_geometry
 from vlnce_torch.models.distributions import Categorical
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms
 from vlnce_torch.tasks.datasets import make_dataset
@@ -129,7 +134,7 @@ def _check_supported(config) -> None:
             f"EVAL.ON_DEVICE_SCAN supports the discrete R2R action space {_R2R_ACTIONS} or the RxR space "
             f"{_RXR_ACTIONS}, got {actions}"
         )
-    check_scene_geometry(config.TASK_CONFIG.SIMULATOR)
+    apply_scene_geometry(config.TASK_CONFIG.SIMULATOR)  # real-scene grids, if configured
 
 
 def _episode_batch_arrays(episodes, instr_uuid: str = "instruction", task_cfg=None) -> Dict[str, np.ndarray]:
@@ -206,10 +211,20 @@ class StepGraph:
         main.wait_stream(side)
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread may launch work meanwhile (recollection
-        # captures its render step on the trainer's prefetch thread)
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.commit(self.compute())
+        # the collector stays off during the capture: on the card a collection
+        # inside it invalidated the capture (cudaErrorStreamCaptureInvalidated,
+        # first reported by cuDNN as CUDNN_STATUS_INTERNAL_ERROR), in some runs
+        # of tests/test_torch_kernels.py::test_rollout_graph_matches_eager
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # thread_local: another thread may launch work meanwhile (recollection
+            # captures its render step on the trainer's prefetch thread)
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.commit(self.compute())
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_launches = {k: v - before[k] for k, v in _launch_counts().items()}
         self.graph = graph
         self.capture_seconds = time.perf_counter() - t0
@@ -245,6 +260,40 @@ def cached_in(cache: Dict, key: tuple, build: Callable, limit: int):
             cache.pop(next(iter(cache)))
         cache[key] = build()
     return cache[key]
+
+
+class SegmentTally:
+    """The segments a loop ran, with each one's counters when the loop first
+    used it, and the segments it built (each a graph capture on the card).
+    A loop over chunks of different grid sizes runs several segments: its
+    counts are the sums over them."""
+
+    def __init__(self):
+        self.used: Dict[int, Tuple[Any, Tuple[int, int, int]]] = {}
+        self.built: List[Any] = []
+
+    def recording(self, make: Callable) -> Callable:
+        def build():
+            segment = make()
+            self.built.append(segment)
+            return segment
+
+        return build
+
+    def use(self, segment) -> None:
+        self.used.setdefault(id(segment), (segment, (segment.segments, segment.readbacks, segment.step.replays)))
+
+    def stats(self) -> Dict[str, Any]:
+        pairs = list(self.used.values())
+        return {
+            "segments": sum(seg.segments - c[0] for seg, c in pairs),
+            "readbacks": sum(seg.readbacks - c[1] for seg, c in pairs),
+            "replays": sum(seg.step.replays - c[2] for seg, c in pairs),
+            "graph": all(seg.step.graph is not None for seg, _ in pairs),
+            "captures": sum(seg.step.graph is not None for seg in self.built),
+            "capture_seconds": sum(seg.step.capture_seconds for seg in self.built),
+            "capture_launches": dict(pairs[0][0].step.capture_launches),
+        }
 
 
 class ScanSegment:
@@ -358,7 +407,7 @@ def run_scan_rollouts(policy, transforms, config, episodes: List, generator: Opt
     seconds spent (of them, the chunks' host setup and upload); `eager` runs the step without a graph (comparisons
     only)."""
     task_cfg = config.TASK_CONFIG
-    check_scene_geometry(task_cfg.SIMULATOR)
+    apply_scene_geometry(task_cfg.SIMULATOR)  # real-scene grids, if configured
     specs = camera_specs_from_config(task_cfg.SIMULATOR)
     T_max = int(task_cfg.ENVIRONMENT.MAX_EPISODE_STEPS)
     B = max(1, int(config.EVAL.SCAN_BATCH))
@@ -371,7 +420,8 @@ def run_scan_rollouts(policy, transforms, config, episodes: List, generator: Opt
 
     all_actions: List[np.ndarray] = []
     t0 = time.perf_counter()
-    segment = counts = None
+    segment = None
+    tally = SegmentTally()
     setup_seconds = 0.0
     for lo in range(0, len(episodes), B):
         chunk = episodes[lo : lo + B]
@@ -385,13 +435,12 @@ def run_scan_rollouts(policy, transforms, config, episodes: List, generator: Opt
                tuple(type(t).__name__ for t in transforms), tuple(scenes.occupancy.shape),
                tuple(arrays["instruction"].shape), task_cfg.SIMULATOR.FORWARD_STEP_SIZE, task_cfg.SIMULATOR.TURN_ANGLE,
                eager, bank_key(bank, chunk_bank))
-        segment = cached(policy, key, lambda: ScanSegment(
+        segment = cached(policy, key, tally.recording(lambda: ScanSegment(
             policy, transforms, specs, task_cfg.SIMULATOR, deterministic, seg_len, scenes, arrays["instruction"],
             instr_uuid=instr_uuid, use_tilt=use_tilt, eager=eager, bank=chunk_bank,
-            bank_max_dist=0.0 if bank is None else bank[1]))
+            bank_max_dist=0.0 if bank is None else bank[1])))
         segment.load(scenes, arrays["instruction"], arrays["pos"], arrays["heading"], chunk_bank)
-        if counts is None:  # the segment may come from the cache, with counts of earlier calls
-            counts = (segment.segments, segment.readbacks, segment.step.replays)
+        tally.use(segment)  # a segment from the cache carries the counts of earlier calls
         collected = []
         t = 0
         while t < T_max:
@@ -409,11 +458,8 @@ def run_scan_rollouts(policy, transforms, config, episodes: List, generator: Opt
                 progress_cb()
     if stats is not None and segment is not None:
         stats.update({
-            "seconds": time.perf_counter() - t0, "setup_seconds": setup_seconds, "segments": segment.segments - counts[0],
-            "readbacks": segment.readbacks - counts[1], "replays": segment.step.replays - counts[2], "seg_len": seg_len,
-            "batch": B, "graph": segment.step.graph is not None, "capture_seconds": segment.step.capture_seconds,
-            "capture_launches": dict(segment.step.capture_launches),
-            "env_steps": int(sum(len(s) for s in all_actions)),
+            "seconds": time.perf_counter() - t0, "setup_seconds": setup_seconds, "seg_len": seg_len, "batch": B,
+            **tally.stats(), "env_steps": int(sum(len(s) for s in all_actions)),
         })
     return all_actions
 

@@ -9,9 +9,16 @@ with the config dumped as YAML: the config-in-checkpoint behaviour that eval
 and inference rely on (EVAL.USE_CKPT_CONFIG, reference
 base_il_trainer.py:117-132,235-237,439-445). Files are written to a temp name
 and renamed, so the eval-many poller (`poll_checkpoint_folder`) never sees a
-torn checkpoint. The JAX package's msgpack files cannot be read here (that
-takes flax); weights cross between the packages through
-`models/convert.state_dict_from_jax_params`.
+torn checkpoint.
+
+`load_checkpoint` also reads the JAX package's files, which are flax msgpack
+under the same suffixes (vlnce_tpu/utils/checkpoints.py). It tells the two
+formats apart by their first bytes, not by their suffix: a `torch.save`
+file is a zip archive. A JAX file is decoded by `utils/msgpack_reader` and
+returned in this package's shape: its params carried across by
+`models/convert.state_dict_from_jax_params`, and optax's Adam moments, which
+have the params' tree, carried through the same converter (see
+`_optax_adam_state`; `parallel/optim.load_optim_state` installs them).
 
 The snapshot to host memory is synchronous and copies (the next train step
 changes the parameters in place). With `async_write=True`
@@ -28,11 +35,15 @@ import os
 import threading
 from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from vlnce_torch.config.node import Config
+from vlnce_torch.models.convert import state_dict_from_jax_params
+from vlnce_torch.utils.msgpack_reader import unpackb
 
-CHECKPOINT_SUFFIXES = (".ckpt", ".pth")
+CHECKPOINT_SUFFIXES = (".ckpt", ".pth", ".msgpack")
+_ZIP_MAGIC = b"PK\x03\x04"  # torch.save writes a zip archive
 
 
 def _host_snapshot(obj):
@@ -124,9 +135,85 @@ def save_checkpoint(
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The checkpoint's dict, tensors on the CPU. Only tensors and plain
-    Python values are unpickled."""
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """The checkpoint's dict, tensors on the CPU, from a file of either
+    package. Of a `torch.save` file only tensors and plain Python values are
+    unpickled; anything else is read as the JAX package's flax msgpack."""
+    with open(path, "rb") as f:
+        if f.read(len(_ZIP_MAGIC)) == _ZIP_MAGIC:
+            f.seek(0)
+            return torch.load(f, map_location="cpu", weights_only=True)
+        f.seek(0)
+        payload = unpackb(f.read())
+    return _from_jax_payload(payload, path)
+
+
+def _policy_name(payload: Dict[str, Any]) -> str:
+    """MODEL.policy_name of the file's config; the config default
+    (CMAPolicy) for a file that holds none."""
+    if "config_yaml" not in payload:
+        return "CMAPolicy"
+    import yaml
+
+    model = (yaml.safe_load(payload["config_yaml"]) or {}).get("MODEL") or {}
+    return str(model.get("policy_name", "CMAPolicy"))
+
+
+def _from_jax_payload(payload: Dict[str, Any], path: str) -> Dict[str, Any]:
+    if not isinstance(payload, dict) or "state_dict" not in payload:
+        raise ValueError(f"{path}: neither a torch.save file nor a JAX checkpoint (no state_dict)")
+    name = _policy_name(payload)
+    out: Dict[str, Any] = {"state_dict": state_dict_from_jax_params(payload["state_dict"], name)}
+    for key in ("config_yaml", "extra_state"):
+        if key in payload:
+            out[key] = payload[key]
+    if payload.get("optim_state") is not None:
+        out["optim_state"] = _optax_adam_state(payload["optim_state"], payload["state_dict"], name, path)
+    return out
+
+
+def _adam_nodes(node, found):
+    """Every map of the optax state tree with Adam's `count`, `mu` and `nu`."""
+    if isinstance(node, dict):
+        if {"count", "mu", "nu"} <= set(node):
+            found.append(node)
+        else:
+            for v in node.values():
+                _adam_nodes(v, found)
+    return found
+
+
+def _fill_masked(moments, params, present: bool):
+    """The moment tree with optax.masked's placeholders (`{}` where a leaf is
+    frozen) filled with zeros of the param's shape; with `present`, a tree
+    of ones where the moment exists and zeros where it is a placeholder."""
+    if isinstance(params, dict):
+        return {k: _fill_masked(moments.get(k, {}) if isinstance(moments, dict) else moments, v, present)
+                for k, v in params.items()}
+    held = not isinstance(moments, dict)
+    if present:
+        return np.full(np.shape(params), float(held), np.float32)
+    return np.asarray(moments, np.float32) if held else np.zeros(np.shape(params), np.float32)
+
+
+def _optax_adam_state(optim_state, params, policy_name: str, path: str) -> Dict[str, Any]:
+    """optax's Adam state -> {"optax_adam": {"step", "exp_avg", "exp_avg_sq",
+    "moment_keys"}}, the moments under this package's state_dict keys and
+    layouts. `moment_keys` are the keys whose moments the file holds (optax
+    holds none for a masked, frozen leaf)."""
+    nodes = _adam_nodes(optim_state, [])
+    if len(nodes) != 1:
+        raise ValueError(
+            f"{path}: the optimizer state holds {len(nodes)} Adam states (count, mu, nu), not one, so "
+            f"Adam's moments cannot be carried into torch.optim.Adam"
+        )
+    adam = nodes[0]
+    present = state_dict_from_jax_params(_fill_masked(adam["mu"], params, True), policy_name)
+    return {"optax_adam": {
+        "step": int(np.asarray(adam["count"])),
+        "exp_avg": state_dict_from_jax_params(_fill_masked(adam["mu"], params, False), policy_name),
+        "exp_avg_sq": state_dict_from_jax_params(_fill_masked(adam["nu"], params, False), policy_name),
+        "moment_keys": sorted(k for k, v in present.items() if bool(v.any())),
+    }}
 
 
 def config_from_checkpoint(ckpt: Dict[str, Any]) -> Optional[Config]:
