@@ -165,7 +165,15 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    CLI and the R2R bank scan eval (against its eager run), the graphed RxR
    step against the eager plain step on a chunk of both scenes, and a
    nonlearning eval (no kernel); every scene run must be an ImportedScene;
-24. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+24. `phase_video`: VIDEO_OPTION [disk] at full width on procedural scenes
+   (MAP_RESOLUTION 1024, fog of war on) in the RxR CMA host eval (8 forked
+   workers, 8 episodes), the RxR CMA scan eval (B=32, 16 episodes) and the
+   WPN eval (4 workers, 4 episodes), each beside the same eval without
+   video: the same actions and per-episode metrics, B1 and B2 launched per
+   act step as without video, one AVI per episode with a frame per step
+   that `read_video` gives back bit for bit; env-steps/s with and without
+   video, ms per composed frame, MB per file, the map's bytes per step;
+25. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -3225,6 +3233,218 @@ def phase_device_recollect(dev, host_rate):
     return out["device_recollect"], out["device_recollect_resident"]
 
 
+# ---------------------------------------------------------------------------
+# the video path: VIDEO_OPTION [disk] on the host eval, the scan eval and
+# the waypoint eval, each beside the same eval without video
+# ---------------------------------------------------------------------------
+
+VIDEO_EPISODES = 8
+VIDEO_SCAN_EPISODES = 16
+
+
+@contextlib.contextmanager
+def _video_probes(modules):
+    """Patches, for one run, the frame composers and `generate_video` that
+    `modules` (trainer modules) call: times every composed frame, keeps each
+    written video's frames (to hold the file against them), and records
+    the actions each loop takes."""
+    from vlnce_torch.models.waypoint_policy import WaypointPolicy
+    from vlnce_torch.trainers import base_trainer, scan_eval
+
+    probe = {"frame_s": 0.0, "frames": 0, "videos": {}, "actions": []}
+    saved = []
+
+    def patch(owner, name, new):
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, new)
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            probe["frame_s"] += time.perf_counter() - t0
+            probe["frames"] += fn.__name__ != "append_text_to_image"
+            return out
+        run.__name__ = fn.__name__
+        return run
+
+    def keep(fn):
+        def run(video_option, video_dir, images, episode_id, checkpoint_idx, metrics, tb_writer=None, fps=10):
+            name = f"episode={episode_id}-ckpt={checkpoint_idx}-" + "-".join(f"{k}={v:.2f}" for k, v in metrics.items())
+            probe["videos"][os.path.join(video_dir, name + ".avi")] = np.stack(images)
+            return fn(video_option, video_dir, images, episode_id, checkpoint_idx, metrics, tb_writer, fps)
+        return run
+
+    for module in modules:
+        for name in ("observations_to_image", "append_text_to_image", "waypoint_observations_to_image"):
+            if hasattr(module, name):
+                patch(module, name, timed(getattr(module, name)))
+        if hasattr(module, "generate_video"):
+            patch(module, "generate_video", keep(module.generate_video))
+    act = base_trainer._ActLoop.act
+    patch(base_trainer._ActLoop, "act", lambda self: (lambda a: probe["actions"].append(a.copy()) or a)(act(self)))
+    metrics_from_actions = scan_eval.metrics_from_actions
+
+    def record_seqs(config, episodes, action_seqs, *args, **kwargs):
+        probe["actions"].extend(np.asarray(a).copy() for a in action_seqs)
+        return metrics_from_actions(config, episodes, action_seqs, *args, **kwargs)
+
+    patch(scan_eval, "metrics_from_actions", record_seqs)
+    to_env = WaypointPolicy.actions_to_env
+    patch(WaypointPolicy, "actions_to_env", staticmethod(lambda out: (lambda a: probe["actions"].append(a) or a)(to_env(out))))
+    try:
+        yield probe
+    finally:
+        for owner, name, old in reversed(saved):
+            setattr(owner, name, old)
+
+
+def _same_actions(a, b):
+    if len(a) != len(b):
+        return False
+    return all(np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y for x, y in zip(a, b))
+
+
+def _check_videos(probe, episodes, what):
+    """One file per episode, as many frames as the episode's steps, read
+    back by `read_video` bit for bit; returns (MB per file, frames)."""
+    from vlnce_torch.utils.video import read_video
+
+    videos = probe["videos"]
+    assert len(videos) == len(episodes), (what, len(videos), len(episodes))
+    sizes = []
+    for path, frames in videos.items():
+        ep_id = os.path.basename(path).split("-ckpt=")[0][len("episode="):]
+        assert ep_id in episodes, (what, path)
+        if "steps_taken" in episodes[ep_id]:
+            assert frames.shape[0] == episodes[ep_id]["steps_taken"], (what, path, frames.shape)
+        back = read_video(path)
+        assert back.shape == frames.shape and np.array_equal(back, frames), f"{what}: {path} does not read back bit for bit"
+        sizes.append(os.path.getsize(path) / 1e6)
+    return sum(sizes) / len(sizes), sum(v.shape[0] for v in videos.values())
+
+
+def phase_video(dev):
+    """VIDEO_OPTION [disk] at full width on procedural scenes (origin (0, 0)),
+    MAP_RESOLUTION 1024, fog of war on: (a) the RxR CMA host eval over
+    N_ENVS forked workers, VIDEO_EPISODES episodes of at most 40 steps;
+    (b) the RxR CMA scan eval at B=32, VIDEO_SCAN_EPISODES episodes (frames
+    composed in the host replay); (c) the WPN eval of 1-wpn-cc.yaml over
+    WP_N workers, WP_N episodes (its measures with TOP_DOWN_MAP_VLNCE). Each
+    beside the same eval without video in this call: the same actions and
+    per-episode scalar metrics, B1 and B2 launched per act step as without
+    video, one file per episode with a frame per step that `read_video`
+    gives back bit for bit. Prints env-steps/s with and without video, ms
+    per composed frame, MB per file, and the bytes per env step that the
+    measure's index map adds to the worker pipes."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.envs import Env
+    from vlnce_torch.run import run_exp
+    from vlnce_torch.trainers import base_trainer, ddppo_waypoint_trainer, scan_eval
+    from vlnce_torch.utils.checkpoints import save_checkpoint
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        cfg, policy, _ = build_act_step(dev, "bfloat16")
+        # the seeded head samples STOP once in six steps: a bias of -3 on it
+        # (about 1%) lets most episodes run to the 40-step cap
+        with torch.no_grad():
+            policy.action_distribution.linear.bias.copy_(torch.tensor([-3.0, 0, 0, 0, 0, 0]))
+        ckpt = os.path.join(tmp, "ckpt.0.pth")
+        save_checkpoint(ckpt, policy.state_dict(), config=cfg)
+        del policy
+        assert cfg.TASK_CONFIG.TASK.TOP_DOWN_MAP_VLNCE.MAP_RESOLUTION == 1024
+        assert cfg.TASK_CONFIG.TASK.TOP_DOWN_MAP_VLNCE.FOG_OF_WAR.DRAW
+        common = ["TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_SCENES", N_ENVS,
+                  "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40, "TENSORBOARD_DIR", "", "VERBOSE", False,
+                  "LOG_FILE", os.path.join(tmp, "run.log"), "EVAL.USE_CKPT_CONFIG", False, "EVAL_CKPT_PATH_DIR", ckpt]
+        video = ["VIDEO_OPTION", ["disk"]]
+
+        # the bytes a step's info carries through a worker's pipe for the measure
+        task_cfg = get_config(EXP, common + ["TASK_CONFIG.DATASET.NUM_EPISODES", 1]).TASK_CONFIG.clone()
+        task_cfg.defrost()
+        task_cfg.TASK.MEASUREMENTS.append("TOP_DOWN_MAP_VLNCE")
+        env = Env(task_cfg)
+        env.reset()
+        env.step(1)
+        map_bytes = len(pickle.dumps(env.get_metrics()["top_down_map_vlnce"], protocol=pickle.HIGHEST_PROTOCOL))
+        env.close()
+
+        # (a) the host eval
+        runs = {}
+        for name, extra in (("plain", []), ("video", video + ["VIDEO_DIR", os.path.join(tmp, "videos_a")])):
+            with _video_probes([base_trainer]) as probe:
+                trainer, launches, wall = _run_loop("eval", common + extra + [
+                    "NUM_ENVIRONMENTS", N_ENVS, "TASK_CONFIG.DATASET.NUM_EPISODES", 2 * VIDEO_EPISODES,
+                    "EVAL.EPISODE_COUNT", VIDEO_EPISODES, "RESULTS_DIR", os.path.join(tmp, f"evals_a_{name}")])
+            t = trainer.last_loop_timing
+            runs[name] = (dict(trainer._last_eval_episode_stats), probe, t, launches)
+        (eps, p_plain, t_plain, l_plain), (eps_v, p_video, t_video, l_video) = runs["plain"], runs["video"]
+        assert eps == eps_v and len(eps) >= VIDEO_EPISODES, "(a) the video run's episodes or metrics differ"
+        assert _same_actions(p_plain["actions"], p_video["actions"]), "(a) the video run took other actions"
+        mb, frames = _check_videos(p_video, eps_v, "(a) host eval")
+        rate = (t_plain["env_steps"] / t_plain["total_time"], t_video["env_steps"] / t_video["total_time"])
+        print(f"video (a) RxR CMA host eval, N={N_ENVS}, {len(eps)} episodes: env-steps/s {rate[1]:.1f} with video, "
+              f"{rate[0]:.1f} without ({rate[1] / rate[0]:.2f}x); {frames} frames, {1e3 * p_video['frame_s'] / frames:.2f} ms per "
+              f"composed frame (observations_to_image and append_text_to_image, on the host), {mb:.3f} MB per file; "
+              f"B1 and B2 per act step {l_video['gru_sequence'] / t_video['act_steps']:.0f} and "
+              f"{l_video['fused_resize_normalize'] / t_video['act_steps']:.0f}; the measure's 1024² map adds {map_bytes} bytes "
+              f"per env per step to the pipes ({N_ENVS * map_bytes / 2**20:.2f} MiB per pool step at N={N_ENVS})")
+        out["video_eval"], out["video_eval_plain"] = l_video, l_plain
+
+        # (b) the scan eval: the step graph is the same; the replay composes the frames
+        runs = {}
+        for name, extra in (("plain", []), ("video", video + ["VIDEO_DIR", os.path.join(tmp, "videos_b")])):
+            with _video_probes([scan_eval]) as probe:
+                _reset_launches()
+                trainer = run_exp(EXP, "eval", common + extra + [
+                    "EVAL.ON_DEVICE_SCAN", True, "EVAL.SCAN_BATCH", SCAN_B, "EVAL.SCAN_SEGMENT", SCAN_SEGMENT,
+                    "TASK_CONFIG.DATASET.NUM_EPISODES", VIDEO_SCAN_EPISODES, "EVAL.EPISODE_COUNT", VIDEO_SCAN_EPISODES,
+                    "RESULTS_DIR", os.path.join(tmp, f"evals_b_{name}")])
+                launches = _read_launches()
+            t = _check_scan_run(trainer, launches, (2, 2), f"scan eval ({name})")
+            runs[name] = (dict(trainer._last_eval_episode_stats), probe, t, launches)
+        (eps, p_plain, t_plain, l_plain), (eps_v, p_video, t_video, l_video) = runs["plain"], runs["video"]
+        assert eps == eps_v and len(eps) == VIDEO_SCAN_EPISODES, "(b) the video run's episodes or metrics differ"
+        assert _same_actions(p_plain["actions"], p_video["actions"]), "(b) the video run took other actions"
+        mb, frames = _check_videos(p_video, eps_v, "(b) scan eval")
+
+        def scan_rate(t):
+            return t["env_steps"] / (t["seconds"] - t["capture_seconds"] + t["replay_seconds"])
+
+        print(f"video (b) RxR CMA scan eval, B={SCAN_B}, {len(eps)} episodes: env-steps/s {scan_rate(t_video):.1f} with video, "
+              f"{scan_rate(t_plain):.1f} without ({scan_rate(t_video) / scan_rate(t_plain):.2f}x; after the capture, the host "
+              f"replay included: {t_video['replay_seconds']:.2f} s against {t_plain['replay_seconds']:.2f} s); {frames} frames, "
+              f"{1e3 * p_video['frame_s'] / frames:.2f} ms per composed frame, {mb:.3f} MB per file; launches "
+              f"{json.dumps(l_video)} (warm-up and capture of one graph, as without video)")
+        out["video_scan_eval"], out["video_scan_eval_plain"] = l_video, l_plain
+
+        # (c) the waypoint eval of seeded WPN weights, sampled as phase_waypoint's eval
+        wp_common = ["TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_SCENES", WP_N,
+                     "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40, "NUM_ENVIRONMENTS", WP_N, "TENSORBOARD_DIR", "",
+                     "VERBOSE", False, "LOG_FILE", os.path.join(tmp, "run.log"), "TASK_CONFIG.DATASET.NUM_EPISODES", 2 * WP_N,
+                     "EVAL.EPISODE_COUNT", WP_N, "EVAL.SAMPLE", True, "EVAL_CKPT_PATH_DIR", os.path.join(tmp, "none.pth")]
+        measures = list(get_config(WP_EXP).TASK_CONFIG.TASK.MEASUREMENTS) + ["TOP_DOWN_MAP_VLNCE"]
+        runs = {}
+        for name, extra in (("plain", []), ("video", video + ["VIDEO_DIR", os.path.join(tmp, "videos_c"),
+                                                              "TASK_CONFIG.TASK.MEASUREMENTS", measures])):
+            with _video_probes([ddppo_waypoint_trainer]) as probe:
+                trainer, launches, wall = _run_loop("eval", wp_common + extra + ["RESULTS_DIR", os.path.join(tmp, f"evals_c_{name}")],
+                                                    exp=WP_EXP, per_act_step=(2, 0, 0, 0))
+            runs[name] = (dict(trainer._last_eval_episode_stats), probe, trainer.last_loop_timing, launches)
+        (eps, p_plain, t_plain, l_plain), (eps_v, p_video, t_video, l_video) = runs["plain"], runs["video"]
+        assert eps == eps_v and len(eps) >= WP_N, "(c) the video run's episodes or metrics differ"
+        assert _same_actions(p_plain["actions"], p_video["actions"]), "(c) the video run took other actions"
+        mb, frames = _check_videos(p_video, eps_v, "(c) waypoint eval")
+        rate = (t_plain["env_steps"] / t_plain["total_time"], t_video["env_steps"] / t_video["total_time"])
+        print(f"video (c) WPN eval, N={WP_N}, {len(eps)} episodes: env-steps/s {rate[1]:.1f} with video (the map measure "
+              f"added), {rate[0]:.1f} without ({rate[1] / rate[0]:.2f}x); {frames} frames, {1e3 * p_video['frame_s'] / frames:.2f} "
+              f"ms per composed frame (waypoint_observations_to_image), {mb:.3f} MB per file; B1 per act step "
+              f"{l_video['gru_sequence'] / t_video['act_steps']:.0f}")
+        out["video_waypoint_eval"], out["video_waypoint_eval_plain"] = l_video, l_plain
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3269,6 +3489,7 @@ def main() -> int:
      paths["device_waypoint_eval"]) = timed(phase_device_waypoint, dev, wp_host)
     timed(phase_waypoint_against_plain, dev)
     timed(phase_device_waypoint_against_plain, dev)
+    paths.update(timed(phase_video, dev))
     for k, extra, wp in zip(kernels, (shapes["forward"], shapes["backward"], shapes["weight"], shapes["resize"]),
                             (wp_shapes["forward"], wp_shapes["backward"], wp_shapes["weight"], {})):
         k.update(extra)

@@ -43,7 +43,7 @@ from vlnce_torch.run import run_exp
 from vlnce_torch.trainers.base_trainer import make_fused_act_step
 from vlnce_torch.utils.checkpoints import save_checkpoint
 
-from tests.torch_port_cases import JAX_RXR_CMA, RXR_CMA, SMALL_OPTS, build_pair, configs
+from tests.torch_port_cases import JAX_RXR_CMA, RXR_CMA, SMALL_OPTS, build_pair, configs, video_files
 
 jax_ensure_registered()
 
@@ -309,11 +309,12 @@ def _jax_params(path):
     (["EVAL.EVAL_NONLEARNING", True], "nonlearning"),
 ])
 def test_parts_that_wait_raise_and_name_the_roadmap(tmp_path, checkpoints, opts, match):
-    """VIDEO_OPTION waits for the video path and raises naming the roadmap.
-    The other two cases raised so until their parts came, and now run: the
-    scan eval over imported geometry (every scene it ran is an ImportedScene
-    away from the origin, not the procedural fallback of a missing export)
-    and the nonlearning agent's eval, each writing its stats file."""
+    """Each case raised naming the roadmap until its part came, and now runs:
+    the scan eval over imported geometry (every scene it ran is an
+    ImportedScene away from the origin, not the procedural fallback of a
+    missing export), the nonlearning agent's eval, each writing its stats
+    file, and VIDEO_OPTION, held against the JAX trainer's eval with video
+    (`_assert_video_eval_matches_jax`)."""
     from vlnce_torch.tasks.datasets import make_dataset
 
     from tests.torch_port_cases import SceneRegistrySnapshot, assert_imported, export_synthetic_geometry
@@ -324,8 +325,7 @@ def test_parts_that_wait_raise_and_name_the_roadmap(tmp_path, checkpoints, opts,
         "CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32",
         "RESULTS_DIR", str(tmp_path / "evals"), "EVAL_CKPT_PATH_DIR", port_path, *opts])
     if match == "VIDEO_OPTION":
-        with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP.md section A"):
-            run_exp(RXR_CMA, "eval", run_opts)
+        _assert_video_eval_matches_jax(tmp_path, checkpoints, run_opts)
         return
     with SceneRegistrySnapshot():
         if match == "GEOMETRY_DIR":
@@ -341,6 +341,35 @@ def test_parts_that_wait_raise_and_name_the_roadmap(tmp_path, checkpoints, opts,
             assert (tmp_path / "evals" / "stats_ckpt_0_val_unseen.json").exists()
         else:
             assert trainer is None and (tmp_path / "evals" / "stats_RandomAgent_val_unseen.json").exists()
+
+
+def _assert_video_eval_matches_jax(tmp_path, checkpoints, run_opts):
+    """VIDEO_OPTION [disk]: the JAX trainer's eval and the port's write one
+    video per episode under the same names (up to the extension) with the
+    same number and shape of frames; the port's episodes and scalar metrics
+    equal those of its run without video, and JAX's."""
+    jax_path, port_path = checkpoints
+    video_opts = ["VIDEO_OPTION", ["disk"], "VIDEO_DIR", str(tmp_path / "port_videos")]
+    trainer = run_exp(RXR_CMA, "eval", run_opts + video_opts)
+    with_video = trainer._last_eval_episode_stats
+    plain = run_exp(RXR_CMA, "eval", [o if o != str(tmp_path / "evals") else str(tmp_path / "plain_evals") for o in run_opts])
+    assert list(with_video) == list(plain._last_eval_episode_stats)
+    for ep_id, stats in with_video.items():
+        assert stats == plain._last_eval_episode_stats[ep_id], ep_id
+    jcfg = _jax_config(_loop_opts(tmp_path, ["RESULTS_DIR", str(tmp_path / "jax_evals"),
+                                             "VIDEO_OPTION", ["disk"], "VIDEO_DIR", str(tmp_path / "jax_videos")]))
+    jax_trainer = JaxTrainer(jcfg)
+    jax_trainer._eval_checkpoint(jax_path, _NullWriter(), 0)
+    for ep_id, stats in with_video.items():
+        for k in MEASURES:
+            np.testing.assert_allclose(stats[k], jax_trainer._last_eval_episode_stats[ep_id][k], rtol=0, atol=1e-6)
+    port_videos, jax_videos = video_files(tmp_path / "port_videos"), video_files(tmp_path / "jax_videos")
+    assert len(port_videos) == len(with_video) and sorted(port_videos) == sorted(jax_videos)
+    for name, frames in port_videos.items():
+        assert frames.shape == jax_videos[name].shape, name
+        assert frames.shape[0] == with_video[name.split("-")[0].split("=")[1]]["steps_taken"]
+        assert frames.dtype == np.uint8 and frames.std() > 0
+    assert (tmp_path / "evals" / "stats_ckpt_0_val_unseen.json").exists()
 
 
 def test_trainer_checkpoint_carries_its_config_into_eval(tmp_path, checkpoints):

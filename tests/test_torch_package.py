@@ -16,7 +16,8 @@ from tests.torch_port_cases import JAX_RXR_CMA, RXR_CMA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "vlnce_tpu", "gymnasium", "attr", "tqdm", "cv2", "msgpack", "lmdb", "networkx")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "vlnce_tpu", "gymnasium", "attr", "tqdm", "cv2", "msgpack", "lmdb", "networkx",
+           "PIL", "imageio")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -59,6 +60,9 @@ NEW_MODULES = [
     "vlnce_torch.utils.msgpack_reader", "vlnce_torch.trainers.nonlearning_agents", "vlnce_torch.utils.nav_graph",
     "vlnce_torch.envs.scene_import", "vlnce_torch.scripts", "vlnce_torch.scripts.ckpt_to_interrupted_state",
     "vlnce_torch.scripts.export_scene_geometry", "vlnce_torch.scripts.generate_feature_bank",
+    # the video path and the other simulators
+    "vlnce_torch.utils.raster", "vlnce_torch.utils.maps", "vlnce_torch.utils.video", "vlnce_torch.envs.replay_sim",
+    "vlnce_torch.envs.habitat_adapter",
 ]
 
 
@@ -72,6 +76,51 @@ def test_import_pulls_in_no_jax_and_builds_no_kernel():
     assert report["foreign"] == []
     assert report["loaded_kernels"] == []
 
+
+_VIDEO_WITHOUT_IMAGE_LIBRARIES = """
+import json, sys, tempfile
+for name in ("cv2", "PIL", "imageio"):
+    sys.modules[name] = None  # `import name` now raises ImportError
+import numpy as np
+import vlnce_torch.config  # noqa: F401
+from vlnce_torch.envs import Env
+from vlnce_torch.config import get_config
+from vlnce_torch.utils import video
+cfg = get_config(opts=["TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.SIMULATOR.RGB_SENSOR.HEIGHT", 32,
+                       "TASK_CONFIG.SIMULATOR.RGB_SENSOR.WIDTH", 32, "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT", 32,
+                       "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH", 32])
+task = cfg.TASK_CONFIG.clone()
+task.defrost()
+task.TASK.MEASUREMENTS.append("TOP_DOWN_MAP_VLNCE")
+env = Env(task)
+obs, frames = env.reset(), []
+while not env.episode_over:
+    obs = env.step(int(obs["shortest_path_sensor"][0]))
+    info = env.get_metrics()
+    frame = video.observations_to_image(obs, info)
+    frames.append(video.append_text_to_image(frame, env.current_episode.instruction.instruction_text))
+pano = {"rgb": np.stack([obs["rgb"]] * 12), "depth": np.stack([obs["depth"]] * 12)}
+frames_wp = [video.waypoint_observations_to_image(pano, info, pano=3, r=1.0, theta=0.2, instruction_text="go"),
+             video.navigator_video_frame(pano, info, instruction_text="go")]
+out = tempfile.mkdtemp()
+path = video.images_to_video(frames, out, "episode")
+back = video.read_video(path)
+print(json.dumps({"frames": len(frames), "read": int(back.shape[0]), "equal": bool((back == np.stack(frames)).all()),
+                  "shapes": [list(f.shape) for f in frames_wp],
+                  "foreign": sorted(k for k in ("cv2", "PIL", "imageio") if sys.modules.get(k) is not None)}))
+"""
+
+
+def test_video_composer_runs_without_image_libraries():
+    """The frame composers and the AVI writer run with cv2, PIL and imageio
+    unimportable, and the file reads back bit for bit."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _VIDEO_WITHOUT_IMAGE_LIBRARIES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["frames"] == report["read"] > 1 and report["equal"]
+    assert report["foreign"] == [] and all(s[2] == 3 for s in report["shapes"])
 
 def test_default_device_is_cuda_in_bf16():
     cfg = get_config()

@@ -246,6 +246,37 @@ def test_rxr_scan_eval_and_inference_match_jax(tmp_path, rxr_checkpoints):
         assert len(steps) >= 2 and all(sorted(s) == ["heading", "position", "stop"] for s in steps)
 
 
+def test_rxr_scan_eval_with_video_matches_jax(tmp_path, rxr_checkpoints):
+    """EVAL.ON_DEVICE_SCAN with VIDEO_OPTION [disk]: the host replay keeps its
+    cameras and composes the frames. The port writes one video per episode
+    under the JAX trainer's names (up to the extension) with as many frames
+    as the JAX files, and its scalar metrics equal its run without video."""
+    from vlnce_tpu.config import get_config as jax_get_config
+
+    from tests.torch_port_cases import video_files
+
+    jax_path, port_path = rxr_checkpoints
+    video = ["VIDEO_OPTION", ["disk"], "TASK_CONFIG.TASK.TOP_DOWN_MAP_VLNCE.MAP_RESOLUTION", 256]
+    jcfg = jax_get_config(JAX_RXR_CMA, SMALL_OPTS + ["TPU.PRECISION.compute_dtype", "float32", "TPU.MESH.DATA", 1]
+                          + _rxr_opts(tmp_path / "jax") + video + ["VIDEO_DIR", str(tmp_path / "jax_videos")])
+    jax_trainer = JaxTrainer(jcfg)
+    jax_trainer._eval_checkpoint(jax_path, _NullWriter(), 0)
+    port_opts = SMALL_OPTS + ["CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32", "EVAL_CKPT_PATH_DIR", port_path]
+    trainer = run_exp(RXR_CMA, "eval", port_opts + _rxr_opts(tmp_path / "port") + video
+                      + ["VIDEO_DIR", str(tmp_path / "port_videos")])
+    plain = run_exp(RXR_CMA, "eval", port_opts + _rxr_opts(tmp_path / "plain"))
+    episodes = trainer._last_eval_episode_stats
+    assert episodes == plain._last_eval_episode_stats and len(episodes) == 4
+    for ep_id, stats in episodes.items():
+        for k in MEASURES:
+            np.testing.assert_allclose(stats[k], jax_trainer._last_eval_episode_stats[ep_id][k], rtol=0, atol=1e-6)
+    port_videos, jax_videos = video_files(tmp_path / "port_videos"), video_files(tmp_path / "jax_videos")
+    assert len(port_videos) == 4 and sorted(port_videos) == sorted(jax_videos)
+    for name, frames in port_videos.items():
+        assert frames.shape == jax_videos[name].shape, name
+        assert frames.shape[0] == episodes[name.split("-")[0].split("=")[1]]["steps_taken"]
+
+
 # ---------------------------------------------------------------------------
 # on-device DAgger collection
 # ---------------------------------------------------------------------------

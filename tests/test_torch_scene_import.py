@@ -363,8 +363,11 @@ def test_export_cli_matches_jax_script(tmp_path, monkeypatch):
             for k in a.files:
                 assert a[k].dtype == b[k].dtype
                 np.testing.assert_array_equal(a[k], b[k], err_msg=f"{name} {k}")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section A, 'Left by the serving slice'"):
-        main(["--out-dir", str(tmp_path / "h"), "--habitat"])
+    # `--habitat` runs since the adapter came (tests/test_torch_habitat_adapter.py);
+    # like the JAX script it needs --exp-config to name the dataset's scenes
+    for run in (lambda argv: _run_jax_script(monkeypatch, jax_export, argv), main):
+        with pytest.raises(SystemExit, match="--habitat requires --exp-config"):
+            run(["--out-dir", str(tmp_path / "h"), "--habitat"])
 
 
 def test_generate_feature_bank_cli_matches_jax_script(tmp_path, monkeypatch):

@@ -5,6 +5,7 @@ GridWorld: `add_pano_sensors_to_config`, `DiscretePathPlanner`,
 packages' envs gives bit-equal observations and equal rewards, dones and
 metrics (both are numpy host code: exact equality)."""
 
+import json
 import math
 
 import numpy as np
@@ -113,27 +114,110 @@ def test_waypoint_env_and_reward_match_jax(measure_opts):
     jenv.close()
 
 
-def test_discretized_waypoint_env_matches_jax():
+def test_discretized_waypoint_env_matches_jax(tmp_path):
     """VLNCEWaypointEnvDiscretized: each waypoint planned into TURN/FORWARD
     steps, a waypoint within the goal radius re-fetches the observations,
-    zero reward, equal metrics; VIDEO_OPTION raises in the port."""
-    cfg, jcfg = _configs(discretized=True)
-    assert cfg.ENV_NAME == jcfg.ENV_NAME == "VLNCEWaypointEnvDiscretized"
-    env, jenv = rl_envs.VLNCEWaypointEnvDiscretized(cfg), jax_rl_envs.VLNCEWaypointEnvDiscretized(jcfg)
-    rng = np.random.RandomState(2)
-    for _ in range(2):
-        obs, jobs = env.reset(), jenv.reset()
-        for k in obs:
-            np.testing.assert_array_equal(obs[k], jobs[k], err_msg=k)
-        for action in _actions(rng, 5):
-            step, jstep = env.step(action), jenv.step(action)
-            _assert_step_equal(step, jstep)
-            assert step[1] == 0.0
-            if step[2]:
-                break
-    env.close()
-    jenv.close()
-    video = cfg.clone().defrost()
-    video.VIDEO_OPTION = ["disk"]
-    with pytest.raises(NotImplementedError, match="Left by the serving slice"):
-        rl_envs.VLNCEWaypointEnvDiscretized(video)
+    zero reward, equal metrics. With VIDEO_OPTION [disk] both envs write the
+    episode's navigator video under the same name (up to the extension),
+    with a frame per discrete step, and step exactly as without video."""
+    from tests.torch_port_cases import video_files
+
+    runs = {}
+    for video in (False, True):
+        extra = ["VIDEO_OPTION", ["disk"], "VIDEO_DIR", str(tmp_path / "videos")] if video else []
+        cfg, jcfg = _configs(discretized=True, extra=extra)
+        if video:
+            cfg.defrost()
+            cfg.VIDEO_DIR = str(tmp_path / "videos" / "port")
+            jcfg.defrost()
+            jcfg.VIDEO_DIR = str(tmp_path / "videos" / "jax")
+        assert cfg.ENV_NAME == jcfg.ENV_NAME == "VLNCEWaypointEnvDiscretized"
+        env, jenv = rl_envs.VLNCEWaypointEnvDiscretized(cfg), jax_rl_envs.VLNCEWaypointEnvDiscretized(jcfg)
+        rng = np.random.RandomState(2)
+        runs[video] = steps = []
+        for _ in range(2):
+            obs, jobs = env.reset(), jenv.reset()
+            for k in obs:
+                np.testing.assert_array_equal(obs[k], jobs[k], err_msg=k)
+            for action in _actions(rng, 5):
+                step, jstep = env.step(action), jenv.step(action)
+                _assert_step_equal(step, jstep)
+                assert step[1] == 0.0
+                steps.append(step)
+                if video:
+                    assert len(env._video_frames) == len(jenv._video_frames)
+                if step[2]:
+                    break
+            if not step[2]:
+                step, jstep = env.step({"action": "STOP"}), jenv.step({"action": "STOP"})
+                _assert_step_equal(step, jstep)
+                steps.append(step)
+        env.close()
+        jenv.close()
+    assert len(runs[True]) == len(runs[False])
+    for a, b in zip(runs[True], runs[False]):
+        _assert_step_equal(a, b)
+    port_videos, jax_videos = video_files(tmp_path / "videos" / "port"), video_files(tmp_path / "videos" / "jax")
+    assert sorted(port_videos) == sorted(jax_videos) and all("SPL=" in n for n in port_videos)
+    for name, frames in port_videos.items():
+        assert frames.shape[0] == jax_videos[name].shape[0] > 1, name
+
+
+class _NullWriter:
+    def add_scalar(self, *args):
+        pass
+
+
+def test_waypoint_eval_with_video_matches_jax(tmp_path, monkeypatch):
+    """The ddppo-waypoint eval with VIDEO_OPTION [disk] (the JAX test of
+    tests/test_trainers.py's waypoint eval video): both trainers evaluate the
+    same weights and write one waypoint debug video per episode under the
+    same names (up to the extension), with as many frames; the port's
+    episodes and scalar metrics equal its run without video, and JAX's."""
+    from vlnce_tpu.trainers.ddppo_waypoint_trainer import DDPPOWaypointTrainer as JaxTrainer
+    from vlnce_tpu.utils.checkpoints import save_checkpoint as jax_save_checkpoint
+    from vlnce_torch.models.convert import state_dict_from_jax_params
+    from vlnce_torch.trainers.ddppo_waypoint_trainer import DDPPOWaypointTrainer
+    from vlnce_torch.utils.checkpoints import save_checkpoint
+
+    from tests.torch_port_cases import video_files
+    from tests.torch_port_cases import build_waypoint_pair
+
+    monkeypatch.setenv("VLNCE_TPU_THREADED_ENVS", "1")
+    monkeypatch.setenv("VLNCE_TORCH_THREADED_ENVS", "1")
+    (_, params), _, (jcfg, cfg) = build_waypoint_pair("1-wpn-cc", seed=4)
+    jax_path, port_path = str(tmp_path / "ckpt.0.ckpt"), str(tmp_path / "ckpt.0.pth")
+    jax_save_checkpoint(jax_path, params, config=jcfg)
+    save_checkpoint(port_path, state_dict_from_jax_params(params, "WaypointPolicy"), config=cfg)
+
+    def opts(name, video):
+        out = ["ENV_NAME", "VLNCEWaypointEnv", "NUM_ENVIRONMENTS", 2, "EVAL.EPISODE_COUNT", 3, "EVAL.SAMPLE", False,
+               "EVAL.SPLIT", "val_unseen", "EVAL.USE_CKPT_CONFIG", False, "TASK_CONFIG.DATASET.NUM_EPISODES", 4,
+               "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 3, "RESULTS_DIR", str(tmp_path / name / "evals"),
+               "TASK_CONFIG.TASK.TOP_DOWN_MAP_VLNCE.MAP_RESOLUTION", 256,
+               "TASK_CONFIG.TASK.MEASUREMENTS", ["DISTANCE_TO_GOAL", "SUCCESS", "SPL", "NDTW", "PATH_LENGTH", "ORACLE_SUCCESS",
+                                                 "STEPS_TAKEN", "WAYPOINT_REWARD_MEASURE", "TOP_DOWN_MAP_VLNCE"]]
+        return out + (["VIDEO_OPTION", ["disk"], "VIDEO_DIR", str(tmp_path / name / "videos")] if video else [])
+
+    from tests.torch_port_cases import waypoint_configs
+
+    runs = {}
+    for name, video in (("port", True), ("plain", False)):
+        trainer = DDPPOWaypointTrainer(waypoint_configs("1-wpn-cc", opts(name, video))[1])
+        trainer._eval_checkpoint(port_path, _NullWriter(), 0)
+        runs[name] = trainer._last_eval_episode_stats
+    jax_trainer = JaxTrainer(waypoint_configs("1-wpn-cc", opts("jax", True))[0])
+    jax_trainer._eval_checkpoint(jax_path, _NullWriter(), 0)
+    assert runs["port"] == runs["plain"] and len(runs["port"]) >= 3
+    # the JAX trainer keeps no per-episode stats: compare the written means
+    with open(tmp_path / "port" / "evals" / "stats_ckpt_0_val_unseen.json") as f, \
+            open(tmp_path / "jax" / "evals" / "stats_ckpt_0_val_unseen.json") as jf:
+        written, jax_written = json.load(f), json.load(jf)
+    assert sorted(written) == sorted(jax_written)
+    for k, v in written.items():
+        np.testing.assert_allclose(v, jax_written[k], rtol=0, atol=1e-5, err_msg=k)
+    port_videos, jax_videos = video_files(tmp_path / "port" / "videos"), video_files(tmp_path / "jax" / "videos")
+    assert sorted(port_videos) == sorted(jax_videos) and len(port_videos) == len(runs["port"])
+    for name, frames in port_videos.items():
+        assert frames.shape[0] == jax_videos[name].shape[0] >= 1, name
+        assert frames.shape[0] == runs["port"][name.split("-ckpt=")[0][len("episode="):]]["steps_taken"], name

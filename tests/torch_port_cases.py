@@ -9,6 +9,7 @@ port gets those weights through `state_dict_from_jax_params`.
 """
 
 import copy
+import os
 
 import numpy as np
 import torch
@@ -488,3 +489,30 @@ class SceneRegistrySnapshot:
             else:
                 setattr(m, name, value)
         return False
+
+
+def video_files(directory):
+    """{episode file name without extension: frames} of an eval's videos (the
+    JAX package's mp4 files read by OpenCV, the port's AVI files by
+    `read_video`)."""
+    import cv2
+
+    from vlnce_torch.utils.video import read_video
+
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        stem, ext = os.path.splitext(name)
+        path = os.path.join(directory, name)
+        if ext == ".avi":
+            out[stem] = read_video(path)
+        else:
+            cap, frames = cv2.VideoCapture(path), []
+            while True:
+                ok, img = cap.read()
+                if not ok:
+                    break
+                frames.append(img)
+            cap.release()
+            out[stem] = np.stack(frames)
+    return out
+

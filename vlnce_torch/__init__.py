@@ -16,8 +16,10 @@ the recollect trainer (`trainers.recollect_trainer`) and DD-PPO of the
 waypoint policy on one card (`trainers.ddppo_waypoint_trainer`, `rl/`),
 the closed loops on the card, imported scene geometry
 (`envs.scene_import`), the nonlearning agents, the JAX package's
-checkpoints (`utils.checkpoints`) and the command-line tools of `scripts/`.
-ROADMAP.md lists what is not ported yet.
+checkpoints (`utils.checkpoints`), the command-line tools of `scripts/`, the
+video path (`utils.{raster,maps,video}`, the TopDownMapVLNCE measure), and
+the ReplaySim and habitat_sim simulators. ROADMAP.md lists what is not
+ported yet.
 """
 
 __version__ = "0.1.0"

@@ -9,7 +9,7 @@ __all__ = ["Env", "ensure_registered"]
 
 
 def ensure_registered() -> None:
-    from vlnce_torch.envs import gridworld  # noqa: F401
+    from vlnce_torch.envs import gridworld, replay_sim  # noqa: F401
 
 
 def __getattr__(name):

@@ -186,3 +186,5 @@ class Env:
 # simulator registration (import side effect, after Env is defined so the
 # lazy package __init__ can't recurse)
 from vlnce_torch.envs import gridworld as _gridworld  # noqa: E402,F401
+from vlnce_torch.envs import replay_sim as _replay_sim  # noqa: E402,F401
+from vlnce_torch.envs import habitat_adapter as _habitat_adapter  # noqa: E402,F401  (registers only if habitat_sim imports)

@@ -4,9 +4,8 @@ Parity with reference vlnce_baselines/common/environments.py:15-198: the
 DAgger env (zero reward, full metric info), the inference env (pose info),
 the waypoint RL env (reward from the waypoint reward measure, done on
 success), and the discretized-navigator waypoint env (plans each waypoint
-into TURN/FORWARD sequences through the discrete simulator). The
-discretized env's in-env video (`VIDEO_OPTION`) is not ported yet and
-raises.
+into TURN/FORWARD sequences through the discrete simulator), whose
+`VIDEO_OPTION` writes a navigator video per episode from inside the env.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from vlnce_torch.registry import registry
 from vlnce_torch.envs.env import Env
 from vlnce_torch.tasks.discrete_planner import DiscretePathPlanner
 from vlnce_torch.tasks.geometry import heading_from_quaternion
+from vlnce_torch.utils.video import generate_video, navigator_video_frame
 
 
 class RLEnv:
@@ -143,16 +143,12 @@ class VLNCEWaypointEnv(RLEnv):
 class VLNCEWaypointEnvDiscretized(VLNCEWaypointEnv):
     """Zero-shot eval of waypoint policies through discrete actions
     (reference environments.py:94-198): each GO_TOWARD_POINT is planned as an
-    obstacle-free TURN/FORWARD sequence and executed step by step. The JAX
-    env's in-env navigator video (`VIDEO_OPTION`) is not ported yet: the env
-    raises when it is set."""
+    obstacle-free TURN/FORWARD sequence and executed step by step. With
+    VIDEO_OPTION set, every discrete sub-step is composited into a
+    navigator video frame and the episode video is written in-env on done
+    (reference environments.py:113-196)."""
 
     def __init__(self, config, dataset=None):
-        if len(getattr(config, "VIDEO_OPTION", []) or []) > 0:
-            raise NotImplementedError(
-                "VIDEO_OPTION of VLNCEWaypointEnvDiscretized (utils/video.py) is not ported to vlnce_torch yet "
-                "(ROADMAP.md section A, 'Left by the serving slice')"
-            )
         super().__init__(config, dataset=dataset)
         sim_cfg = config.TASK_CONFIG.SIMULATOR
         step_size = float(sim_cfg.FORWARD_STEP_SIZE)
@@ -162,15 +158,46 @@ class VLNCEWaypointEnvDiscretized(VLNCEWaypointEnv):
             # 0.13 m for the 0.25 m step (reference environments.py:107)
             goal_radius=round(step_size / 2, 2) + 0.01,
         )
+        self._video_option = list(getattr(config, "VIDEO_OPTION", []) or [])
+        self._video_dir = getattr(config, "VIDEO_DIR", None)
+        self._video_frames: list = []
 
     def get_reward(self, observations) -> float:
         # reference environments.py:111: the discretized navigator is an
         # eval-only env; no reward measure is required in the task config
         return 0.0
 
+    def _start_pose(self):
+        state = self._env.sim.get_agent_state()
+        return state.position, state.rotation
+
+    def _record_frame(self, observations, start_pos, start_heading, action) -> None:
+        # the production instruction obs is a token array; the panel text
+        # comes from the episode record instead
+        instruction = getattr(self._env.current_episode, "instruction", None)
+        text = getattr(instruction, "instruction_text", None)
+        self._video_frames.append(
+            navigator_video_frame(
+                observations, self.get_info(observations),
+                start_pos, start_heading, action,
+                instruction_text=text,
+            )
+        )
+
+    def reset(self):
+        observations = super().reset()
+        if self._video_option:
+            start_pos, start_heading = self._start_pose()
+            self._video_frames = []
+            self._record_frame(observations, start_pos, start_heading, None)
+        return observations
+
     def step(self, action) -> Tuple[Dict, float, bool, Dict]:
         if isinstance(action, dict) and isinstance(action.get("action"), dict):
             action = action["action"]  # unwrap habitat-style nested spec
+        start_pos = start_heading = None
+        if self._video_option:
+            start_pos, start_heading = self._start_pose()
         if isinstance(action, dict) and action.get("action") == "GO_TOWARD_POINT":
             r = float(action["action_args"]["r"])
             theta = float(action["action_args"]["theta"])
@@ -179,6 +206,8 @@ class VLNCEWaypointEnvDiscretized(VLNCEWaypointEnv):
             observations = None
             for discrete_action in plan:
                 observations = self._env.step({"action": int(discrete_action)})
+                if self._video_option:
+                    self._record_frame(observations, start_pos, start_heading, action)
                 if self._env.episode_over:
                     break
             if observations is None:
@@ -187,7 +216,26 @@ class VLNCEWaypointEnvDiscretized(VLNCEWaypointEnv):
                 # episode (reference environments.py:146-151): stepping STOP
                 # here would wrongly end the episode.
                 state = self._env.sim.get_agent_state()
-                observations = self._env.sim.get_observations_at(state.position, state.rotation)
+                observations = self._env.sim.get_observations_at(
+                    state.position, state.rotation
+                )
         else:
             observations = self._env.step(action)
-        return observations, self.get_reward(observations), self.get_done(observations), self.get_info(observations)
+            if self._video_option:
+                self._record_frame(observations, start_pos, start_heading, action)
+        reward = self.get_reward(observations)
+        done = self.get_done(observations)
+        info = self.get_info(observations)
+        if self._video_option and done:
+            generate_video(
+                video_option=self._video_option,
+                video_dir=self._video_dir,
+                images=self._video_frames,
+                episode_id=self._env.current_episode.episode_id,
+                checkpoint_idx=0,
+                metrics={"SPL": round(float(info.get("spl", 0.0)), 5)},
+                tb_writer=None,
+                fps=8,
+            )
+            self._video_frames = []
+        return observations, reward, done, info

@@ -7,8 +7,10 @@ measures.py:52-57) is a method on `Simulator`. Implementations:
 
 - GridWorldSim (vlnce_torch/envs/gridworld.py): procedural host-side world for
   tests/benchmarks/dry-runs.
-
-The JAX package's ReplaySim and HabitatSimAdapter are not ported yet.
+- ReplaySim (vlnce_torch/envs/replay_sim.py): prerecorded pose/observation
+  sequences.
+- HabitatSimAdapter (vlnce_torch/envs/habitat_adapter.py): real MP3D scenes,
+  registered only when habitat_sim is installed.
 
 Simulation stays CPU-side; all neural compute happens on the card downstream.
 """

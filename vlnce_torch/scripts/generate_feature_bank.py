@@ -76,9 +76,9 @@ def main(argv=None) -> None:
     task_cfg = cfg.TASK_CONFIG
     if task_cfg.SIMULATOR.TYPE != "GridWorldSim-v0":
         raise SystemExit(
-            "this generator renders through the grid world on the card; real MP3D scenes render through "
-            "habitat_sim (envs/habitat_adapter.py), which the port has not ported yet. "
-            f"SIMULATOR.TYPE={task_cfg.SIMULATOR.TYPE}"
+            "this generator renders through the grid world on the card; for real MP3D scenes run it where "
+            "habitat_sim is installed (envs/habitat_adapter.py renders the poses through get_observations_at, "
+            f"the same encoder path). SIMULATOR.TYPE={task_cfg.SIMULATOR.TYPE}"
         )
 
     apply_scene_geometry(task_cfg.SIMULATOR)  # real-scene grids, if configured

@@ -4,9 +4,8 @@ Implements the habitat core measures the task configs assume (DistanceToGoal,
 Success, SPL) and the VLN-CE extension measures
 (reference habitat_extensions/measures.py:35-562), with the same uuids,
 dependency declarations, and update semantics. nDTW uses the from-scratch
-fastdtw/dtw in vlnce_torch/tasks/dtw.py. Of the JAX package's measures,
-TopDownMapVLNCE is not ported yet (the waypoint task YAML lists its settings
-but not the measure).
+fastdtw/dtw in vlnce_torch/tasks/dtw.py. TopDownMapVLNCE paints the video
+path's top-down index map (vlnce_torch/utils/maps.py).
 """
 
 from __future__ import annotations
@@ -21,6 +20,8 @@ from vlnce_torch.registry import registry
 from vlnce_torch.envs.sim import Simulator
 from vlnce_torch.tasks.dtw import dtw, fastdtw
 from vlnce_torch.tasks.geometry import euclidean_distance
+from vlnce_torch.utils import maps as map_utils
+from vlnce_torch.utils.nav_graph import _node_position, get_nearest_node, load_connectivity_graphs, update_nearest_node
 
 
 class Measure:
@@ -362,6 +363,139 @@ class WaypointRewardMeasure(Measure):
         reward += self._progress_to_goal(task)
         reward += self._success_reward * task.measurements.measures["success"].get_metric()
         self._metric = reward
+
+
+@registry.register_measure(name="TopDownMapVLNCE")
+class TopDownMapVLNCE(Measure):
+    """Top-down indicator map with agent step-gradient trail, MP3D nav-graph
+    nodes + nearest-node path tracking, reference/shortest paths, and
+    source/target markers (reference habitat_extensions/measures.py:317-562).
+    The map is an index image painted in place; colorization happens at viz
+    time (vlnce_torch/utils/maps.py)."""
+
+    cls_uuid = "top_down_map_vlnce"
+
+    def __init__(self, *args: Any, sim: Simulator, config=None, **kwargs: Any):
+        self._sim = sim
+        self._config = config
+        self._map_resolution = int(getattr(config, "MAP_RESOLUTION", 256))
+        super().__init__()
+
+    @property
+    def _world_size(self) -> float:
+        scene = getattr(self._sim, "_scene", None)
+        if scene is not None:
+            # occupancy grid spans the square world
+            from vlnce_torch.envs.gridworld import _RES
+
+            return scene.occupancy.shape[0] * _RES
+        return 16.0
+
+    def reset_metric(self, *args: Any, episode, **kwargs: Any) -> None:
+        self._step_count = 0
+        self._episode = episode
+        self._meters_per_px = self._world_size / self._map_resolution
+        start = self._sim.get_agent_state()
+        self._map = map_utils.make_top_down_index_map(
+            self._sim, self._map_resolution, draw_border=bool(getattr(self._config, "DRAW_BORDER", True))
+        )
+        r, c = map_utils.to_grid(start.position[0], start.position[2], self._map.shape, self._world_size)
+        self._previous_xy_location = (c, r)
+
+        # nav graph: fixed waypoints + nearest-node path tracking
+        self._nav_graph = None
+        if getattr(self._config, "DRAW_FIXED_WAYPOINTS", False) or getattr(self._config, "DRAW_MP3D_AGENT_PATH", False):
+            graphs = load_connectivity_graphs(self._config.GRAPHS_FILE)
+            if graphs:
+                scene = episode.scene_id.split("/")[-1].split(".")[0]
+                self._nav_graph = graphs.get(scene)
+        if self._nav_graph is not None and getattr(self._config, "DRAW_FIXED_WAYPOINTS", False):
+            map_utils.draw_mp3d_nodes(self._map, self._nav_graph, episode, self._world_size, self._meters_per_px)
+
+        if self._config.DRAW_SHORTEST_PATH and episode.goals:
+            try:
+                points = self._sim.get_straight_shortest_path_points(
+                    list(start.position), episode.goals[0].position
+                )
+                map_utils.draw_straight_shortest_path_points(self._map, points, self._world_size)
+            except Exception:
+                pass
+        if self._config.DRAW_REFERENCE_PATH and getattr(episode, "reference_path", None):
+            map_utils.draw_reference_path(self._map, episode, self._world_size, self._meters_per_px)
+        # source and target last so they are not painted over
+        if self._config.DRAW_SOURCE_AND_TARGET:
+            map_utils.draw_source_and_target(self._map, episode, self._world_size, self._meters_per_px)
+
+        # MP3D start node (nearest-node tracking, reference measures.py:430-443)
+        self._nearest_node = None
+        if self._nav_graph is not None:
+            self._nearest_node = get_nearest_node(
+                self._nav_graph, (start.position[0], start.position[2])
+            )
+            if self._nearest_node is not None:
+                pos = _node_position(self._nav_graph, self._nearest_node)
+                self._node_rc = map_utils.to_grid(pos[0], pos[-1], self._map.shape, self._world_size)
+
+        self._fog_mask = None
+        scene = getattr(self._sim, "_scene", None)
+        if self._config.FOG_OF_WAR.DRAW and scene is not None:
+            self._fog_mask = np.zeros_like(scene.occupancy, dtype=np.uint8)
+        self.update_metric(episode=episode)
+
+    def update_metric(self, *args: Any, episode=None, **kwargs: Any) -> None:
+        self._step_count += 1
+        state = self._sim.get_agent_state()
+        heading = map_utils.agent_heading(state)
+        r, c = map_utils.to_grid(state.position[0], state.position[2], self._map.shape, self._world_size)
+
+        # agent trail with a step gradient (never over the source marker)
+        max_steps = max(1, int(getattr(self._config, "MAX_EPISODE_STEPS", 500)))
+        gradient_color = 15 + min(self._step_count * 245 // max_steps, 245)
+        if self._map[r, c] != map_utils.MAP_SOURCE_POINT_INDICATOR:
+            map_utils.drawline(
+                self._map, self._previous_xy_location, (c, r), gradient_color,
+                thickness=int(self._map_resolution * 1.4 / map_utils.MAP_THICKNESS_SCALAR),
+                style="filled",
+            )
+
+        if self._fog_mask is not None:
+            map_utils.reveal_fog_of_war(
+                self._sim._scene.occupancy, self._fog_mask, state.position, heading,
+                fov_deg=float(self._config.FOG_OF_WAR.FOV),
+                visibility_dist=float(self._config.FOG_OF_WAR.VISIBILITY_DIST),
+                world_size=self._world_size,
+            )
+
+        # nearest-node path over the nav graph (reference measures.py:516-560)
+        if self._nearest_node is not None:
+            prev = self._nearest_node
+            self._nearest_node = update_nearest_node(
+                self._nav_graph, self._nearest_node, (state.position[0], state.position[2])
+            )
+            if self._nearest_node != prev and getattr(self._config, "DRAW_MP3D_AGENT_PATH", False):
+                pos = _node_position(self._nav_graph, self._nearest_node)
+                prev_rc = self._node_rc
+                self._node_rc = map_utils.to_grid(pos[0], pos[-1], self._map.shape, self._world_size)
+                map_utils.drawpoint(
+                    self._map, self._node_rc, gradient_color, self._meters_per_px, pad=0.15
+                )
+                map_utils.drawline(
+                    self._map, (prev_rc[1], prev_rc[0]), (self._node_rc[1], self._node_rc[0]),
+                    gradient_color,
+                    thickness=max(1, int(0.5 * self._map_resolution / map_utils.MAP_THICKNESS_SCALAR)),
+                )
+
+        self._previous_xy_location = (c, r)
+        self._metric = {
+            "map": self._map,
+            "fog_of_war_mask": self._fog_mask,
+            "agent_map_coord": (r, c),
+            "agent_angle": heading,
+            "meters_per_px": self._meters_per_px,
+            "bounds": {"lower": (0.0, 0.0), "upper": (self._world_size, self._world_size)},
+            "world_size": self._world_size,
+            "step_count": self._step_count,
+        }
 
 
 def build_measures(measure_names: List[str], task_config, sim: Simulator) -> Measurements:

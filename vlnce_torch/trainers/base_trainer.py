@@ -17,8 +17,10 @@ the card. `prev_actions` and the recurrent state stay on the card.
 parameters only) and, for a requeued job, restores it. The training loops
 are `trainers/dagger_trainer.py` and `trainers/recollect_trainer.py`.
 `EVAL.ON_DEVICE_SCAN` and `INFERENCE.ON_DEVICE_SCAN` hand the loop to
-`trainers/scan_eval.py` (the grid world and the policy on the card). Videos
-(`VIDEO_OPTION`) are not ported yet and raise NotImplementedError.
+`trainers/scan_eval.py` (the grid world and the policy on the card).
+`VIDEO_OPTION` adds the TOP_DOWN_MAP_VLNCE measure and writes one video per
+episode (`utils/video.py`), composed on the host from each step's
+observations.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +58,7 @@ from vlnce_torch.utils.checkpoints import (
 from vlnce_torch.utils.logging import logger
 from vlnce_torch.utils.profiling import annotate
 from vlnce_torch.utils.tensorboard import TensorboardWriter
+from vlnce_torch.utils.video import append_text_to_image, generate_video, observations_to_image
 
 
 def make_fused_act_step(policy, transforms):
@@ -71,10 +74,6 @@ def make_fused_act_step(policy, transforms):
         return policy.act(batch, rnn_states, prev_actions, masks, deterministic, generator)
 
     return act_step
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to vlnce_torch yet (ROADMAP.md section A, {where})")
 
 
 class _ActLoop:
@@ -313,9 +312,9 @@ class BaseVLNCETrainer:
         config.TASK_CONFIG.ENVIRONMENT.ITERATOR_OPTIONS.SHUFFLE = False
         config.TASK_CONFIG.ENVIRONMENT.ITERATOR_OPTIONS.MAX_SCENE_REPEAT_STEPS = -1
         config.IL.ckpt_to_load = checkpoint_path
+        if len(config.VIDEO_OPTION) > 0 and "TOP_DOWN_MAP_VLNCE" not in config.TASK_CONFIG.TASK.MEASUREMENTS:
+            config.TASK_CONFIG.TASK.MEASUREMENTS.append("TOP_DOWN_MAP_VLNCE")
         config.freeze()
-        if len(config.VIDEO_OPTION) > 0:
-            raise _not_ported("VIDEO_OPTION (utils/video.py, TopDownMapVLNCE)", "'Left by the serving slice'")
 
         fname = None
         if config.EVAL.SAVE_RESULTS:
@@ -326,6 +325,8 @@ class BaseVLNCETrainer:
                 return None
 
         if config.EVAL.ON_DEVICE_SCAN:
+            # videos are rendered during the metrics replay (host cameras,
+            # only for this checkpoint's episodes): scan_eval.metrics_from_actions
             from vlnce_torch.trainers.scan_eval import eval_checkpoint_on_device
 
             return eval_checkpoint_on_device(self, config, checkpoint_path, writer, checkpoint_index, fname)
@@ -347,6 +348,10 @@ class BaseVLNCETrainer:
         active = [True] * N
 
         stats_episodes: Dict[str, Dict] = {}
+        video = len(config.VIDEO_OPTION) > 0
+        rgb_frames: List[List] = [[] for _ in range(N)]
+        if video:
+            os.makedirs(config.VIDEO_DIR, exist_ok=True)
 
         num_eps = sum(envs.number_of_episodes)
         if config.EVAL.EPISODE_COUNT > -1:
@@ -361,10 +366,21 @@ class BaseVLNCETrainer:
 
             masks_np = np.ones((N, 1), np.float32)
             for i, (obs, _, done, info) in zip(active_ids, stepped):
+                if video:
+                    frame = observations_to_image(obs, info)
+                    frame = append_text_to_image(frame, current_episodes[i].instruction.instruction_text)
+                    rgb_frames[i].append(frame)
                 if done:
                     ep_id = current_episodes[i].episode_id
                     stats_episodes[ep_id] = {k: v for k, v in info.items() if np.isscalar(v) or isinstance(v, (int, float))}
                     masks_np[i] = 0.0
+                    if video:
+                        generate_video(
+                            video_option=config.VIDEO_OPTION, video_dir=config.VIDEO_DIR,
+                            images=rgb_frames[i], episode_id=ep_id, checkpoint_idx=checkpoint_index,
+                            metrics={"spl": stats_episodes[ep_id].get("spl", 0.0)}, tb_writer=writer,
+                        )
+                        rgb_frames[i] = []
 
                     # advance env i; deactivate if its next episode is already done
                     obs = envs.reset_at(i)[0]

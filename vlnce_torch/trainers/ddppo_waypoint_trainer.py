@@ -59,11 +59,12 @@ from vlnce_torch.parallel.optim import load_optim_state
 from vlnce_torch.registry import registry
 from vlnce_torch.rl.ppo import WDDPPO
 from vlnce_torch.rl.rollout_storage import ActionDictRolloutStorage
-from vlnce_torch.trainers.base_trainer import BaseVLNCETrainer, _not_ported
+from vlnce_torch.trainers.base_trainer import BaseVLNCETrainer
 from vlnce_torch.utils.checkpoints import load_checkpoint, save_checkpoint, wait_for_pending
 from vlnce_torch.utils.logging import logger
 from vlnce_torch.utils.profiling import StepClock, annotate, maybe_profile
 from vlnce_torch.utils.tensorboard import TensorboardWriter
+from vlnce_torch.utils.video import generate_video, waypoint_observations_to_image
 
 EXIT = {"flag": False}
 REQUEUE = {"flag": False}
@@ -83,6 +84,24 @@ def add_signal_handlers() -> Dict[int, object]:
     if threading.current_thread() is not threading.main_thread():
         return {}
     return {sig: signal.signal(sig, _signal_handler) for sig in (signal.SIGUSR1, signal.SIGTERM)}
+
+
+def _video_readback(out) -> Dict[str, np.ndarray]:
+    """What a waypoint eval frame shows of one act step, for the whole batch
+    in one read-back: r, theta, the pano, offset and distance actions, their
+    modes, stop, and the pano-stop distribution (a host softmax)."""
+    cols = [out["r"], out["theta"], out["action_elements"]["pano"], out["action_elements"]["offset"],
+            out["modes"]["offset"], out["action_elements"]["distance"], out["modes"]["distance"], out["stop"]]
+    n = out["pano_stop_logits"].shape[0]
+    host = torch.cat([c.reshape(n, -1).float() for c in cols] + [out["pano_stop_logits"].reshape(n, -1).float()], 1).cpu().numpy()
+    names = ("r", "theta", "pano", "offset", "offset_mode", "distance", "distance_mode", "stop")
+    step = {k: host[:, j] for j, k in enumerate(names)}
+    logits = host[:, len(names):] - host[:, len(names):].max(axis=-1, keepdims=True)
+    probs = np.exp(logits)
+    step["probs"] = probs / probs.sum(axis=-1, keepdims=True)
+    step["pano"] = step["pano"].astype(np.int64)
+    step["stop"] = step["stop"] != 0
+    return step
 
 
 @registry.register_trainer(name="ddppo-waypoint")
@@ -439,8 +458,6 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
         config.TASK_CONFIG.ENVIRONMENT.ITERATOR_OPTIONS.SHUFFLE = False
         config.TASK_CONFIG.ENVIRONMENT.ITERATOR_OPTIONS.MAX_SCENE_REPEAT_STEPS = -1
         config.freeze()
-        if len(config.VIDEO_OPTION) > 0:
-            raise _not_ported("VIDEO_OPTION (utils/video.py, TopDownMapVLNCE)", "'Left by the serving slice'")
 
         fname = None
         if config.EVAL.SAVE_RESULTS:
@@ -469,6 +486,10 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
         active = [True] * N
 
         stats_episodes: Dict[str, Dict] = {}
+        video = len(config.VIDEO_OPTION) > 0
+        rgb_frames: List[List] = [[] for _ in range(N)]
+        if video:
+            os.makedirs(config.VIDEO_DIR, exist_ok=True)
         num_eps = sum(envs.number_of_episodes)
         if config.EVAL.EPISODE_COUNT > -1:
             num_eps = min(config.EVAL.EPISODE_COUNT, num_eps)
@@ -497,12 +518,35 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
             timing["env_steps"] += len(active_ids)
             masks_np = np.ones((N, 1), np.float32)
             new_obs = list(observations)
+            if video:
+                step_np = _video_readback(out)
             for i, (obs, _, done, info) in zip(active_ids, stepped):
                 new_obs[i] = obs
+                if video:
+                    # the full debug frame (reference utils.py:380-543): the
+                    # per-pano probability row, the stop gauge, the offset and
+                    # distance stats with their modes, the instruction panel
+                    frame = waypoint_observations_to_image(
+                        {"rgb": batch["rgb"][i], "depth": batch["depth"][i]}, info,
+                        pano=int(step_np["pano"][i]) if not step_np["stop"][i] else None,
+                        r=float(step_np["r"][i]), theta=float(step_np["theta"][i]),
+                        pano_distribution=step_np["probs"][i],
+                        offset=float(step_np["offset"][i]), offset_mode=float(step_np["offset_mode"][i]),
+                        distance=float(step_np["distance"][i]), distance_mode=float(step_np["distance_mode"][i]),
+                        instruction_text=current_episodes[i].instruction.instruction_text,
+                    )
+                    rgb_frames[i].append(frame)
                 if done:
                     ep_id = current_episodes[i].episode_id
                     stats_episodes[ep_id] = {k: v for k, v in info.items() if np.isscalar(v) and not isinstance(v, str)}
                     masks_np[i] = 0.0
+                    if video:
+                        generate_video(
+                            video_option=config.VIDEO_OPTION, video_dir=config.VIDEO_DIR,
+                            images=rgb_frames[i], episode_id=ep_id, checkpoint_idx=checkpoint_index,
+                            metrics={"spl": stats_episodes[ep_id].get("spl", 0.0)}, tb_writer=writer,
+                        )
+                        rgb_frames[i] = []
                     new_obs[i] = envs.reset_at(i)[0]
                     obs_history["rgb"][i] = 0
                     obs_history["depth"][i] = 0

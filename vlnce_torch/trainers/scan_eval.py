@@ -38,8 +38,9 @@ banks in. The banks' shapes and the episodes' coverage
 (`CUDA.FEATURE_BANK_MAX_DIST`) are checked when the loop starts.
 
 Left out of the JAX module: `_eval_mesh` (the card is one device, so there
-is no mesh and nothing is sharded). `VIDEO_OPTION` raises as in the host
-loop.
+is no mesh and nothing is sharded). With `VIDEO_OPTION` the host replay
+keeps its cameras and composes each step's frame (`metrics_from_actions`);
+the step graph on the card does not change.
 
 Imported scene geometry (`SIMULATOR.GEOMETRY_DIR`, `CONNECTIVITY_GRAPHS`)
 is installed when the loop starts (`scene_import.apply_scene_geometry`). A
@@ -82,8 +83,8 @@ from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_activ
 from vlnce_torch.tasks.datasets import make_dataset
 from vlnce_torch.tasks.geometry import heading_from_quaternion
 from vlnce_torch.tasks.sensors import MAX_INSTRUCTION_LEN
-from vlnce_torch.trainers.base_trainer import _not_ported
 from vlnce_torch.utils.logging import logger
+from vlnce_torch.utils.video import append_text_to_image, generate_video, observations_to_image
 
 _R2R_ACTIONS = ["STOP", "MOVE_FORWARD", "TURN_LEFT", "TURN_RIGHT"]
 _RXR_ACTIONS = _R2R_ACTIONS + ["LOOK_UP", "LOOK_DOWN"]
@@ -493,22 +494,34 @@ def _start(sim, task, ep) -> None:
 
 def metrics_from_actions(config, episodes: List, action_seqs: List[np.ndarray], writer=None,
                          checkpoint_index: int = 0) -> Dict[str, Dict]:
-    """Replay recorded actions through the host measures with zero cameras;
-    returns the per-episode info dicts the host eval loop records."""
-    if list(getattr(config, "VIDEO_OPTION", []) or []):
-        raise _not_ported("VIDEO_OPTION (utils/video.py, TopDownMapVLNCE)", "'Left by the serving slice'")
-    sim, task, max_steps = _replay_task(config)
+    """Replay recorded actions through the host measures; returns the
+    per-episode info dicts the host eval loop records. With no VIDEO_OPTION
+    the replay runs with zero cameras; otherwise the cameras stay attached
+    and each step's frame is composed and written as the host eval loop
+    does (base_trainer.py)."""
+    video = list(getattr(config, "VIDEO_OPTION", []) or [])
+    sim, task, max_steps = _replay_task(config, keep_cameras=bool(video))
     stats: Dict[str, Dict] = {}
     for ep, seq in zip(episodes, action_seqs):
         _start(sim, task, ep)
         steps = 0
+        frames = []
         for a in seq:
-            task.step(int(a), ep)
+            obs = task.step(int(a), ep)
             steps += 1
+            if video:
+                frame = observations_to_image(obs, task.measurements.get_metrics())
+                frames.append(append_text_to_image(frame, ep.instruction.instruction_text))
             if task.is_stop_called or steps >= max_steps:
                 break
         metrics = task.measurements.get_metrics()
         stats[ep.episode_id] = {k: v for k, v in metrics.items() if np.isscalar(v) or isinstance(v, (int, float))}
+        if video:
+            generate_video(
+                video_option=video, video_dir=config.VIDEO_DIR, images=frames,
+                episode_id=ep.episode_id, checkpoint_idx=checkpoint_index,
+                metrics={"spl": stats[ep.episode_id].get("spl", 0.0)}, tb_writer=writer,
+            )
     return stats
 
 

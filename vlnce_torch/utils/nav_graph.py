@@ -1,7 +1,7 @@
 """MP3D navigation-graph utilities.
 
-Port of vlnce_tpu/utils/nav_graph.py, without `draw_nav_graph`, which
-draws with cv2 on the top-down maps of the video path (not ported yet).
+Port of vlnce_tpu/utils/nav_graph.py; `draw_nav_graph` draws through
+`utils/raster.py` on the top-down index maps of the video path.
 
 The reference ships data/connectivity_graphs.pkl — a pickled
 {scene_id: networkx.Graph} of MP3D panorama nodes — consumed by the
@@ -55,6 +55,10 @@ class LatticeGraph:
             for nb in ([(xs[i + 1], zs[j])] if i + 1 < len(xs) else []) + ([(xs[i], zs[j + 1])] if j + 1 < len(zs) else [])
         )
 
+    def __iter__(self):
+        """Iterating a networkx graph yields its nodes."""
+        return iter(self.nodes)
+
 
 def synthetic_lattice_graph(world_size: float = 16.0, spacing: float = 2.0) -> LatticeGraph:
     """Lattice nav graph over the GridWorld corridor grid (nodes at the
@@ -100,3 +104,21 @@ def update_nearest_node(graph, current_node, position: Sequence[float]):
 
     candidates = [current_node] + [e[1] for e in graph.edges(current_node)]
     return min(candidates, key=dist)
+
+
+def draw_nav_graph(img: np.ndarray, graph, world_size: float = 16.0) -> np.ndarray:
+    """Overlay graph edges + nodes on a top-down INDEX map (indicator ids;
+    reference maps.py:321-343 draws only nodes — edges are an extra here)."""
+    from vlnce_torch.utils import raster
+    from vlnce_torch.utils.maps import MAP_MP3D_WAYPOINT, drawpoint, to_grid
+
+    shape = img.shape[0:2]
+    meters_per_px = world_size / shape[0]
+    for a, b in graph.edges:
+        ra, ca = to_grid(*_node_position(graph, a)[[0, -1]], shape, world_size)
+        rb, cb = to_grid(*_node_position(graph, b)[[0, -1]], shape, world_size)
+        raster.line(img, (ca, ra), (cb, rb), MAP_MP3D_WAYPOINT, 1)
+    for node in graph.nodes:
+        pos = _node_position(graph, node)
+        drawpoint(img, to_grid(pos[0], pos[-1], shape, world_size), MAP_MP3D_WAYPOINT, meters_per_px, pad=0.15)
+    return img

@@ -2,13 +2,15 @@
 
 Replaces habitat's TensorboardWriter for scalars (reference
 habitat_extensions/utils.py:18). It does nothing when no logdir is given or
-the tensorboard package is absent, so trainers can write unconditionally.
-Video logging waits for utils/video.py.
+the tensorboard package is absent, so trainers can write unconditionally;
+`add_video_from_np_images` logs an eval episode's frames (utils/video.py).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
+
+import numpy as np
 
 
 class TensorboardWriter:
@@ -44,3 +46,13 @@ class TensorboardWriter:
     def add_scalars(self, tag: str, value_dict, step: int) -> None:
         if self.writer is not None:
             self.writer.add_scalars(tag, {k: float(v) for k, v in value_dict.items()}, step)
+
+    def add_video_from_np_images(self, video_name: str, step_idx: int, images: List[np.ndarray], fps: int = 10) -> None:
+        """images: list of [H, W, 3] uint8 frames."""
+        if self.writer is None:
+            return
+        import torch
+
+        frames = np.stack(images, axis=0)  # [T, H, W, 3]
+        video = torch.from_numpy(frames[None].transpose(0, 1, 4, 2, 3))  # [1, T, 3, H, W]
+        self.writer.add_video(video_name, video, global_step=step_idx, fps=fps)
