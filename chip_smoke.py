@@ -173,7 +173,27 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    act step as without video, one AVI per episode with a frame per step
    that `read_video` gives back bit for bit; env-steps/s with and without
    video, ms per composed frame, MB per file, the map's bytes per step;
-25. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+25. `phase_shm_ring`: /dev/shm's size, then the shared-memory observation
+   ring (VLNCE_TORCH_SHM_OBS=1) against the pipes (=0) in the RxR CMA host
+   eval at N=8 (equal actions and per-episode measures, B1 and B2 twice per
+   act step in both, env-steps/s of each, where an env step's time goes
+   with the ring, the bytes a pool step still sends through the pipes) and
+   in the WPN DD-PPO host rollout at N=4, one update (equal rollout
+   storage, env-steps/s of each);
+26. `phase_two_ranks`: two rank processes on this card (gloo, TF32 off,
+   f32) through vlnce_torch.parallel.mp_smoke against one process on the
+   whole batch: the R2R CMA IL update at full width (3 + 3 envs, T=32) and
+   one WPN PPO minibatch (2 + 2 envs, T=16): losses within 1e-5 relative,
+   the ranks bit-equal, every gradient within step 7's f32 tolerance, B1's
+   three kernels twice per GRU on each rank; a resident DAgger train() of
+   two ranks at the widths of cma_pm_da_aug_tune.yaml (disjoint slices
+   covering the plan, equal losses, only rank 0's checkpoint); the DD-PPO
+   waypoint trainer's train() of two ranks at the widths of 1-wpn-cc.yaml,
+   one update with the rollout on the card (equal stats and final weights,
+   only rank 0's checkpoint); then `python -m vlnce_torch.run --run-type
+   train` of that resident DAgger at world size 1 through NCCL (torchrun's
+   variables set by hand);
+27. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -3445,6 +3465,292 @@ def phase_video(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the shared-memory observation ring against the pipes, on the host loops
+# ---------------------------------------------------------------------------
+
+RING_EPISODES = 8
+
+
+def _storage_digest(rollouts):
+    """sha1 of every array of a rollout storage, by name."""
+    import hashlib
+
+    out = {}
+    for name, value in vars(rollouts).items():
+        for key, arr in (value.items() if isinstance(value, dict) else [("", value)]):
+            if isinstance(arr, np.ndarray):
+                out[f"{name}/{key}"] = hashlib.sha1(np.ascontiguousarray(arr).tobytes()).hexdigest()
+    return out
+
+
+def phase_shm_ring(dev):
+    """The shared-memory observation ring (VLNCE_TORCH_SHM_OBS=1, the
+    default) against the pipes (=0), in turns in this call, at full width:
+    (a) the RxR CMA host eval over N_ENVS forked workers (phase_serving's
+    run, bf16, RING_EPISODES episodes run to the 40-step cap by a STOP
+    bias, in the order ring, pipes, pipes, ring): equal actions and
+    per-episode measures, 2 + 2 launches of B1 and B2 per act step in all,
+    their env-steps/s, `phase_env_step_parts` with the ring, and the bytes per
+    pool step that the pipes still carry; (b) the WPN DD-PPO host rollout
+    over WP_N workers (one update of 16 steps), in the same turns: equal
+    rollout storage (every array's digest), the launches per act step and
+    minibatch, each run's env-steps/s. Prints /dev/shm's size first."""
+    import vlnce_torch.tasks  # noqa: F401  (registers the sensors and measures)
+    from vlnce_torch.config import get_config
+    from vlnce_torch.envs import ensure_registered, rl_envs, shm_transport  # noqa: F401  (rl_envs registers the envs)
+    from vlnce_torch.envs.env_utils import get_env_class
+    from vlnce_torch.run import run_exp
+    from vlnce_torch.trainers.ddppo_waypoint_trainer import DDPPOWaypointTrainer
+    from vlnce_torch.utils.checkpoints import save_checkpoint
+
+    ensure_registered()
+    shm = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True, text=True).stdout.strip().splitlines()[-1].split()
+    print(f"shm ring: /dev/shm has {int(shm[1])} bytes, {int(shm[3])} free (df -B1)")
+    out = {}
+    saved_env = os.environ.get("VLNCE_TORCH_SHM_OBS")
+    try:
+        with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+            cfg, policy, _ = build_act_step(dev, "bfloat16")
+            # STOP's logit biased by -3, as in phase_video: episodes run to the 40-step cap
+            with torch.no_grad():
+                policy.action_distribution.linear.bias.copy_(torch.tensor([-3.0, 0, 0, 0, 0, 0]))
+            ckpt = os.path.join(tmp, "ckpt.0.pth")
+            save_checkpoint(ckpt, policy.state_dict(), config=cfg)
+            del policy
+            common = ["TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_SCENES", N_ENVS,
+                      "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40, "NUM_ENVIRONMENTS", N_ENVS, "TENSORBOARD_DIR", "",
+                      "VERBOSE", False, "LOG_FILE", os.path.join(tmp, "run.log"), "EVAL.USE_CKPT_CONFIG", False,
+                      "EVAL_CKPT_PATH_DIR", ckpt, "TASK_CONFIG.DATASET.NUM_EPISODES", 2 * RING_EPISODES,
+                      "EVAL.EPISODE_COUNT", RING_EPISODES]
+
+            # what one pool step sends through the pipes, with the ring and without
+            config = get_config(EXP, common)
+            env = get_env_class(config.ENV_NAME)(config)
+            env.reset()
+            obs, reward, done, info = env.step(1)
+            ring_keys = shm_transport.ObsSchema(obs).fields
+            pipe_bytes = len(pickle.dumps((obs, reward, done, info), protocol=pickle.HIGHEST_PROTOCOL))
+            rest = {k: v for k, v in obs.items() if k not in ring_keys}
+            ring_pipe_bytes = len(pickle.dumps((("__shm__", 1, rest), reward, done, info), protocol=pickle.HIGHEST_PROTOCOL))
+            env.close()
+
+            # (a) the host eval in turns: ring, pipes, pipes, ring
+            runs = collections.defaultdict(list)
+            for i, name in enumerate(("ring", "pipes", "pipes", "ring")):
+                os.environ["VLNCE_TORCH_SHM_OBS"] = "1" if name == "ring" else "0"
+                with _video_probes([]) as probe:
+                    trainer, launches, wall = _run_loop("eval", common + ["RESULTS_DIR", os.path.join(tmp, f"evals_{i}")])
+                runs[name].append((dict(trainer._last_eval_episode_stats), probe["actions"], trainer.last_loop_timing))
+                out[f"shm_{name}_eval"] = launches
+            first = runs["ring"][0]
+            assert len(first[0]) >= RING_EPISODES
+            for eps, actions, _ in runs["ring"] + runs["pipes"]:
+                assert eps == first[0], "(a) an eval's episodes or measures differ between the ring and the pipes"
+                assert _same_actions(actions, first[1]), "(a) an eval took other actions than the first"
+
+            def warm_rate(t):  # the first act step (the libraries' warm-up) left out
+                return t["env_steps"] / (t["total_time"] - t["first_act_time"])
+
+            rate = {name: [warm_rate(r[2]) for r in rs] for name, rs in runs.items()}
+            env_ms = {name: [1e3 * r[2]["env_time"] / r[2]["act_steps"] for r in rs] for name, rs in runs.items()}
+            t_r = first[2]
+            print(f"shm ring (a) RxR CMA host eval, N={N_ENVS}, {len(first[0])} episodes, {t_r['act_steps']} act steps, in "
+                  f"turns ring, pipes, pipes, ring: env-steps/s {rate['ring']} with the ring, {rate['pipes']} over the pipes "
+                  f"({np.mean(rate['ring']) / np.mean(rate['pipes']):.3f}x of the means; the first act step left out); "
+                  f"env_time {env_ms['ring']} against {env_ms['pipes']} ms per act step; the ring carries {sorted(ring_keys)}; "
+                  f"the pipes carry {N_ENVS * ring_pipe_bytes} bytes per pool step with the ring against {N_ENVS * pipe_bytes} "
+                  f"without ({ring_pipe_bytes} and {pipe_bytes} per env)")
+            os.environ["VLNCE_TORCH_SHM_OBS"] = "1"
+            phase_env_step_parts(trainer, dev)
+
+            # (b) the WPN DD-PPO host rollout in turns: ring, pipes, pipes, ring
+            digests = []
+            update_from_storage = DDPPOWaypointTrainer._update_from_storage
+
+            def digest_then_update(self, rollouts, rng_np, update):
+                digests.append(_storage_digest(rollouts))
+                return update_from_storage(self, rollouts, rng_np, update)
+
+            wp_rate = collections.defaultdict(list)
+            DDPPOWaypointTrainer._update_from_storage = digest_then_update
+            try:
+                for i, name in enumerate(("ring", "pipes", "pipes", "ring")):
+                    os.environ["VLNCE_TORCH_SHM_OBS"] = "1" if name == "ring" else "0"
+                    opts = ["TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_SCENES", WP_N,
+                            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40, "NUM_ENVIRONMENTS", WP_N, "TENSORBOARD_DIR", "",
+                            "VERBOSE", False, "LOG_FILE", os.path.join(tmp, "run.log"),
+                            "CHECKPOINT_FOLDER", os.path.join(tmp, f"wp_{i}"), "RL.NUM_UPDATES", 1,
+                            "RL.CHECKPOINT_INTERVAL", 1, "RL.LOG_INTERVAL", 1]
+                    _reset_launches()
+                    trainer = run_exp(WP_EXP, "train", opts)
+                    launches = _read_launches()
+                    ppo = trainer.config.RL.PPO
+                    minibatches, act_steps = ppo.ppo_epoch * ppo.num_mini_batch, ppo.num_steps
+                    assert launches == {"gru_sequence": 2 * act_steps + 2 + 2 * minibatches,
+                                        "gru_sequence_backward": 2 * minibatches, "gru_weight_gradient": 2 * minibatches,
+                                        "fused_resize_normalize": 0}, (name, launches)
+                    r = trainer.rollout_stats
+                    wp_rate[name].append(r["env_steps"] / (r["rollout_time"] - r["first_act_time"]))
+                    out[f"shm_{name}_waypoint"] = launches
+            finally:
+                DDPPOWaypointTrainer._update_from_storage = update_from_storage
+            assert len(digests) == 4 and len(digests[0]) > 10
+            assert all(d == digests[0] for d in digests), "(b) the rollout storage differs between the ring and the pipes"
+            print(f"shm ring (b) WPN DD-PPO host rollout, N={WP_N}, {act_steps} steps, in turns ring, pipes, pipes, ring: "
+                  f"env-steps/s {wp_rate['ring']} with the ring, {wp_rate['pipes']} over the pipes "
+                  f"({np.mean(wp_rate['ring']) / np.mean(wp_rate['pipes']):.3f}x of the means, the first act step left out); "
+                  f"the rollout storage's {len(digests[0])} arrays equal in all four")
+    finally:
+        if saved_env is None:
+            os.environ.pop("VLNCE_TORCH_SHM_OBS", None)
+        else:
+            os.environ["VLNCE_TORCH_SHM_OBS"] = saved_env
+    return out
+
+
+# ---------------------------------------------------------------------------
+# data-parallel training: two ranks on the card against one process
+# ---------------------------------------------------------------------------
+
+TWO_RANK_T = 32  # the IL batch's T; the 6 envs of mp_smoke.N_GLOBAL split 3 + 3
+
+
+def _grads_within(ranks, one, what):
+    """Each rank's gradients bit-equal to the other's, and within
+    phase_train_step_against_plain's tolerance of the one-process run's:
+    1e-5 of the tensor's max |one| plus 1e-8 of the largest gradient."""
+    (g0, g1), ref = ranks, one
+    assert sorted(g0) == sorted(g1) == sorted(ref) and ref, what
+    assert all(np.array_equal(g0[k], g1[k]) for k in g0), f"{what}: the ranks' gradients differ"
+    largest = max(float(np.abs(v).max()) for v in ref.values())
+    worst = max((float(np.abs(g0[k] - v).max()) / (1e-5 * float(np.abs(v).max()) + 1e-8 * largest), k) for k, v in ref.items())
+    print(f"{what}: {len(ref)} gradients, the ranks' sum against one process at {worst[0]:.3f} of the tolerance at most "
+          f"({worst[1]})")
+    assert worst[0] <= 1.0, f"{what}: the two ranks' gradients disagree with one process's"
+
+
+def phase_two_ranks(dev):
+    """Two rank processes on this card (gloo: NCCL refuses two ranks on one
+    device), TF32 off, f32, through `vlnce_torch.parallel.mp_smoke`: (a) one
+    R2R CMA IL update at full width (H=512), each rank on 3 of the 6 envs of
+    one [T=32] batch, against the one-process update of the whole batch here:
+    losses within 1e-5 relative and bit-equal between the ranks, every
+    gradient within phase_train_step_against_plain's tolerance, B1 forward,
+    backward and weight gradient twice each per rank; (b) the same for one
+    WPN PPO minibatch at n = 2 + 2 against n = 4 (T=16); (c) a resident
+    DAgger train() of 2 ranks (ON_DEVICE_DAGGER, DAGGER_RESIDENT) at the
+    widths of cma_pm_da_aug_tune.yaml: disjoint episode slices that cover
+    the plan, equal losses; (e) the DD-PPO waypoint trainer's train() of 2
+    ranks at the widths of 1-wpn-cc.yaml (4 envs per rank, T=16, one update,
+    the rollout on the card): equal stats and final weights; then (d)
+    `python -m vlnce_torch.run ... --run-type train` of (c)'s run at world
+    size 1 through NCCL, with torchrun's variables set by hand."""
+    from vlnce_torch.parallel import mp_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+            env = {"MP_SMOKE_DEVICE": "cuda", "MP_SMOKE_SIZE": "full", "MP_SMOKE_T": str(TWO_RANK_T),
+                   "MP_SMOKE_PPO_T": str(WP_T), "MP_SMOKE_PPO_N": str(WP_N), "MP_SMOKE_OUT": tmp,
+                   "MP_SMOKE_BACKEND": "gloo"}
+            t0 = time.perf_counter()
+            results = mp_smoke.launch("il,ppo,resident_dagger,ddppo", timeout=600, extra_env=env)
+            print(f"two ranks: the rank pair ran in {time.perf_counter() - t0:.1f} s; per mode "
+                  + ", ".join(f"{m} {r[0]['seconds']:.1f} s" for m, r in results.items()))
+
+            def load(path):
+                with np.load(path) as f:
+                    return {k: f[k] for k in f.files}
+
+            # (a) the IL update
+            _reset_launches()
+            one = mp_smoke.run_update(0, mp_smoke.N_GLOBAL, "full", "cuda", T=TWO_RANK_T,
+                                      grads_out=os.path.join(tmp, "il_grads_one.npz"))
+            one_launches = _read_launches()
+            r0, r1 = results["il"]
+            assert r0["ranks"] == r1["ranks"] == 2 and one["ranks"] == 1
+            assert r0["loss"] == r1["loss"], "the ranks' IL losses differ"
+            err = max(abs(a - b) / abs(b) for a, b in zip(r0["loss"], one["loss"]) if b != 0)
+            print(f"two ranks (a) IL update, R2R CMA H=512, T={TWO_RANK_T}, 3 + 3 envs: losses {r0['loss']} against one "
+                  f"process's {one['loss']} (max relative diff {err:.3e}, held at 1e-5); launches per rank "
+                  f"{json.dumps(r0['launches'])} and {json.dumps(r1['launches'])}, one process {json.dumps(one_launches)}")
+            assert err <= 1e-5, "the two ranks' IL losses disagree with one process's"
+            want = {"gru_sequence": 2, "gru_sequence_backward": 2, "gru_weight_gradient": 2, "fused_resize_normalize": 0}
+            assert r0["launches"] == r1["launches"] == one_launches == want, (r0["launches"], r1["launches"], one_launches)
+            _grads_within([load(os.path.join(tmp, f"il_grads_rank{k}.npz")) for k in range(2)],
+                          load(os.path.join(tmp, "il_grads_one.npz")), "two ranks (a) IL update")
+
+            # (b) one PPO minibatch
+            _reset_launches()
+            one = mp_smoke.run_ppo_update(0, WP_N, "full", "cuda", grads_out=os.path.join(tmp, "ppo_grads_one.npz"),
+                                          T=WP_T, N=WP_N)
+            one_launches = _read_launches()
+            r0, r1 = results["ppo"]
+            assert r0["grads_stats"] == r1["grads_stats"] and r0["update_stats"] == r1["update_stats"]
+            err = max(abs(r0["grads_stats"][k] - v) / max(abs(v), 1e-6) for k, v in one["grads_stats"].items())
+            print(f"two ranks (b) WPN PPO minibatch, T={WP_T}, n = 2 + 2 against 4: stats {json.dumps(r0['grads_stats'])} "
+                  f"(max relative diff {err:.3e}, held at 1e-5); launches per rank {json.dumps(r0['launches'])} and "
+                  f"{json.dumps(r1['launches'])}, one process {json.dumps(one_launches)}")
+            assert err <= 1e-5, "the two ranks' PPO stats disagree with one process's"
+            want = {"gru_sequence": 4, "gru_sequence_backward": 4, "gru_weight_gradient": 4, "fused_resize_normalize": 0}
+            assert r0["launches"] == r1["launches"] == one_launches == want, (r0["launches"], r1["launches"], one_launches)
+            _grads_within([load(os.path.join(tmp, f"ppo_grads_rank{k}.npz")) for k in range(2)],
+                          load(os.path.join(tmp, "ppo_grads_one.npz")), "two ranks (b) PPO minibatch")
+
+            # (c) the resident DAgger train() of two ranks at full width
+            r0, r1 = results["resident_dagger"]
+            plan = [str(i) for i in range(mp_smoke.RESIDENT_EPISODES["full"])]
+            assert not set(r0["ids"]) & set(r1["ids"]) and sorted(r0["ids"] + r1["ids"]) == plan, (r0["ids"], r1["ids"])
+            assert r0["losses"] and r0["losses"] == r1["losses"] and np.isfinite(np.asarray(r0["losses"])).all()
+            assert r0["checkpoints"] and not r1["checkpoints"], "a rank other than 0 wrote a checkpoint"
+            assert all(r["launches"][k] > 0 for r in (r0, r1)
+                       for k in ("gru_sequence", "gru_sequence_backward", "gru_weight_gradient"))
+            print(f"two ranks (c) resident DAgger train(), R2R CMA at the YAML's widths: episodes {r0['ids']} and "
+                  f"{r1['ids']}, losses {r0['losses']} on both; launches per rank {json.dumps(r0['launches'])} and "
+                  f"{json.dumps(r1['launches'])} (graph warm-up, capture and probe step included)")
+
+            # (e) the DD-PPO waypoint trainer's train() of two ranks at full width
+            r0, r1 = results["ddppo"]
+            assert r0["ranks"] == r1["ranks"] == 2 and len(r0["updates"]) == 1 and r0["updates"] == r1["updates"]
+            assert r0["updates"][0]["count_steps"] == WP_T * r0["n_envs"] and r0["n_envs"] == WP_N
+            assert all(np.isfinite(v) for v in r0["updates"][0].values())
+            assert r0["params"] == r1["params"], "the ranks' weights differ after the update"
+            assert r0["checkpoints"] == ["ckpt.0.ckpt"] and not r1["checkpoints"], "a rank other than 0 wrote a checkpoint"
+            assert all(r["launches"][k] > 0 for r in (r0, r1)
+                       for k in ("gru_sequence", "gru_sequence_backward", "gru_weight_gradient"))
+            print(f"two ranks (e) DD-PPO waypoint train(), 1-wpn-cc at the YAML's widths, {WP_N} envs per rank, T={WP_T}, "
+                  f"one update: stats {json.dumps(r0['updates'][0])} on both, final weights equal (sha256 "
+                  f"{r0['params'][:16]}); launches per rank {json.dumps(r0['launches'])} and {json.dumps(r1['launches'])}")
+            for mode in ("il", "ppo", "resident_dagger", "ddppo"):
+                for r in results[mode]:
+                    for k, v in r["launches"].items():
+                        launches[k] = launches.get(k, 0) + v
+
+            # (d) NCCL at world size 1 through the entry point
+            log = os.path.join(tmp, "nccl.log")
+            opts = [str(x) for x in mp_smoke.resident_opts(os.path.join(tmp, "nccl"), "cuda", "dagger", "full")]
+            opts += ["RL.DDPPO.distrib_backend", "NCCL"]
+            env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                       MASTER_PORT=str(mp_smoke._free_port()))
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "vlnce_torch.run", "--exp-config", R2R_EXP, "--run-type", "train",
+                                   *opts, "LOG_FILE", log], env=env, capture_output=True, text=True, timeout=300)
+            assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+            with open(log + ".rank0") as f:
+                text = f.read()
+            line = next((x for x in text.splitlines() if "process group:" in x), "")
+            assert "rank 0 of 1, backend nccl" in line, text[-2000:]
+            assert os.path.isfile(os.path.join(tmp, "nccl", "ckpts", "ckpt.0.ckpt"))
+            print(f"two ranks (d) NCCL at world size 1: `python -m vlnce_torch.run --run-type train` exited 0 in "
+                  f"{time.perf_counter() - t0:.1f} s; its log: {line.split('] ')[-1]}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3490,6 +3796,8 @@ def main() -> int:
     timed(phase_waypoint_against_plain, dev)
     timed(phase_device_waypoint_against_plain, dev)
     paths.update(timed(phase_video, dev))
+    paths.update(timed(phase_shm_ring, dev))
+    paths["two_ranks"] = timed(phase_two_ranks, dev)
     for k, extra, wp in zip(kernels, (shapes["forward"], shapes["backward"], shapes["weight"], shapes["resize"]),
                             (wp_shapes["forward"], wp_shapes["backward"], wp_shapes["weight"], {})):
         k.update(extra)

@@ -25,6 +25,7 @@ blocked = %r
 for name in blocked:
     sys.modules[name] = None  # `import name` now raises ImportError
 import vlnce_torch
+from vlnce_torch import native
 from vlnce_torch.ops import _build
 names = [m.name for m in pkgutil.walk_packages(vlnce_torch.__path__, "vlnce_torch.")]
 for name in names:
@@ -33,6 +34,7 @@ print(json.dumps({
     "modules": names,
     "foreign": sorted(k for k, v in sys.modules.items() if k.split(".")[0] in blocked and v is not None),
     "loaded_kernels": sorted(_build.loaded()),
+    "ring_loaded": native._lib is not None,
 }))
 """ % (BLOCKED,)
 
@@ -63,6 +65,9 @@ NEW_MODULES = [
     # the video path and the other simulators
     "vlnce_torch.utils.raster", "vlnce_torch.utils.maps", "vlnce_torch.utils.video", "vlnce_torch.envs.replay_sim",
     "vlnce_torch.envs.habitat_adapter",
+    # data-parallel training across ranks and the shared-memory observation ring
+    "vlnce_torch.parallel.mesh", "vlnce_torch.parallel.distributed", "vlnce_torch.parallel.mp_smoke",
+    "vlnce_torch.envs.shm_transport", "vlnce_torch.native",
 ]
 
 
@@ -75,6 +80,7 @@ def test_import_pulls_in_no_jax_and_builds_no_kernel():
     assert set(NEW_MODULES) <= set(report["modules"])
     assert report["foreign"] == []
     assert report["loaded_kernels"] == []
+    assert report["ring_loaded"] is False  # importing builds and loads no native library either
 
 
 _VIDEO_WITHOUT_IMAGE_LIBRARIES = """

@@ -28,6 +28,7 @@ from vlnce_torch.envs.spaces import action_space_from_config, observation_space_
 from vlnce_torch.models.cma_policy import CMAPolicy
 from vlnce_torch.models.convert import state_dict_from_jax_params
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_obs_space, get_active_obs_transforms
+from vlnce_torch.parallel.mesh import DataMesh
 
 # One intra-op thread for torch in the test processes: the suite runs in
 # several worker processes at once, and at these small sizes more threads per
@@ -516,3 +517,14 @@ def video_files(directory):
             out[stem] = np.stack(frames)
     return out
 
+
+class EqualRanks(DataMesh):
+    """A data mesh of `size` ranks that hold the same data, in one process:
+    all_reduce SUM multiplies by `size`, MAX and broadcast leave the tensor.
+    Build it as `EqualRanks(size, 0, torch.device("cpu"))`."""
+
+    def all_reduce(self, tensor, op="sum"):
+        return tensor.mul_(self.size) if op == "sum" else tensor
+
+    def broadcast(self, tensor, src=0):
+        return tensor

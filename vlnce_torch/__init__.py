@@ -13,13 +13,15 @@ vlnce_torch.run --run-type {train,eval,inference}` over the host env layer
 measures, forked vector envs) with checkpoints from `utils.checkpoints`: eval
 and inference (`trainers.base_trainer`), DAgger (`trainers.dagger_trainer`),
 the recollect trainer (`trainers.recollect_trainer`) and DD-PPO of the
-waypoint policy on one card (`trainers.ddppo_waypoint_trainer`, `rl/`),
+waypoint policy (`trainers.ddppo_waypoint_trainer`, `rl/`),
 the closed loops on the card, imported scene geometry
 (`envs.scene_import`), the nonlearning agents, the JAX package's
 checkpoints (`utils.checkpoints`), the command-line tools of `scripts/`, the
-video path (`utils.{raster,maps,video}`, the TopDownMapVLNCE measure), and
-the ReplaySim and habitat_sim simulators. ROADMAP.md lists what is not
-ported yet.
+video path (`utils.{raster,maps,video}`, the TopDownMapVLNCE measure), the
+ReplaySim and habitat_sim simulators, data-parallel training across ranks
+of a `torch.distributed` group (`parallel.{distributed,mesh}`), and the
+shared-memory observation ring of the forked env pool (`envs.shm_transport`,
+`native`). ROADMAP.md lists what is not ported.
 """
 
 __version__ = "0.1.0"

@@ -73,7 +73,15 @@ _C.VERBOSE = True
 _C.CUDA = CN()
 # device every entry point builds its modules and tensors on; "cpu" runs the
 # kernels' plain PyTorch versions (the tests do this). No silent fallback.
+# Under several ranks, "cuda" is each rank's own card (LOCAL_RANK).
 _C.CUDA.DEVICE = "cuda"
+# the data-parallel axis (parallel/mesh.py): the ranks of the process group,
+# one process per card; -1 means all of them, k > 1 raises unless the group
+# has exactly k ranks, 0 or 1 trains on one process. There is no model axis:
+# MODEL must be 1.
+_C.CUDA.MESH = CN()
+_C.CUDA.MESH.DATA = -1
+_C.CUDA.MESH.MODEL = 1
 _C.CUDA.PRECISION = CN()
 _C.CUDA.PRECISION.compute_dtype = "bfloat16"  # visual encoders' activations/convs
 _C.CUDA.PRECISION.param_dtype = "float32"  # master weights
@@ -270,7 +278,8 @@ _C.RL.PPO.hidden_size = 512
 
 _C.RL.DDPPO = CN()
 _C.RL.DDPPO.sync_frac = 0.6
-# torch.distributed backend
+# torch.distributed backend of the process group when CUDA.DEVICE is a card
+# (the CPU always takes gloo); two ranks on one card need GLOO, NCCL refuses
 _C.RL.DDPPO.distrib_backend = "NCCL"
 _C.RL.DDPPO.reset_critic = True
 _C.RL.DDPPO.start_from_requeue = False

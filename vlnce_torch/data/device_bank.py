@@ -23,11 +23,14 @@ the `collate_episodes` payload (obs [T*N, ...], prev [T*N, 1], masks
 layout, and their composition comes from the same `iterate_episode_keys`
 stream as the store iterator's, so the losses are the store path's.
 
-Left out of the JAX module, because each exists only to bound XLA's compile
-cache or to place arrays on a mesh: `_gather_impl`'s jit, `_assemble_rows`
-(one `torch.cat` does its work), the ROW_QUANTUM / EPISODE_QUANTUM padding
-(the trash row is kept), `_pow2_chunks`, `_put` and `mesh`, and
-`align_collective_step`.
+Across ranks each rank banks its own episodes on its own card (its
+collection slice, or its `rank_slice` of a preloaded store), and the IL
+step's all_reduce joins the ranks; the enqueued epoch runs on one process
+only (`DaggerTrainer._fused_epoch_ok`). Left out of the JAX module, because
+each exists only to bound XLA's compile cache or to place arrays on a
+one-process mesh: `_gather_impl`'s jit, `_assemble_rows` (one `torch.cat`
+does its work), the ROW_QUANTUM / EPISODE_QUANTUM padding (the trash row is
+kept), `_pow2_chunks`, `_put` and `mesh`, and `align_collective_step`.
 """
 
 from __future__ import annotations

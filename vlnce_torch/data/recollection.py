@@ -23,8 +23,11 @@ episodes are rendered on the card along their GT actions
 and the episodes go through the same collate. With `CUDA.RECOLLECT_RESIDENT`
 as well, `batches` renders each training batch on the card with the obs
 transforms inside the render step and keeps it there
-(`render_gt_batch_resident`). The JAX package's `rank_slice` of the
-episodes has no counterpart: the port trains in one process.
+(`render_gt_batch_resident`). Under several ranks each rank renders its
+strided, wrap-padded `rank_slice` of the episodes on its own card (equal
+counts, so every rank runs as many accumulation steps), as in the JAX
+package; the resident render runs unsharded on each rank (the JAX
+package's resident mesh is None under several processes).
 """
 
 from __future__ import annotations
@@ -43,7 +46,9 @@ from vlnce_torch.envs.env_utils import construct_envs, get_env_class
 from vlnce_torch.envs.scene_import import apply_scene_geometry
 from vlnce_torch.envs.sim import SimulatorActions
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_obs_space, get_active_obs_transforms
+from vlnce_torch.parallel.distributed import rank_slice
 from vlnce_torch.utils.logging import logger
+
 
 class TeacherRecollectionDataset:
     def __init__(self, config):
@@ -186,7 +191,10 @@ class TeacherRecollectionDataset:
             probe.close()
         wanted = set(self.trajectories.keys())
         dataset = make_dataset(config.TASK_CONFIG.DATASET.TYPE, config.TASK_CONFIG.DATASET)
-        self._device_episodes = [ep for ep in dataset.episodes if ep.episode_id in wanted]
+        # each rank re-renders its strided, wrap-padded shard (unequal shards
+        # would give ranks different batch counts and deadlock the step's
+        # all_reduce)
+        self._device_episodes = rank_slice([ep for ep in dataset.episodes if ep.episode_id in wanted])
         self.length = len(self._device_episodes)
         self._instr_uuid = str(getattr(self.config.MODEL.INSTRUCTION_ENCODER, "sensor_uuid", "instruction"))
 

@@ -13,8 +13,17 @@ Two implementations:
 - ThreadedVectorEnv: same API, envs in-process (tests/debug; also what the
   recollection dataset uses under pytest).
 
-Observations travel through the pipes as pickles; the shared-memory ring of
-the JAX package (shm_transport + native/obs_ring.cpp) is not ported yet.
+Large observations travel through a shared-memory ring
+(`envs/shm_transport.py` over `native/obs_ring.cpp`): after the first
+`reset`, each worker writes the sensors of at least 4 KiB into its own slot
+and sends the rest (small sensors, reward, done, info) through its pipe,
+as the JAX package does by default. The ring is on unless
+`VLNCE_TORCH_SHM_OBS=0`; the constructor's `use_shm`, where given, decides
+instead. Where it is wanted and the
+library cannot be built or the segment opened, the pool raises instead of
+falling back to pickles as the JAX pool does. A ring slot belongs to a
+worker, not to a position in the active list, so `pause_at` and
+`resume_all` carry it with the worker's pipe.
 
 Workers are forked, possibly after the parent has initialised CUDA: a worker
 runs the simulator and the task layer on numpy only and must never touch a
@@ -24,8 +33,10 @@ receive from it raises EOFError; nothing retries.
 
 from __future__ import annotations
 
+import itertools
 import multiprocessing as mp
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+import os
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 STEP = "step"
 RESET = "reset"
@@ -37,9 +48,25 @@ NUM_EPISODES = "num_episodes"
 SPACES = "spaces"
 GET_METRICS = "get_metrics"
 EPISODE_OVER = "episode_over"
+ATTACH_SHM = "attach_shm"
+SHM_TAG = "__shm__"
+_RING_IDS = itertools.count()  # one segment name per pool of this process
 
 
 def _worker(conn, env_fn: Callable, env_fn_args: Tuple, auto_reset_done: bool) -> None:
+    ring = None
+    slot = 0
+    seq = 0
+
+    def send_obs(obs):
+        """The observation as the pipe carries it: whole, or with the ring's
+        sensors written to this worker's slot and a tag in their place."""
+        nonlocal seq
+        if ring is None:
+            return obs
+        seq += 1
+        return (SHM_TAG, seq, ring.write_obs(slot, obs, seq))
+
     try:
         env = env_fn(*env_fn_args)
         while True:
@@ -48,9 +75,16 @@ def _worker(conn, env_fn: Callable, env_fn_args: Tuple, auto_reset_done: bool) -
                 obs, reward, done, info = env.step(data)
                 if done and auto_reset_done:
                     obs = env.reset()
-                conn.send((obs, reward, done, info))
+                conn.send((send_obs(obs), reward, done, info))
             elif cmd in (RESET, RESET_AT):
-                conn.send(env.reset())
+                conn.send(send_obs(env.reset()))
+            elif cmd == ATTACH_SHM:
+                from vlnce_torch.envs.shm_transport import ObsRing, ObsSchema
+
+                name, n_slots, slot, schema = data
+                ring = ObsRing(name, n_slots, ObsSchema.from_dict(schema), create=False)
+                seq = 0
+                conn.send(True)
             elif cmd == EPISODE:
                 conn.send(env.current_episode)
             elif cmd == NUM_EPISODES:
@@ -82,12 +116,14 @@ class VectorEnv:
         env_fn_args: Sequence[Tuple],
         auto_reset_done: bool = True,
         multiprocessing_start_method: str = "fork",
+        use_shm: Optional[bool] = None,
     ):
         self._auto_reset_done = auto_reset_done
         self._mp_ctx = mp.get_context(multiprocessing_start_method)
         self._workers: List[Any] = []
         self._conns: List[Any] = []
-        self._paused: List[Tuple[int, Any, Any]] = []  # (original_index, conn, proc)
+        self._paused: List[Tuple[int, Any, Any, int]] = []  # (original_index, conn, proc, slot)
+        self._slot_of_conn: List[int] = list(range(len(env_fn_args)))
         for args in env_fn_args:
             parent, child = self._mp_ctx.Pipe()
             proc = self._mp_ctx.Process(
@@ -98,6 +134,50 @@ class VectorEnv:
             self._workers.append(proc)
             self._conns.append(parent)
         self._is_closed = False
+        if use_shm is None:
+            use_shm = os.environ.get("VLNCE_TORCH_SHM_OBS", "1") == "1"
+        self._want_shm = use_shm
+        self._ring = None
+
+    # -- shm transport -------------------------------------------------------
+    def _maybe_enable_shm(self, template_obs) -> None:
+        """Open the ring from the first reset's observations and attach every
+        active worker to its slot. Raises when the ring is wanted and cannot
+        be built or opened; pipes stay when no sensor reaches the schema's
+        `min_bytes`."""
+        if not self._want_shm or self._ring is not None:
+            return
+        from vlnce_torch.envs import shm_transport
+
+        schema = shm_transport.ObsSchema(template_obs)
+        if not schema.fields:
+            self._want_shm = False
+            return
+        name = f"{shm_transport.NAME_PREFIX}{os.getpid()}_{next(_RING_IDS)}"
+        n = len(self._conns) + len(self._paused)
+        self._ring = shm_transport.ObsRing(name, n, schema, create=True)
+        for conn, slot in zip(self._conns, self._slot_of_conn):
+            conn.send((ATTACH_SHM, (name, n, slot, schema.to_dict())))
+        for conn in self._conns:
+            conn.recv()
+
+    def _resolve_obs(self, conn_index: int, payload):
+        """A worker's observation payload -> the observation dict (the ring's
+        sensors gathered from the worker's slot when the payload is tagged)."""
+        if not (isinstance(payload, tuple) and len(payload) == 3 and payload[0] == SHM_TAG):
+            return payload
+        _, seq, rest = payload
+        slot = self._slot_of_conn[conn_index]
+        self._ring.wait([slot], seq)
+        obs = dict(rest)
+        for k, v in self._ring.gather([slot]).items():
+            obs[k] = v[0]
+        return obs
+
+    @property
+    def uses_shm(self) -> bool:
+        """Whether observations ride the shared-memory ring."""
+        return self._ring is not None
 
     # -- bookkeeping ---------------------------------------------------------
     @property
@@ -112,14 +192,18 @@ class VectorEnv:
 
     # -- core API ------------------------------------------------------------
     def reset(self) -> List[Dict]:
-        return self._all(RESET)
+        results = [self._resolve_obs(i, r) for i, r in enumerate(self._all(RESET))]
+        if self._ring is None and results:
+            self._maybe_enable_shm(results[0])
+        return results
 
     def step(self, actions: Sequence[Any]) -> List[Tuple]:
-        return self._all(STEP, list(actions))
+        out = self._all(STEP, list(actions))
+        return [(self._resolve_obs(i, obs), reward, done, info) for i, (obs, reward, done, info) in enumerate(out)]
 
     def reset_at(self, index: int) -> List[Dict]:
         self._conns[index].send((RESET_AT, None))
-        return [self._conns[index].recv()]
+        return [self._resolve_obs(index, self._conns[index].recv())]
 
     def step_at(self, indices: Sequence[int], actions: Sequence[Any]) -> List[Tuple]:
         """Pipelined step of a subset of envs: all sends first, then all
@@ -136,7 +220,11 @@ class VectorEnv:
             self._conns[i].send((STEP, a))
 
     def recv_at(self, indices: Sequence[int]) -> List[Tuple]:
-        return [self._conns[i].recv() for i in indices]
+        out = []
+        for i in indices:
+            obs, reward, done, info = self._conns[i].recv()
+            out.append((self._resolve_obs(i, obs), reward, done, info))
+        return out
 
     def current_episodes(self) -> List[Any]:
         return self._all(EPISODE)
@@ -173,12 +261,14 @@ class VectorEnv:
         """Remove env `index` from the active set (its process stays alive)."""
         conn = self._conns.pop(index)
         proc = self._workers.pop(index)
-        self._paused.append((index, conn, proc))
+        slot = self._slot_of_conn.pop(index)
+        self._paused.append((index, conn, proc, slot))
 
     def resume_all(self) -> None:
-        for index, conn, proc in reversed(self._paused):
+        for index, conn, proc, slot in reversed(self._paused):
             self._conns.insert(index, conn)
             self._workers.insert(index, proc)
+            self._slot_of_conn.insert(index, slot)
         self._paused = []
 
     def close(self) -> None:
@@ -194,6 +284,9 @@ class VectorEnv:
                 conn.recv()
             except (EOFError, OSError):
                 pass
+        if self._ring is not None:
+            self._ring.close()  # unlinks the segment
+            self._ring = None
         for proc in self._workers + [p[2] for p in self._paused]:
             proc.join(timeout=5)
             if proc.is_alive():

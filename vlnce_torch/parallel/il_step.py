@@ -1,18 +1,30 @@
-"""The IL training step on one device (port of vlnce_tpu/parallel/il_step.py).
+"""The IL training step, on one process or data-parallel across ranks
+(port of vlnce_tpu/parallel/il_step.py).
 
 This module owns the IL update used by the production trainers: the sequence
 forward of the policy, inflection-weighted cross-entropy, the aux losses,
 backward and the optimizer step.
 
 Loss bookkeeping is kept in sum/count form, as in the JAX package, so that
-env slots whose inflection weights are all zero (padding) contribute nothing
-to either loss term or to the gradients, and a later multi-device step can
-sum numerators and denominators across shards.
 
-Inputs are time-major [T, N, ...]. The JAX module's `pad_batch_env_axis`,
-`pad_time_axis`, `prepare_global_batch`, `globalize_batch` and
-`global_max_time` shard a batch over a device mesh; they wait for the
-`torch.distributed` slice, and `mesh` is no parameter here.
+- across ranks (`mesh`, a `parallel/mesh.DataMesh`) the loss and the
+  gradients are EXACTLY those of one process on the whole batch: the
+  denominators are all_reduce'd before dividing, each rank backpropagates
+  its local sum over the global count, and then the gradients of every
+  trainable parameter and the three losses are summed with all_reduce (a
+  mean of per-rank mean losses, as DistributedDataParallel would take,
+  differs from it when the ranks hold different counts);
+- env slots whose inflection weights are all zero (padding) contribute
+  nothing to either loss term or to the gradients.
+
+Inputs are time-major [T, N, ...]. `prepare_global_batch` is what the
+trainers call between a rank's batch and the step: the time axis padded to
+the longest of the ranks' (`global_max_time`, an all_reduce MAX), as in the
+JAX package. The JAX module's `pad_batch_env_axis` and `globalize_batch`
+have no job here: they pad the env axis to a per-rank shard multiple, which
+is 1 for a rank of the port, and stitch the ranks' shards into one global
+array, where a rank of the port keeps its shard and meets the others at the
+all_reduce.
 """
 
 from __future__ import annotations
@@ -20,6 +32,10 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from vlnce_torch.parallel.distributed import align_collective_step, world_size
+from vlnce_torch.parallel.optim import trainable_parameters
 
 
 def il_loss_terms(policy, obs_tn: Dict[str, torch.Tensor], prev_tn, masks_tn, corrected, weights) -> Tuple:
@@ -55,9 +71,14 @@ def il_loss_terms(policy, obs_tn: Dict[str, torch.Tensor], prev_tn, masks_tn, co
     return action_num, action_den, aux_num, aux_den
 
 
-def il_losses(policy, obs_tn, prev_tn, masks_tn, corrected, weights) -> Tuple:
-    """(loss, action_loss, aux_loss) of one [T, N] batch."""
+def il_losses(policy, obs_tn, prev_tn, masks_tn, corrected, weights, mesh=None) -> Tuple:
+    """(loss, action_loss, aux_loss) of one [T, N] batch. With `mesh` the
+    denominators are the global counts (all_reduce'd) and the losses are
+    this rank's share: their sum over the ranks is the whole batch's."""
     a_num, a_den, x_num, x_den = il_loss_terms(policy, obs_tn, prev_tn, masks_tn, corrected, weights)
+    if mesh is not None:
+        # global counts, so every rank divides by the same denominator
+        a_den, x_den = mesh.all_reduce(torch.stack([a_den, x_den])).unbind()
     action_loss = a_num / a_den.clamp(min=1.0)
     aux_loss = x_num / x_den.clamp(min=1.0)
     return action_loss + aux_loss, action_loss, aux_loss
@@ -67,42 +88,108 @@ def _no_mark(name: str) -> None:
     pass
 
 
-def build_il_train_step(policy, optimizer, mark: Callable[[str], None] = _no_mark) -> Callable:
+def il_loss_and_grads(policy, optimizer, obs_tn, prev_tn, masks_tn, corrected, weights, mesh=None,
+                      scale: float = 1.0, reduce_grads: bool = True,
+                      mark: Callable[[str], None] = _no_mark) -> torch.Tensor:
+    """Forward and backward of one batch: the gradients of loss / scale are
+    added to the parameters' `.grad`. With `mesh`, the losses are summed over
+    the ranks and, with `reduce_grads`, so are the optimizer's gradients (all
+    of `.grad`, whatever it had accumulated). Returns [loss, action_loss,
+    aux_loss] (detached) on the policy's device; `mark` gets "forward" and
+    "backward"."""
+    loss, action_loss, aux_loss = il_losses(policy, obs_tn, prev_tn, masks_tn, corrected, weights, mesh)
+    mark("forward")
+    (loss if scale == 1.0 else loss / scale).backward()
+    losses = torch.stack([loss, action_loss, aux_loss]).detach()
+    if mesh is not None:
+        mesh.all_reduce(losses)
+        if reduce_grads:
+            mesh.all_reduce_grads(trainable_parameters(optimizer))
+    mark("backward")
+    return losses
+
+
+def build_il_train_step(policy, optimizer, mark: Callable[[str], None] = _no_mark, mesh=None) -> Callable:
     """Returns fn(obs_tn, prev[T,N], masks[T,N], corrected[T,N],
     weights[T,N]) -> (loss, action_loss, aux_loss) as detached 0-d tensors
     on the policy's device. The step updates the policy's parameters and the
     optimizer's state in place. `mark(name)` is called at the ends of
-    "forward", "backward" and "optimizer" (a `StepClock.mark`, or nothing)."""
+    "forward", "backward" and "optimizer" (a `StepClock.mark`, or nothing).
+    With `mesh` each rank passes its own shard of the batch, and every rank
+    applies the same summed gradients."""
 
     def train_step(obs_tn, prev_tn, masks_tn, corrected, weights):
         optimizer.zero_grad(set_to_none=True)
-        loss, action_loss, aux_loss = il_losses(policy, obs_tn, prev_tn, masks_tn, corrected, weights)
-        mark("forward")
-        loss.backward()
-        mark("backward")
+        losses = il_loss_and_grads(policy, optimizer, obs_tn, prev_tn, masks_tn, corrected, weights, mesh, mark=mark)
         optimizer.step()
         mark("optimizer")
-        return loss.detach(), action_loss.detach(), aux_loss.detach()
+        return tuple(losses.unbind())
 
-    return train_step
+    return align_collective_step(train_step, "il_train_step") if mesh is not None else train_step
 
 
-def build_il_accum_step(policy, optimizer, apply: bool, mark: Callable[[str], None] = _no_mark) -> Callable:
+def build_il_accum_step(policy, optimizer, apply: bool, mark: Callable[[str], None] = _no_mark,
+                        mesh=None) -> Callable:
     """Gradient-accumulation variant (RecollectTrainer): adds grads /
     accum_scale into the parameters' `.grad`; with `apply` it then steps the
     optimizer and clears them. The caller clears the gradients before the
     first step of a run (`optimizer.zero_grad()`). `mark` as in
-    `build_il_train_step` ("optimizer" ends the step, applying or not)."""
+    `build_il_train_step` ("optimizer" ends the step, applying or not).
+    With `mesh`, the accumulated gradients are summed over the ranks once,
+    in the step that applies them (the sum of the ranks' sums is the JAX
+    step's sum of per-step psums)."""
 
     def accum_step(accum_scale, obs_tn, prev_tn, masks_tn, corrected, weights):
-        loss, action_loss, aux_loss = il_losses(policy, obs_tn, prev_tn, masks_tn, corrected, weights)
-        mark("forward")
-        (loss / accum_scale).backward()
-        mark("backward")
+        losses = il_loss_and_grads(policy, optimizer, obs_tn, prev_tn, masks_tn, corrected, weights, mesh,
+                                   scale=accum_scale, reduce_grads=apply, mark=mark)
         if apply:
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
         mark("optimizer")
-        return loss.detach(), action_loss.detach(), aux_loss.detach()
+        return tuple(losses.unbind())
 
-    return accum_step
+    return align_collective_step(accum_step, "il_accum_step") if mesh is not None else accum_step
+
+
+# ------------------------------------------------------------ the global batch
+def pad_time_axis(obs_tn: Dict[str, torch.Tensor], prev_tn, masks_tn, corrected, weights, t_target: int) -> Tuple:
+    """Pad the time axis of a [T, N, ...] IL batch up to t_target. Padded
+    steps carry zero inflection weight, so they are excluded from the loss
+    exactly (the same guarantee as collate's tail padding)."""
+    pad_t = t_target - corrected.shape[0]
+    if pad_t == 0:
+        return obs_tn, prev_tn, masks_tn, corrected, weights
+
+    def pad(a, value=0):
+        return F.pad(a, [0, 0] * (a.dim() - 1) + [0, pad_t], value=value)
+
+    return (
+        {k: pad(v) for k, v in obs_tn.items()},
+        pad(prev_tn),
+        pad(masks_tn, 1),  # mid-sequence semantics; loss-invisible (w=0)
+        pad(corrected),
+        pad(weights),
+    )
+
+
+def global_max_time(mesh, t_local: int) -> int:
+    """The longest time axis of the ranks' batches (an all_reduce MAX of
+    one integer on the CPU side of the group); `t_local` at world size 1."""
+    if mesh is None or world_size() == 1:
+        return t_local
+    t = torch.tensor([t_local], dtype=torch.int64)
+    if torch.distributed.get_backend(mesh.group) == "nccl":
+        t = t.to(mesh.device)
+    return int(mesh.all_reduce(t, op="max").item())
+
+
+def prepare_global_batch(mesh, obs_tn, prev_tn, masks_tn, corrected, weights) -> Tuple:
+    """Everything between a rank's [T, N_local, ...] batch and the step: the
+    time axis padded to the longest of the ranks' (`global_max_time`).
+    Identity without a mesh. DaggerTrainer and RecollectTrainer both go
+    through here. (The JAX function also pads the env axis to the per-rank
+    shard multiple, which is 1 for a rank of the port.)"""
+    if mesh is None:
+        return obs_tn, prev_tn, masks_tn, corrected, weights
+    return pad_time_axis(obs_tn, prev_tn, masks_tn, corrected, weights,
+                         t_target=global_max_time(mesh, int(corrected.shape[0])))

@@ -16,6 +16,12 @@ hold `optimizer.state_dict()`, which `load_state_dict` restores as it is, so
 there is nothing to migrate. `load_optim_state` restores either that or the
 Adam state of a JAX checkpoint, which `utils/checkpoints.load_checkpoint`
 hands over keyed by parameter name (`{"optax_adam": ...}`).
+
+Across ranks (`mesh`): the step is replicated. `masked_adam` broadcasts the
+initial parameters and buffers from rank 0, the gradients it clips are the
+all_reduce'd sums (`parallel/mesh.DataMesh.all_reduce_grads`, called
+before `step()`), so every rank clips the same gradient and takes the same Adam
+step, and after the first step it checks that the ranks' parameters agree.
 """
 
 from __future__ import annotations
@@ -87,13 +93,40 @@ def clip_by_global_norm_(parameters, max_norm: float) -> torch.Tensor:
     return norm
 
 
+def trainable_parameters(optimizer) -> list:
+    """The optimizer's parameters, in its order (the same on every rank)."""
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def broadcast_parameters(module: torch.nn.Module, mesh) -> None:
+    """Every parameter and buffer of `module` from rank 0, in place."""
+    with torch.no_grad():
+        for t in list(module.parameters()) + list(module.buffers()):
+            mesh.broadcast(t.data, 0)
+
+
+def check_replicas_agree(module: torch.nn.Module, mesh, tag: str) -> None:
+    """Raise unless every rank holds the same parameters: one all_reduce MAX
+    of each parameter's f64 sum and of its negation (their max and min)."""
+    names, params = zip(*module.named_parameters())
+    sums = torch.stack([p.detach().double().sum() for p in params])
+    both = mesh.all_reduce(torch.cat([sums, -sums]), op="max")
+    differ = [name for name, hi, lo in zip(names, both[: len(names)].tolist(), (-both[len(names):]).tolist()) if hi != lo]
+    if differ:
+        raise RuntimeError(f"{tag}: the ranks' parameters differ after the first update ({len(differ)} of "
+                           f"{len(names)}, first {differ[:3]}): the replicas diverged")
+
+
 def masked_adam(lr: float, policy, model_config, eps: float = 1e-8,
-                max_grad_norm: Optional[float] = None) -> torch.optim.Adam:
+                max_grad_norm: Optional[float] = None, mesh=None) -> torch.optim.Adam:
     """Adam over the policy's trainable parameters only. The frozen ones get
     `requires_grad_(False)`, so backward computes no gradient for them and
     they hold no optimizer state. With max_grad_norm, every `step()` first
     clips the gradients by their global norm (the frozen parameters have
-    none, so the norm is the trainable-only norm)."""
+    none, so the norm is the trainable-only norm). With `mesh`, rank 0's
+    parameters and buffers are broadcast now, and the first `step()` checks
+    afterwards that the ranks agree; the caller sums the gradients over the
+    ranks before each `step()`."""
     mask = trainable_mask(policy, model_config)
     trainable = []
     for name, p in policy.named_parameters():
@@ -107,6 +140,14 @@ def masked_adam(lr: float, policy, model_config, eps: float = 1e-8,
             clip_by_global_norm_(trainable, max_grad_norm)
 
         optimizer.register_step_pre_hook(clip)
+    if mesh is not None:
+        broadcast_parameters(policy, mesh)
+
+        def check_once(opt, args, kwargs) -> None:
+            handle.remove()
+            check_replicas_agree(policy, mesh, "masked_adam")
+
+        handle = optimizer.register_step_post_hook(check_once)
     return optimizer
 
 

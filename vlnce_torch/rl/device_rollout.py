@@ -40,9 +40,12 @@ STOP or the step cap, as in the JAX module. Gathers on the card never
 multiply a field by a one-hot mask, so the `inf` distances of cells that
 are navigable in another queued scene cannot poison the stats.
 
-Left out of the JAX module: the mesh (`mesh`, `_carry_structure` and the
-pjit branch; the card is one device, so there is no mesh and nothing is
-sharded), and the [B, F] flattening of the emitted observations, which
+Across ranks each rank collects its own rollout on its own card, as the
+JAX trainer does under several processes (its collector mesh is None
+there), and the PPO update joins the ranks. Left out of the JAX module: the
+one-process mesh (`mesh`, `_carry_structure` and the pjit branch, which
+shard the env axis over the chips of one process; the port has one card per
+process), and the [B, F] flattening of the emitted observations, which
 exists only for the TPU's tile padding: the observations keep their
 natural shapes ([T, B, 12, 224, 224, 3] u8 and so on).
 """

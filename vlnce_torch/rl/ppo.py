@@ -1,5 +1,5 @@
-"""PPO update for the dict-action waypoint policy (WDDPPO), single device
-(port of the host path of vlnce_tpu/rl/ppo.py).
+"""PPO update for the dict-action waypoint policy (WDDPPO), on one process
+or data-parallel across ranks (port of vlnce_tpu/rl/ppo.py).
 
 Loss parity with reference vlnce_baselines/common/ddppo_alg.py:9-149:
 clipped surrogate, clipped value loss, the three per-component entropies
@@ -26,8 +26,17 @@ and enqueues all K minibatch steps with no synchronisation between them
 (the JAX package runs them as one `lax.scan` program; capturing the step in
 a CUDA graph is not done here).
 
-The JAX module's mesh and padding (`_pad_sample`, `_globalize_sample`) wait
-for the port's multi-process slice: on one card every env slot is real.
+Across ranks (`mesh`, a `parallel/mesh.DataMesh`; reference DD-PPO's
+ranks) each rank minibatches its own rollouts, as in the JAX package: every
+loss term is a sum over this rank's rows divided by the
+global count (all_reduce'd), and the gradients and the six stats are summed
+over the ranks before the clip and the Adam step, which every rank then
+takes alike. Advantages are normalized per rank (`get_advantages`), as in
+JAX. The JAX module's `_pad_sample` and `_globalize_sample` have no job
+here: they pad a minibatch to a per-rank shard multiple, which is 1 for a
+rank of the port, so every row is valid, and stitch the ranks' shards into
+one global array, where a rank of the port keeps its own.
+`update_device_scan` stays single-process, as the JAX one does.
 """
 
 from __future__ import annotations
@@ -40,7 +49,8 @@ import torch
 from vlnce_torch.envs.batch import to_device
 from vlnce_torch.envs.device_sim import upload
 from vlnce_torch.models.waypoint_predictors import offset_to_continuous
-from vlnce_torch.parallel.optim import masked_adam
+from vlnce_torch.parallel.distributed import align_collective_step, world_size
+from vlnce_torch.parallel.optim import masked_adam, trainable_parameters
 
 STAT_KEYS = ("value_loss", "action_loss", "entropy_loss", "pano_entropy", "offset_entropy", "distance_entropy")
 
@@ -52,17 +62,19 @@ def _no_mark(name: str) -> None:
 class WDDPPO:
     def __init__(self, policy, ppo_cfg, offset_regularize_coef: float = 0.0, pano_entropy_coef: float = 1.0,
                  offset_entropy_coef: float = 1.0, distance_entropy_coef: float = 1.0,
-                 num_updates: Optional[int] = None):
+                 num_updates: Optional[int] = None, mesh=None):
         self.policy = policy
         self.cfg = ppo_cfg
+        self.mesh = mesh
         self.offset_regularize_coef = offset_regularize_coef
         self.pano_entropy_coef = pano_entropy_coef
         self.offset_entropy_coef = offset_entropy_coef
         self.distance_entropy_coef = distance_entropy_coef
         self.num_updates = num_updates
         self.optimizer = masked_adam(
-            ppo_cfg.lr, policy, policy.config.MODEL, eps=ppo_cfg.eps, max_grad_norm=ppo_cfg.max_grad_norm
+            ppo_cfg.lr, policy, policy.config.MODEL, eps=ppo_cfg.eps, max_grad_norm=ppo_cfg.max_grad_norm, mesh=mesh
         )
+        self._minibatch_step = self._step if mesh is None else align_collective_step(self._step, "wddppo_step")
         # linear LR decay over optimizer steps to 0 at the last update (the
         # JAX package's optax.linear_schedule; reference use_linear_lr_decay)
         self._lr_steps = (
@@ -103,8 +115,19 @@ class WDDPPO:
 
     def loss(self, sample, clip_param: float, T: int):
         """(total loss, stats) of one minibatch on the device: tensors [T, n,
-        ...] as `upload` returns them. Every mean is over the T * n rows."""
+        ...] as `upload` returns them. Every mean is over the T * n rows; with
+        a mesh it is this rank's sum over the global count of rows
+        (all_reduce'd), so the ranks' losses sum to the whole batch's."""
         obs, hidden0, actions, prev_actions, value_preds, returns, masks, old_log_probs, adv_targ = sample
+        if self.mesh is None:
+            def mmean(x):
+                return x.mean()
+        else:
+            rows = torch.tensor(float(value_preds.shape[0] * value_preds.shape[1]), device=value_preds.device)
+            count = self.mesh.all_reduce(rows)
+
+            def mmean(x):
+                return x.sum() / count
 
         def flat(v):
             return v.reshape((T * v.shape[1],) + tuple(v.shape[2:]))
@@ -118,31 +141,31 @@ class WDDPPO:
             actions, seq_len=T,
         )
 
-        entropy_loss = (
+        entropy_loss = mmean(
             self.pano_entropy_coef * entropy["pano"] + self.offset_entropy_coef * entropy["offset"]
             + self.distance_entropy_coef * entropy["distance"]
-        ).mean() * self.cfg.entropy_coef
+        ) * self.cfg.entropy_coef
 
         ratio = torch.exp(action_log_probs - old_log_probs)
         surr1 = ratio * adv_targ
         surr2 = torch.clamp(ratio, 1.0 - clip_param, 1.0 + clip_param) * adv_targ
-        action_loss = -torch.minimum(surr1, surr2).mean()
+        action_loss = -mmean(torch.minimum(surr1, surr2))
 
         if self.cfg.clip_value_loss:
             value_pred_clipped = value_preds + torch.clamp(values - value_preds, -clip_param, clip_param)
-            value_loss = 0.5 * torch.maximum((values - returns) ** 2, (value_pred_clipped - returns) ** 2).mean()
+            value_loss = 0.5 * mmean(torch.maximum((values - returns) ** 2, (value_pred_clipped - returns) ** 2))
         else:
-            value_loss = 0.5 * ((returns - values) ** 2).mean()
+            value_loss = 0.5 * mmean((returns - values) ** 2)
         value_loss = value_loss * self.cfg.value_loss_coef
 
         offsets = offset_to_continuous(actions["offset"], self.policy.wypt_cfg, self.policy.num_panos)
-        offset_loss = self.offset_regularize_coef * offsets.abs().mean()
+        offset_loss = self.offset_regularize_coef * mmean(offsets.abs())
 
         total = value_loss + action_loss + offset_loss - entropy_loss
         stats = {
             "value_loss": value_loss, "action_loss": action_loss, "entropy_loss": entropy_loss,
-            "pano_entropy": entropy["pano"].mean(), "offset_entropy": entropy["offset"].mean(),
-            "distance_entropy": entropy["distance"].mean(),
+            "pano_entropy": mmean(entropy["pano"]), "offset_entropy": mmean(entropy["offset"]),
+            "distance_entropy": mmean(entropy["distance"]),
         }
         return total, stats
 
@@ -152,19 +175,33 @@ class WDDPPO:
             for group in self.optimizer.param_groups:
                 group["lr"] = self.cfg.lr * (1.0 - frac)
 
+    def _grads_and_stats(self, sample, clip_param: float, T: int,
+                         mark: Callable[[str], None] = _no_mark) -> torch.Tensor:
+        """Forward and backward of one minibatch into the parameters'
+        `.grad`; with a mesh, the gradients and the stats summed over the
+        ranks (the core that the update and the cross-rank parity checks
+        share). Returns the stats [6] on the device."""
+        total, stats = self.loss(sample, clip_param, T)
+        mark("forward")
+        total.backward()
+        stats = torch.stack([stats[k].detach() for k in STAT_KEYS])
+        if self.mesh is not None:
+            # the losses are local sums over the global count: the sum completes the mean
+            self.mesh.all_reduce_grads(trainable_parameters(self.optimizer))
+            self.mesh.all_reduce(stats)
+        mark("backward")
+        return stats
+
     def _step(self, sample, clip_param: float, T: int, mark: Callable[[str], None]) -> torch.Tensor:
         """One optimizer step on a minibatch on the device; returns its stats
         [6] on the device."""
         self.optimizer.zero_grad(set_to_none=True)
-        total, stats = self.loss(sample, clip_param, T)
-        mark("forward")
-        total.backward()
-        mark("backward")
+        stats = self._grads_and_stats(sample, clip_param, T, mark)
         self._set_lr()
         self.optimizer.step()
         self.optimizer_steps += 1
         mark("optimizer")
-        return torch.stack([stats[k].detach() for k in STAT_KEYS])
+        return stats
 
     # ------------------------------------------------------------------ update
     def update(self, rollouts, rng: np.random.RandomState, update_idx: int = 0,
@@ -183,7 +220,7 @@ class WDDPPO:
                     clock.start()
                 sample = self.upload(arrays)
                 mark("upload")
-                all_stats.append(self._step(sample, clip_param, T, mark))
+                all_stats.append(self._minibatch_step(sample, clip_param, T, mark))
         # one download of every minibatch's stats
         return _means(torch.stack(all_stats))
 
@@ -223,7 +260,7 @@ class WDDPPO:
             *(take(batch[k]) for k in ("value_preds", "returns", "masks", "old_log_probs", "advantages")),
         )
         mark("gather")
-        return self._step(sample, clip_param, T, mark)
+        return self._minibatch_step(sample, clip_param, T, mark)
 
     def update_device(self, batch: Dict, rng: np.random.RandomState, update_idx: int = 0,
                       clock=None) -> Dict[str, float]:
@@ -244,7 +281,9 @@ class WDDPPO:
         """The PPO update over a batch on the card with the [K, n] index
         matrix uploaded once and all K minibatch steps enqueued together; the
         minibatches are update_device's, and so are the stats (one
-        read-back)."""
+        read-back). Single-process only, as in the JAX package."""
+        if world_size() > 1:
+            raise RuntimeError("CUDA.PPO_UPDATE_SCAN is single-process; under several ranks use update_device")
         T, rows, clip_param = self._minibatch_plan(batch, rng, update_idx)
         idx = upload({"idx": rows}, batch["value_preds"].device)["idx"]
         return _means(self.minibatch_loop(batch, idx, clip_param, T, clock))

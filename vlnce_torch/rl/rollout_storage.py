@@ -112,7 +112,8 @@ class ActionDictRolloutStorage:
             n = len(idx)
 
             # yielded time-major unflattened [T, n, ...]; the update flattens
-            # them on the device
+            # them on the device. Across ranks each rank's storage holds its
+            # own envs, and the update's all_reduce joins the ranks
             obs_batch = {k: v[:T, idx] for k, v in self.observations.items()}
             hidden0 = self.recurrent_hidden_states[0, idx]
             actions_batch = {k: v[:T, idx] for k, v in self.actions.items()}

@@ -12,6 +12,14 @@ DD-PPO of the waypoint policy (`TRAINER_NAME ddppo-waypoint`, the
 r2r_waypoint/*.yaml experiments). `EVAL.EVAL_NONLEARNING` and
 `INFERENCE.INFERENCE_NONLEARNING` run a nonlearning agent instead
 (r2r_baselines/nonlearning.yaml).
+
+Several ranks, one process per card: `torchrun --nproc_per_node K -m
+vlnce_torch.run ...` (or K SLURM tasks, the reference's convention) joins a
+`torch.distributed` process group before any device use
+(`parallel/distributed.init_distributed`; backend `RL.DDPPO.distrib_backend`
+on the card, gloo on the CPU), and the trainers train data-parallel over
+its ranks (`CUDA.MESH.DATA`, -1 for all of them). Each rank logs to
+`LOG_FILE.rank<k>`.
 """
 
 from __future__ import annotations
@@ -68,9 +76,17 @@ def run_exp(exp_config: str, run_type: str, opts=None):
     ensure_registered()
 
     config = get_config(exp_config, opts)
+    # the process group (torchrun's or SLURM's environment) before any device
+    # use; a no-op on one process
+    from vlnce_torch.parallel.distributed import init_distributed, world_rank, world_size
+
+    on_card = torch.device(config.CUDA.DEVICE).type == "cuda"
+    multi = init_distributed(backend=str(config.RL.DDPPO.distrib_backend) if on_card else "gloo")
     logger.info(f"config: {config.dump()}" if config.VERBOSE else f"run_type: {run_type}")
     if config.LOG_FILE:
-        logger.add_filehandler(config.LOG_FILE)
+        logger.add_filehandler(f"{config.LOG_FILE}.rank{world_rank()}" if multi else config.LOG_FILE)
+    if multi:
+        logger.info(f"process group: rank {world_rank()} of {world_size()}, backend {torch.distributed.get_backend()}")
 
     random.seed(config.TASK_CONFIG.SEED)
     np.random.seed(config.TASK_CONFIG.SEED)

@@ -13,8 +13,12 @@ pinned buffers of `envs.batch.ObsSlots`), one upload of the [N, 1] masks, and
 one download of the actions, which is the loop's only synchronisation with
 the card. `prev_actions` and the recurrent state stay on the card.
 
-`_initialize_policy` also builds the optimizer (Adam over the trainable
-parameters only) and, for a requeued job, restores it. The training loops
+`_initialize_policy` also resolves the data-parallel axis (`self.mesh`,
+`parallel/mesh.resolve_training_mesh`: the ranks of the process group, or
+None on one process), builds the optimizer (Adam over the trainable
+parameters only; across ranks it broadcasts rank 0's weights) and, for a
+requeued job, restores it. `_il_update` passes each rank's batch through
+`parallel/il_step.prepare_global_batch`; only rank 0 writes checkpoints. The training loops
 are `trainers/dagger_trainer.py` and `trainers/recollect_trainer.py`.
 `EVAL.ON_DEVICE_SCAN` and `INFERENCE.ON_DEVICE_SCAN` hand the loop to
 `trainers/scan_eval.py` (the grid world and the policy on the card).
@@ -46,6 +50,8 @@ from vlnce_torch.ops.obs_transforms import (
     apply_obs_transforms_obs_space,
     get_active_obs_transforms,
 )
+from vlnce_torch.parallel.il_step import prepare_global_batch
+from vlnce_torch.parallel.mesh import resolve_training_mesh
 from vlnce_torch.parallel.optim import load_optim_state, masked_adam
 from vlnce_torch.registry import registry
 from vlnce_torch.utils.checkpoints import (
@@ -136,6 +142,7 @@ class BaseVLNCETrainer:
         self.config = config
         self.policy = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.mesh = None  # the data-parallel axis across ranks; set by _initialize_policy
         self.obs_transforms = []
         self.start_epoch = 0
         self.step_id = 0
@@ -182,8 +189,12 @@ class BaseVLNCETrainer:
 
         # Adam over the trainable parameters only: the frozen ResNets and the
         # frozen token table get no gradient and hold no moments (the
-        # reference's torch-Adam-skips-None-grads, base_il_trainer.py:69-70)
-        self.optimizer = masked_adam(config.IL.lr, self.policy, config.MODEL)
+        # reference's torch-Adam-skips-None-grads, base_il_trainer.py:69-70);
+        # across ranks (CUDA.MESH.DATA) rank 0's weights are broadcast first
+        self.mesh = resolve_training_mesh(config)
+        if self.mesh is not None:
+            logger.info(f"Data-parallel training over {self.mesh.size} ranks (this is rank {self.mesh.rank})")
+        self.optimizer = masked_adam(config.IL.lr, self.policy, config.MODEL, mesh=self.mesh)
 
         if load_from_ckpt:
             ckpt_path = config.IL.ckpt_to_load
@@ -229,10 +240,13 @@ class BaseVLNCETrainer:
             rest.update(to_device({k: v for k, v in rest.items() if not torch.is_tensor(v)}, device))
             if clock:
                 clock.mark("upload")
-        with annotate("il_step"):
-            losses = step(
-                obs_tn, rest["prev"].reshape(T, N), rest["masks"].reshape(T, N), rest["corrected"], rest["weights"],
+            # across ranks: the time axis padded to the longest rank's
+            batch = prepare_global_batch(
+                self.mesh, obs_tn, rest["prev"].reshape(T, N), rest["masks"].reshape(T, N), rest["corrected"],
+                rest["weights"],
             )
+        with annotate("il_step"):
+            losses = step(*batch)
         loss, action_loss, aux_loss = torch.stack(losses).tolist()
         return loss, action_loss, aux_loss
 

@@ -27,9 +27,14 @@ the bank is the store uploaded once. `CUDA.RESIDENT_EPOCH_SCAN` then
 enqueues each run of an epoch's train steps with one read-back per run.
 Bank batches need no prefetch thread: they have no host work to hide.
 
-The JAX trainer's multi-process and mesh branches (rank-local stores,
-`_resident_mesh`, the fused epoch's fallbacks) have no counterpart on one
-card.
+Across ranks (`self.mesh`, one process per card, `CUDA.MESH.DATA`) each
+rank collects its own episodes into a rank-local store (`<dir>.rank<k>`;
+on the card, its `rank_slice` of the collection plan), banks its own slice
+of a preloaded store, and the IL step sums the ranks' gradients
+(`parallel/il_step.py`). The resident collection runs unsharded on each
+rank (the JAX trainer's `_resident_mesh` is None under several processes),
+and the enqueued epoch falls back to per-batch updates there, as the JAX trainer's
+fused epoch does.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from vlnce_torch.data.trajectory_store import TrajectoryStoreReader, TrajectoryS
 from vlnce_torch.envs.batch import ObsSlots
 from vlnce_torch.envs.env_utils import construct_envs, get_env_class
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms
+from vlnce_torch.parallel.distributed import rank_slice, world_rank, world_size
 from vlnce_torch.parallel.il_step import build_il_train_step
 from vlnce_torch.registry import registry
 from vlnce_torch.trainers.base_trainer import BaseVLNCETrainer
@@ -90,6 +96,12 @@ class DaggerTrainer(BaseVLNCETrainer):
 
     def __init__(self, config):
         self.features_dir = config.IL.DAGGER.lmdb_features_dir.format(split=config.TASK_CONFIG.DATASET.SPLIT)
+        if world_size() > 1 and not config.IL.DAGGER.preload_lmdb_features:
+            # each rank collects its own episodes into its own store: the
+            # store has one writer. A preloaded store stays shared, read-only
+            # (each rank banks its rank_slice of it).
+            self.features_dir = f"{self.features_dir}.rank{world_rank()}"
+            logger.info(f"multi-process DAgger: rank-local store {self.features_dir}")
         super().__init__(config)
         self._train_step = None  # built lazily once the policy exists
         self._bank = None  # the DeviceTrajectoryBank (CUDA.DAGGER_RESIDENT), joined across rounds
@@ -188,7 +200,8 @@ class DaggerTrainer(BaseVLNCETrainer):
     def _get_train_step(self):
         if self._train_step is None:
             clock = self.step_clock
-            self._train_step = build_il_train_step(self.policy, self.optimizer, **({"mark": clock.mark} if clock else {}))
+            self._train_step = build_il_train_step(self.policy, self.optimizer, mesh=self.mesh,
+                                                   **({"mark": clock.mark} if clock else {}))
         return self._train_step
 
     def _update_agent(self, observations, prev_actions, masks, corrected, weights) -> Tuple[float, float, float]:
@@ -197,10 +210,16 @@ class DaggerTrainer(BaseVLNCETrainer):
         return self._il_update(self._get_train_step(), observations, prev_actions, masks, corrected, weights)
 
     def _fused_epoch_ok(self) -> bool:
-        """Whether the enqueued epoch (CUDA.RESIDENT_EPOCH_SCAN) runs. On one
-        process with no mesh it is the key itself; the JAX trainer's
-        multi-process and mesh fallbacks have no counterpart here."""
-        return bool(self.config.CUDA.RESIDENT_EPOCH_SCAN)
+        """Whether the enqueued epoch (CUDA.RESIDENT_EPOCH_SCAN) runs: the
+        key, on one process. Under several ranks it falls back to per-batch
+        updates (whose batches `prepare_global_batch` pads to the ranks'
+        longest), as the JAX trainer's fused epoch does."""
+        if not bool(self.config.CUDA.RESIDENT_EPOCH_SCAN):
+            return False
+        if world_size() > 1:
+            logger.warning("CUDA.RESIDENT_EPOCH_SCAN: multi-process run — falling back to per-batch resident updates")
+            return False
+        return True
 
     def _run_fused_epoch(self, riter) -> List[Tuple[float, float, float]]:
         """One epoch over the bank with each run of batches enqueued and read
@@ -226,7 +245,9 @@ class DaggerTrainer(BaseVLNCETrainer):
         if config.IL.DAGGER.preload_lmdb_features:
             if self._bank is None:
                 reader = TrajectoryStoreReader(self.features_dir)
-                self._bank = DeviceTrajectoryBank.from_store(reader, instr_uuid=instr_uuid, device=self.policy.device)
+                # each rank banks its slice of the shared store
+                self._bank = DeviceTrajectoryBank.from_store(reader, instr_uuid=instr_uuid, device=self.policy.device,
+                                                             indices=rank_slice(range(len(reader))))
                 reader.close()
                 logger.info(f"uploaded trajectory store to device bank: {len(self._bank)} episodes, "
                             f"{self._bank.nbytes() / 2**20:.1f} MiB")
@@ -268,14 +289,16 @@ class DaggerTrainer(BaseVLNCETrainer):
     def _collection_plan(self, data_it: int):
         """The episodes and beta of a round of device collection: beta follows
         p ** iteration (reference dagger_trainer.py:414-418), the episodes
-        are the first update_size of the split in dataset order."""
+        are the first update_size of the split in dataset order. Under
+        several ranks each rank takes its strided, wrap-padded `rank_slice`
+        (equal counts, so every rank runs as many train batches)."""
         from vlnce_torch.tasks.datasets import make_dataset
 
         config = self.config
         p = config.IL.DAGGER.p
         beta = 0.0 if p == 0.0 else p**data_it
         dataset = make_dataset(config.TASK_CONFIG.DATASET.TYPE, config.TASK_CONFIG.DATASET)
-        return list(dataset.episodes)[: int(config.IL.DAGGER.update_size)], beta
+        return rank_slice(list(dataset.episodes)[: int(config.IL.DAGGER.update_size)]), beta
 
     def _update_dataset_on_device(self, data_it: int) -> None:
         """A round of collection on the card (CUDA.ON_DEVICE_DAGGER): one

@@ -1,4 +1,4 @@
-"""DD-PPO waypoint trainer on one card (port of
+"""DD-PPO waypoint trainer, on one card or across ranks (port of
 vlnce_tpu/trainers/ddppo_waypoint_trainer.py; reference
 vlnce_baselines/ddppo_waypoint_trainer.py:54-986).
 
@@ -27,8 +27,14 @@ auto-reset; one CUDA graph replay per env step, the bootstrap value and GAE
 in a second graph, one read-back of the episode stats). The PPO batch stays
 on the card for `WDDPPO.update_device`, or `update_device_scan` with
 `CUDA.PPO_UPDATE_SCAN` (which, as in the JAX package, takes effect only
-with the rollout on the card). The data-parallel mesh waits for the
-multi-process slice.
+with the rollout on the card, and on one process).
+
+Across ranks (the reference's DD-PPO ranks; `CUDA.MESH.DATA`, one process
+per card, `parallel/mesh.resolve_training_mesh`) each rank collects its own
+rollout, host or on the card, and `WDDPPO` sums the minibatch gradients and
+stats over the ranks. Only rank 0 writes checkpoints; every rank writes the
+requeue state (a node-local path every rank must find again). As in the JAX
+trainer, the ranks share `TASK_CONFIG.SEED`.
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ from vlnce_torch.ops.obs_transforms import (
     apply_obs_transforms_obs_space,
     get_active_obs_transforms,
 )
+from vlnce_torch.parallel.distributed import world_size
+from vlnce_torch.parallel.mesh import resolve_training_mesh
 from vlnce_torch.parallel.optim import load_optim_state
 from vlnce_torch.registry import registry
 from vlnce_torch.rl.ppo import WDDPPO
@@ -143,6 +151,9 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
         if load_from_ckpt:
             load_policy_state_dict(self.policy, load_checkpoint(ckpt_path)["state_dict"])
             logger.info(f"Loaded waypoint policy from {ckpt_path}")
+        # the data-parallel axis per CUDA.MESH.DATA (-1 auto, k > 1 raises
+        # unless the process group has k ranks); each rank collects locally
+        self.mesh = resolve_training_mesh(config)
         ppo = config.RL.PPO
         self.agent = WDDPPO(
             self.policy, ppo,
@@ -151,9 +162,11 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
             offset_entropy_coef=ppo.offset_entropy_coef,
             distance_entropy_coef=ppo.distance_entropy_coef,
             num_updates=int(config.RL.NUM_UPDATES),
+            mesh=self.mesh,
         )
         self.optimizer = self.agent.optimizer
-        logger.info(f"Initialized WaypointPolicy on {self.policy.device}: {self.policy.num_params()} params")
+        logger.info(f"Initialized WaypointPolicy on {self.policy.device}: {self.policy.num_params()} params "
+                    f"(data-parallel over {self.mesh.size if self.mesh else 1} ranks)")
 
     # ---------------------------------------------------------------- helpers
     @staticmethod
@@ -233,7 +246,8 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
 
             self.collector = DeviceRolloutCollector(self.policy, self.obs_transforms, config, N)
             self.collector.initial_carry_and_obs()
-            update_device = self.agent.update_device_scan if bool(config.CUDA.PPO_UPDATE_SCAN) else self.agent.update_device
+            scan = bool(config.CUDA.PPO_UPDATE_SCAN) and world_size() == 1
+            update_device = self.agent.update_device_scan if scan else self.agent.update_device
         else:
             rollouts = ActionDictRolloutStorage(
                 ppo_cfg.num_steps, N, self.observation_space, config.MODEL.STATE_ENCODER.hidden_size,
@@ -367,8 +381,10 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
         )
 
     def _save_interrupted_state(self, update: int, count_steps: int) -> None:
-        # synchronous: the process exits for requeue right after this write
-        save_checkpoint(self.config.RL.DDPPO.requeue_path, self.policy.state_dict(), **self._rl_state(update, count_steps))
+        # synchronous: the process exits for requeue right after this write;
+        # every rank writes it (the path is typically node-local)
+        save_checkpoint(self.config.RL.DDPPO.requeue_path, self.policy.state_dict(), all_ranks=True,
+                        **self._rl_state(update, count_steps))
         logger.info("Saved interrupted state for requeue")
 
     # --------------------------------------------------------- rollout step

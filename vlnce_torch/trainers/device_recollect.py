@@ -27,8 +27,10 @@ steps re-render the final pose; each episode is cut back to its GT length.
   [T_pad, N, F] for the TPU's tiles), T_pad bucketed to `length_quantum`.
   It feeds the IL accumulation step with no host round trip.
 
-Left out of the JAX module: the mesh argument (one card: nothing is
-sharded).
+Left out of the JAX module: the mesh argument, which shards the render
+over the chips of one process. Across ranks each rank renders its own
+`rank_slice` of the episodes on its own card (`data/recollection.py`), as
+the JAX package does under several processes.
 """
 
 from __future__ import annotations

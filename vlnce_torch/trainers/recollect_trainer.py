@@ -17,6 +17,9 @@ With `CUDA.ON_DEVICE_RECOLLECT` the GT trajectories are rendered on the card
 collate and upload. With `CUDA.RECOLLECT_RESIDENT` as well, each batch is
 rendered on the card with its obs transforms (B2 inside the render step)
 and stays there: the accumulation step takes it as it is, time-major.
+Across ranks (`self.mesh`) each rank re-simulates its own episodes and the
+accumulated gradients are summed over the ranks in the step that applies
+them (`parallel/il_step.build_il_accum_step`).
 """
 
 from __future__ import annotations
@@ -114,6 +117,7 @@ class RecollectTrainer(BaseVLNCETrainer):
         `apply`, the optimizer steps after it."""
         if apply not in self._steps:
             clock = self.step_clock
-            accum_step = build_il_accum_step(self.policy, self.optimizer, apply, **({"mark": clock.mark} if clock else {}))
+            accum_step = build_il_accum_step(self.policy, self.optimizer, apply, mesh=self.mesh,
+                                             **({"mark": clock.mark} if clock else {}))
             self._steps[apply] = lambda *batch: accum_step(float(accumulation), *batch)
         return self._il_update(self._steps[apply], observations, prev_actions, masks, corrected, weights)

@@ -37,8 +37,9 @@ bank tensors are fixed per shape like the scenes, and each chunk copies its
 banks in. The banks' shapes and the episodes' coverage
 (`CUDA.FEATURE_BANK_MAX_DIST`) are checked when the loop starts.
 
-Left out of the JAX module: `_eval_mesh` (the card is one device, so there
-is no mesh and nothing is sharded). With `VIDEO_OPTION` the host replay
+The JAX module's `_eval_mesh` has no counterpart: it is None under several
+processes, so each rank runs its scan on its own card, and the port has no
+one-process mesh to shard the scan over. With `VIDEO_OPTION` the host replay
 keeps its cameras and composes each step's frame (`metrics_from_actions`);
 the step graph on the card does not change.
 

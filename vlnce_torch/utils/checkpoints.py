@@ -40,6 +40,7 @@ import torch
 
 from vlnce_torch.config.node import Config
 from vlnce_torch.models.convert import state_dict_from_jax_params
+from vlnce_torch.parallel.distributed import world_rank
 from vlnce_torch.utils.msgpack_reader import unpackb
 
 CHECKPOINT_SUFFIXES = (".ckpt", ".pth", ".msgpack")
@@ -118,7 +119,14 @@ def save_checkpoint(
     optim_state: Optional[Dict[str, Any]] = None,
     extra_state: Optional[Dict[str, Any]] = None,
     async_write: bool = False,
+    all_ranks: bool = False,
 ) -> None:
+    """Write a checkpoint (on a background thread with `async_write`). Under
+    several ranks only rank 0 writes (the weights are replicated), unless
+    `all_ranks`: a node-local path, such as DD-PPO's requeue state, that
+    every rank must find again on restart."""
+    if not all_ranks and world_rank() != 0:
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload: Dict[str, Any] = {"state_dict": _host_snapshot(state_dict)}
     if optim_state is not None:
