@@ -7,7 +7,7 @@ trajectory bank on the card), the feature-bank route of the scan eval, the
 RxR CMA and Seq2Seq
 recollect training (re-simulated on the host, and rendered on the card), and
 the DD-PPO training of the waypoint policy (with host and on-device rollouts)
-at full width.
+and the asset-day parity check at full width.
 
     python3 chip_smoke.py
 
@@ -165,7 +165,20 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    CLI and the R2R bank scan eval (against its eager run), the graphed RxR
    step against the eager plain step on a chunk of both scenes, and a
    nonlearning eval (no kernel); every scene run must be an ImportedScene;
-24. `phase_video`: VIDEO_OPTION [disk] at full width on procedural scenes
+24. `phase_eval_parity`: the asset-day parity check
+   (`vlnce_torch.scripts.eval_parity`'s main) on those two scenes, which it
+   exports itself from a connectivity pickle: (a) R2R CMA cma_pm_da.yaml at
+   full width with --resident and a bank dir (the banks, the host loop over
+   2 forked workers, the bank route's scan eval; resident-vs-host at 2.0, as
+   the JAX dry run), (b) RxR CMA rxr_cma_en.yaml with --resident, rendered
+   (B2 in the graph; resident-vs-host at the default 0.02; then each stage
+   with the plain versions, the scan eager, must give the kernels' actions
+   episode by episode), (c) --expected-spl
+   a point off (a)'s host SPL must exit 1; 8 greedy episodes of at most 30
+   steps per stage; B1 (and B2 in b) counted in both stages of each; per
+   episode the host and scan loops' actions against each other; each
+   stage's env-steps/s, the export's and the banks' seconds;
+25. `phase_video`: VIDEO_OPTION [disk] at full width on procedural scenes
    (MAP_RESOLUTION 1024, fog of war on) in the RxR CMA host eval (8 forked
    workers, 8 episodes), the RxR CMA scan eval (B=32, 16 episodes) and the
    WPN eval (4 workers, 4 episodes), each beside the same eval without
@@ -173,14 +186,14 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    act step as without video, one AVI per episode with a frame per step
    that `read_video` gives back bit for bit; env-steps/s with and without
    video, ms per composed frame, MB per file, the map's bytes per step;
-25. `phase_shm_ring`: /dev/shm's size, then the shared-memory observation
+26. `phase_shm_ring`: /dev/shm's size, then the shared-memory observation
    ring (VLNCE_TORCH_SHM_OBS=1) against the pipes (=0) in the RxR CMA host
    eval at N=8 (equal actions and per-episode measures, B1 and B2 twice per
    act step in both, env-steps/s of each, where an env step's time goes
    with the ring, the bytes a pool step still sends through the pipes) and
    in the WPN DD-PPO host rollout at N=4, one update (equal rollout
    storage, env-steps/s of each);
-26. `phase_two_ranks`: two rank processes on this card (gloo, TF32 off,
+27. `phase_two_ranks`: two rank processes on this card (gloo, TF32 off,
    f32) through vlnce_torch.parallel.mp_smoke against one process on the
    whole batch: the R2R CMA IL update at full width (3 + 3 envs, T=32) and
    one WPN PPO minibatch (2 + 2 envs, T=16): losses within 1e-5 relative,
@@ -193,7 +206,7 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    only rank 0's checkpoint); then `python -m vlnce_torch.run --run-type
    train` of that resident DAgger at world size 1 through NCCL (torchrun's
    variables set by hand);
-27. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+28. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -1357,11 +1370,18 @@ def phase_scan_eval(dev, host_eval_rate):
               f"{1e3 * device_s / t['segments']:.2f} ms per segment of {t['seg_len']} steps; host eval loop (phase_serving, "
               f"this run) {host_eval_rate:.1f} env-steps/s; peak card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-        # one segment replayed again under the profiler: B1 and B2 ran 2 x seg_len times
+        # one segment replayed again under the profiler: B1 and B2 ran 2 x seg_len times. A graph without
+        # a kernel misses it in each replay of every trace; the profiler has returned fewer activity
+        # records than the replays ran (78 of 80 once), so a short count is traced again, at most twice
         segment = next(v for k, v in scan_eval.policy_cache(trainer.policy).items() if k[0] == "eval")
-        segment.load(segment.scenes, segment.instruction, segment.pos.clone(), segment.heading.clone())
-        seg_ms, busy, counts = trace_segment(lambda: segment.run(trainer.generator))
-        n1, n2 = _kernel_count(counts, "gru_sequence_kernel"), _kernel_count(counts, "resize_normalize_kernel")
+        for trace in range(3):
+            segment.load(segment.scenes, segment.instruction, segment.pos.clone(), segment.heading.clone())
+            seg_ms, busy, counts = trace_segment(lambda: segment.run(trainer.generator))
+            n1, n2 = _kernel_count(counts, "gru_sequence_kernel"), _kernel_count(counts, "resize_normalize_kernel")
+            if n1 == n2 == 2 * segment.seg_len:
+                break
+            print(f"scan eval segment under the profiler, trace {trace + 1}: B1 kernels {n1}, B2 kernels {n2} of "
+                  f"2 x {segment.seg_len} each; traced again")
         print(f"scan eval segment under the profiler: {seg_ms:.2f} ms for {segment.seg_len} steps at B={segment.B} "
               f"({segment.B * segment.seg_len / seg_ms * 1e3:.1f} env-steps/s of rows), device busy {busy:.2f} ms, idle share "
               f"{max(0.0, 1 - busy / seg_ms):.1%}; B1 kernels {n1}, B2 kernels {n2} (2 x {segment.seg_len} each)")
@@ -2118,6 +2138,306 @@ def phase_imported_scenes(dev):
         print(f"nonlearning eval (HandcraftedAgent, 4 episodes on the imported scenes, host only) in "
               f"{time.perf_counter() - t0:.2f} s: {json.dumps({k: round(v, 4) for k, v in stats.items()})}")
         _assert_imported()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the asset-day parity check (vlnce_torch/scripts/eval_parity.py) on the
+# imported lattice scenes: host loop, then the scan eval on the card
+# ---------------------------------------------------------------------------
+
+PARITY_R2R_EXP = "vlnce_torch/config/experiments/r2r_baselines/cma_pm_da.yaml"  # eval_parity's usage
+PARITY_EPISODES = 8  # per stage: 4 on each imported scene, one chunk per scene
+PARITY_STEPS = 30  # TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS, cut from 500
+PARITY_N = 2  # the host stage's workers: one per scene
+PARITY_SCAN_B = 4  # the scan stage's EVAL.SCAN_BATCH: one chunk per scene, padded to its own grid
+
+
+def _decisive_checkpoint(path, cfg, policy):
+    """Save `policy` with its action head at unit gain and STOP's logit
+    biased by -3. The seeded head (orthogonal, gain 0.01) gives logits of
+    about 5e-3 whose greedy choice is STOP at the first step, and whose gaps
+    are of the size of bf16 rounding; at unit gain (as the port's tests
+    perturb it, tests/torch_port_cases.py) the greedy actions vary along a
+    path and are decided by margins a trained head shows, and the bias (as in
+    phase_video) lets the episodes run past their first step."""
+    from vlnce_torch.utils.checkpoints import save_checkpoint
+
+    head = policy.action_distribution.linear
+    with torch.no_grad():
+        head.weight.mul_(100.0)
+        head.bias.zero_()
+        head.bias[0] = -3.0  # STOP is action 0 of R2R's 4 and RxR's 6
+    save_checkpoint(path, policy.state_dict(), config=cfg)
+
+
+@contextlib.contextmanager
+def _parity_stages(eager: bool = False):
+    """Per call of eval_parity's stages (BaseVLNCETrainer._eval_checkpoint):
+    the launch counts (set to 0 just before, read just after), the loop's
+    clocks and the wall time; per sibling script eval_parity runs, its
+    seconds; and per episode the actions of the host loop (read where it
+    steps its envs, with the episodes of its own last current_episodes call)
+    and of the scan eval's rollouts, which run without a graph if `eager`."""
+    from vlnce_torch.envs.vector_env import VectorEnv
+    from vlnce_torch.scripts import eval_parity
+    from vlnce_torch.trainers import base_trainer, scan_eval
+
+    rec = {"stages": [], "scripts": {}, "host": {}, "scan": {}}
+    real = (base_trainer.BaseVLNCETrainer._eval_checkpoint, eval_parity._run_script, VectorEnv.current_episodes,
+            base_trainer._ActLoop.step_envs, scan_eval.run_scan_rollouts)
+
+    def eval_checkpoint(self, *args, **kwargs):
+        _reset_launches()
+        t0 = time.perf_counter()
+        stats = real[0](self, *args, **kwargs)
+        wall = time.perf_counter() - t0
+        rec["stages"].append({"scan": bool(self.config.EVAL.ON_DEVICE_SCAN), "launches": _read_launches(),
+                              "timing": dict(self.last_loop_timing), "wall": wall, "stats": stats,
+                              "on_card": {p.device.type for p in self.policy.parameters()} == {"cuda"}})
+        return stats
+
+    def run_script(main_fn, module, argv, logger):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real[1](main_fn, module, argv, logger)
+        torch.cuda.synchronize()
+        rec["scripts"][module.rsplit(".", 1)[-1]] = {"seconds": time.perf_counter() - t0, "launches": _read_launches()}
+
+    def current_episodes(self):
+        self.last_episodes = real[2](self)
+        return self.last_episodes
+
+    def step_envs(self, envs, active_ids, actions_np):
+        for i in active_ids:
+            rec["host"].setdefault(envs.last_episodes[i].episode_id, []).append(int(actions_np[i]))
+        return real[3](self, envs, active_ids, actions_np)
+
+    def run_scan_rollouts(policy, transforms, config, episodes, *args, **kwargs):
+        seqs = real[4](policy, transforms, config, episodes, *args, eager=eager, **kwargs)
+        rec["scan"].update({ep.episode_id: [int(a) for a in seq] for ep, seq in zip(episodes, seqs)})
+        return seqs
+
+    base_trainer.BaseVLNCETrainer._eval_checkpoint = eval_checkpoint
+    eval_parity._run_script = run_script
+    VectorEnv.current_episodes = current_episodes
+    base_trainer._ActLoop.step_envs = step_envs
+    scan_eval.run_scan_rollouts = run_scan_rollouts
+    try:
+        yield rec
+    finally:
+        (base_trainer.BaseVLNCETrainer._eval_checkpoint, eval_parity._run_script, VectorEnv.current_episodes,
+         base_trainer._ActLoop.step_envs, scan_eval.run_scan_rollouts) = real
+
+
+def _run_parity(argv, what, per_act_step, plain: bool = False):
+    """`eval_parity.main(argv)`: returns its exit code, its log lines and
+    the records of `_parity_stages`. Each stage's launches are checked: the
+    host stage `per_act_step` (B1, B2) per act step, the scan stage the
+    warm-up's and the capture's of each graph (one per grid size). With
+    `plain` the plain versions of B1 and B2 are swapped in and the scan
+    stage runs eagerly: no stage launches a kernel."""
+    from vlnce_torch.scripts.eval_parity import main as eval_parity
+    from vlnce_torch.utils.logging import logger
+
+    import logging
+
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Lines()
+    logger.addHandler(handler)
+    try:
+        with plain_versions() if plain else contextlib.nullcontext(), _parity_stages(eager=plain) as rec:
+            t0 = time.perf_counter()
+            rc = eval_parity([str(a) for a in argv])
+            rec["seconds"] = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(handler)
+    b1, b2 = per_act_step
+    for stage in rec["stages"]:
+        t, launches = stage["timing"], stage["launches"]
+        assert stage["on_card"], f"{what}: the policy is not on the card"
+        if stage["scan"]:
+            if plain:
+                assert not t["graph"] and t["captures"] == 0 and not any(launches.values()), (what, t, launches)
+            else:
+                assert t["graph"] and t["capture_launches"] == {"gru_sequence": b1, "fused_resize_normalize": b2}, (what, t)
+                assert launches == {"gru_sequence": 2 * b1 * t["captures"], "gru_sequence_backward": 0,
+                                    "gru_weight_gradient": 0, "fused_resize_normalize": 2 * b2 * t["captures"]}, (what, launches)
+            assert t["readbacks"] == t["segments"] and t["replays"] == t["segments"] * t["seg_len"], (what, t)
+            rate = t["env_steps"] / t["seconds"]
+            print(f"{what} resident stage (scan eval on the card, B={t['batch']}): {t['env_steps']} env steps in "
+                  f"{t['seconds']:.3f} s, {rate:.1f} env-steps/s ({t['captures']} graphs captured in "
+                  f"{t['capture_seconds']:.3f} s, the chunks' host setup {t['setup_seconds']:.3f} s); host replay of the "
+                  f"measures {t['replay_seconds']:.3f} s; the stage {stage['wall']:.2f} s; launches {json.dumps(launches)}")
+        else:
+            assert t["act_steps"] > 0 and launches == {"gru_sequence": b1 * t["act_steps"], "gru_sequence_backward": 0,
+                                                       "gru_weight_gradient": 0,
+                                                       "fused_resize_normalize": b2 * t["act_steps"]}, (what, launches, t)
+            rate = t["env_steps"] / t["total_time"]
+            print(f"{what} host stage (N={PARITY_N} forked workers): {t['act_steps']} act steps, {t['env_steps']} env "
+                  f"steps in {t['total_time']:.3f} s, {rate:.1f} env-steps/s (act {t['pth_time']:.3f} s, envs "
+                  f"{t['env_time']:.3f} s); the stage {stage['wall']:.2f} s; launches {json.dumps(launches)}")
+        stage["rate"] = rate
+    for name, s in rec["scripts"].items():
+        print(f"{what} {name}: {s['seconds']:.3f} s, launches {json.dumps(s['launches'])}")
+    return rc, lines, rec
+
+
+def _parity_agreement(first, second, what):
+    """Per episode, the actions of one loop (`first`: episode id -> actions)
+    against another's: the episodes equal, and for the others the first
+    step where they part."""
+    assert sorted(first) == sorted(second) and len(second) == PARITY_EPISODES, (sorted(first), sorted(second))
+    differ = {ep: next(t for t, (a, b) in enumerate(zip(first[ep] + [None], second[ep] + [None])) if a != b)
+              for ep in second if first[ep] != second[ep]}
+    steps = [len(seq) for seq in second.values()]
+    print(f"{what}: actions equal in {len(second) - len(differ)} of {len(second)} episodes (steps per episode "
+          f"{min(steps)} to {max(steps)}, actions used {sorted({a for s in second.values() for a in s})})"
+          + (f"; episodes and the first step where they part: {json.dumps(differ)}" if differ else ""))
+    return differ
+
+
+def phase_eval_parity(dev):
+    """The asset-day parity check, `python -m vlnce_torch.scripts.eval_parity`'s
+    main, at the full widths of two YAMLs on phase_imported_scenes' two
+    lattice scenes away from the origin, which eval_parity exports itself
+    (--geometry-dir empty, --connectivity a pickle of the two graphs):
+    (a) r2r_baselines/cma_pm_da.yaml (224x224 RGB and 256x256 depth
+        ResNet50s, H=512, bf16), eval_parity's own usage, with --resident and
+        --bank-dir: the geometry export, the banks at the graphs' nodes (8
+        headings, encoded by the checkpoint's frozen encoders, which the
+        opts name), the host loop over PARITY_N forked workers, then the
+        bank route's scan eval. Its episodes legitimately part from the host
+        loop's (features are looked up at the graph's nodes and headings),
+        so it passes --resident-tolerance 2.0, as the JAX package's own dry
+        run does (tests/test_scene_import.py:465);
+    (b) rxr_baselines/rxr_cma_en.yaml (480x640 frames, bf16) with
+        --resident on the same geometry (reused) and no bank, the
+        instructions' features from seeded files: the rendered scan eval,
+        with B2 in its graph, held against the host loop at eval_parity's
+        default 0.02 (tests/test_torch_eval_parity.py shows the two loops'
+        actions equal episode by episode on imported scenes on the CPU; on
+        the card in bf16 they can part on a near-tie, ROADMAP §C). Then the
+        driver again with the plain versions of B1 and B2 and the scan stage
+        eager (phase_scan_against_plain's route): each stage's actions,
+        episode by episode, and its stats must equal the kernels' run's;
+    (c) (a)'s host stage with --expected-spl a full point (1.0) from the
+        host SPL (a) measured: it must return 1 and log PARITY FAILED.
+    Both stages are greedy over PARITY_EPISODES episodes of at most
+    PARITY_STEPS steps, from checkpoints of the seeded policies made
+    decisive by `_decisive_checkpoint`. B1 (and B2 in b) must launch in both
+    stages, per act step on the host and in each graph's capture on the
+    card; per episode the two loops' actions are printed against each
+    other."""
+    import pickle as _pickle
+
+    from vlnce_torch.config import get_config
+    from vlnce_torch.envs.scene_import import _scene_stem
+    from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
+    from vlnce_torch.models.cma_policy import CMAPolicy
+    from vlnce_torch.utils.nav_graph import LatticeGraph
+
+    _register_imported_dataset()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
+        graphs_file, geometry = os.path.join(tmp, "graphs.pkl"), os.path.join(tmp, "geometry")
+        with open(graphs_file, "wb") as f:
+            _pickle.dump({_scene_stem(s): LatticeGraph(*box) for s, box in IMPORTED_SCENES.items()}, f)
+        common = [
+            "TASK_CONFIG.DATASET.TYPE", "ImportedLattice-v0", "TASK_CONFIG.DATASET.NUM_EPISODES", PARITY_EPISODES,
+            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", PARITY_STEPS, "NUM_ENVIRONMENTS", PARITY_N,
+            "EVAL.SAMPLE", False, "EVAL.SCAN_BATCH", PARITY_SCAN_B, "EVAL.SCAN_SEGMENT", PARITY_STEPS,
+            "TENSORBOARD_DIR", "", "VERBOSE", False, "LOG_FILE", os.path.join(tmp, "run.log"),
+        ]
+
+        # (a) R2R CMA: export, banks, host loop, bank route
+        cfg = get_config(PARITY_R2R_EXP, ["CUDA.DEVICE", str(dev)])
+        torch.manual_seed(int(cfg.TASK_CONFIG.SEED))
+        policy = CMAPolicy.from_config(cfg, observation_space_from_config(cfg.TASK_CONFIG),
+                                       action_space_from_config(cfg.TASK_CONFIG))
+        r2r_ckpt = os.path.join(tmp, "r2r.pth")
+        _decisive_checkpoint(r2r_ckpt, cfg, policy)
+        del policy
+        rc, lines, rec = _run_parity([
+            "--exp-config", PARITY_R2R_EXP, "--checkpoint", r2r_ckpt, "--resident", "--geometry-dir", geometry,
+            "--connectivity", graphs_file, "--bank-dir", os.path.join(tmp, "banks"), "--bank-headings", IMPORTED_BANK_HEADINGS,
+            "--resident-tolerance", 2.0, *common, "RESULTS_DIR", os.path.join(tmp, "r2r_evals"),
+            "IL.load_from_ckpt", True, "IL.ckpt_to_load", r2r_ckpt,
+        ], "eval parity (a) R2R CMA", (2, 0))
+        _assert_imported()
+        assert rc == 0 and lines[-1] == "PARITY OK", (rc, lines[-12:])
+        assert [s["scan"] for s in rec["stages"]] == [False, True], rec["stages"]
+        assert set(rec["scripts"]) == {"export_scene_geometry", "generate_feature_bank"}, rec["scripts"]
+        assert rec["scripts"]["export_scene_geometry"]["launches"]["gru_sequence"] == 0
+        assert sorted(os.listdir(os.path.join(tmp, "banks"))) == sorted(f"{_scene_stem(s)}.npz" for s in IMPORTED_SCENES)
+        host_a, resident_a = rec["stages"][0], rec["stages"][1]
+        for stats in (host_a["stats"], resident_a["stats"]):
+            assert sorted(stats) == sorted(RXR_MEASURES) and all(math.isfinite(v) for v in stats.values()), stats
+        print(f"eval parity (a): {sum(1 for ln in lines if ln.startswith('[resident-vs-host]'))} resident-vs-host checks "
+              f"passed at 2.0; host {json.dumps({k: round(v, 4) for k, v in host_a['stats'].items()})}, resident "
+              f"{json.dumps({k: round(v, 4) for k, v in resident_a['stats'].items()})}; eval_parity's run {rec['seconds']:.2f} s")
+        _parity_agreement(rec["host"], rec["scan"], "eval parity (a), host loop against the bank route")
+        out["eval_parity_r2r_host"], out["eval_parity_r2r_resident"] = host_a["launches"], resident_a["launches"]
+        out["eval_parity_r2r_bank"] = rec["scripts"]["generate_feature_bank"]["launches"]
+        assert out["eval_parity_r2r_bank"]["gru_sequence"] > 0
+
+        # (b) RxR CMA: the same geometry, the rendered scan eval, B2 in both stages. The policy and the
+        # instructions' features come from seeds: without a features file the RxR sensor draws them from
+        # Python's str hash of the episode id, which is salted anew in every process
+        torch.manual_seed(int(cfg.TASK_CONFIG.SEED))
+        cfg, policy, _ = build_act_step(dev, "bfloat16")
+        rxr_ckpt = os.path.join(tmp, "rxr.pth")
+        _decisive_checkpoint(rxr_ckpt, cfg, policy)
+        del policy
+        features, dim = os.path.join(tmp, "rxr_features"), int(cfg.TASK_CONFIG.TASK.RXR_INSTRUCTION_SENSOR.feature_dim)
+        os.makedirs(features)
+        for i in range(PARITY_EPISODES):
+            rng = np.random.RandomState(1000 + i)
+            np.savez(os.path.join(features, f"{i}.npz"), features=rng.randn(rng.randint(8, 257), dim).astype(np.float32))
+        rxr = common + ["TASK_CONFIG.TASK.RXR_INSTRUCTION_SENSOR.features_path", os.path.join(features, "{id}.npz")]
+        rc, lines, rec = _run_parity([
+            "--exp-config", EXP, "--checkpoint", rxr_ckpt, "--resident", "--geometry-dir", geometry, *rxr,
+            "RESULTS_DIR", os.path.join(tmp, "rxr_evals"),
+        ], "eval parity (b) RxR CMA", (2, 2))
+        _assert_imported()
+        assert rec["scripts"] == {} and "geometry: reusing " + geometry in lines, (rec["scripts"], lines[:4])
+        differ = _parity_agreement(rec["host"], rec["scan"], "eval parity (b), host loop against the rendered route")
+        assert rc == 0 and lines[-1] == "PARITY OK", (rc, differ, lines[-12:])
+        assert [s["scan"] for s in rec["stages"]] == [False, True], rec["stages"]
+        host_b, resident_b = rec["stages"][0], rec["stages"][1]
+        print(f"eval parity (b): resident-vs-host at 0.02: "
+              + "; ".join(ln for ln in lines if ln.startswith("[resident-vs-host]"))
+              + f"; eval_parity's run {rec['seconds']:.2f} s")
+        out["eval_parity_rxr_host"], out["eval_parity_rxr_resident"] = host_b["launches"], resident_b["launches"]
+
+        # (b) again with the plain versions of B1 and B2 and the scan stage eager (the route of
+        # phase_scan_against_plain): each stage's actions, episode by episode, and its stats equal the kernels'
+        rc, lines, plain = _run_parity([
+            "--exp-config", EXP, "--checkpoint", rxr_ckpt, "--resident", "--geometry-dir", geometry, *rxr,
+            "RESULTS_DIR", os.path.join(tmp, "rxr_plain_evals"),
+        ], "eval parity (b) plain versions", (0, 0), plain=True)
+        assert rc == 0 and lines[-1] == "PARITY OK", (rc, lines[-12:])
+        assert [s["scan"] for s in plain["stages"]] == [False, True], plain["stages"]
+        for i, loop in enumerate(("host", "scan")):
+            differ = _parity_agreement(rec[loop], plain[loop], f"eval parity (b), {loop} loop: kernels against plain versions")
+            assert not differ and plain["stages"][i]["stats"] == rec["stages"][i]["stats"], (loop, differ)
+
+        # (c) a full point off the host SPL of (a): exit 1, PARITY FAILED
+        expected = host_a["stats"]["spl"] + 1.0
+        rc, lines, rec = _run_parity([
+            "--exp-config", PARITY_R2R_EXP, "--checkpoint", r2r_ckpt, "--expected-spl", expected,
+            "--geometry-dir", geometry, *common, "RESULTS_DIR", os.path.join(tmp, "negative_evals"),
+        ], "eval parity (c) negative", (2, 0))
+        assert rc == 1 and lines[-1] == "PARITY FAILED for: ['host:spl']", (rc, lines[-6:])
+        print(f"eval parity (c): --expected-spl {expected:.4f} returned {rc}: {lines[-2]}; {lines[-1]} (host stats "
+              f"{'equal to' if rec['stages'][0]['stats'] == host_a['stats'] else 'other than'} (a)'s)")
+        out["eval_parity_negative_host"] = rec["stages"][0]["launches"]
     return out
 
 
@@ -3782,6 +4102,7 @@ def main() -> int:
         paths[path] = resident[path]
     paths.update(timed(phase_feature_bank, dev))
     paths.update(timed(phase_imported_scenes, dev))
+    paths.update(timed(phase_eval_parity, dev))
     paths["train_step"] = timed(phase_train_step, dev)
     timed(phase_train_step_against_plain, dev)
     shapes = timed(phase_recollect_shapes, dev)

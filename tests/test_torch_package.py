@@ -68,6 +68,8 @@ NEW_MODULES = [
     # data-parallel training across ranks and the shared-memory observation ring
     "vlnce_torch.parallel.mesh", "vlnce_torch.parallel.distributed", "vlnce_torch.parallel.mp_smoke",
     "vlnce_torch.envs.shm_transport", "vlnce_torch.native",
+    # the asset-day parity check, the progress bars and the inference-merge tool
+    "vlnce_torch.scripts.eval_parity", "vlnce_torch.utils.progress", "vlnce_torch.scripts.merge_inference_predictions",
 ]
 
 
@@ -81,6 +83,36 @@ def test_import_pulls_in_no_jax_and_builds_no_kernel():
     assert report["foreign"] == []
     assert report["loaded_kernels"] == []
     assert report["ring_loaded"] is False  # importing builds and loads no native library either
+
+
+def test_no_module_imports_tqdm_or_cv2():
+    """The card's machine has neither tqdm nor cv2: no module of the port
+    names them in an import, guarded or not (the import check above only
+    sees the imports that run)."""
+    import ast
+
+    found = []
+    root = os.path.join(REPO, "vlnce_torch")
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    mods = [alias.name for alias in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    mods = [node.module or ""]
+                elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+                        "import_module", "__import__") and node.args and isinstance(node.args[0], ast.Constant):
+                    mods = [str(node.args[0].value)]
+                else:
+                    continue
+                found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {m}" for m in mods
+                          if m.split(".")[0] in ("tqdm", "cv2")]
+    assert found == []
 
 
 _VIDEO_WITHOUT_IMAGE_LIBRARIES = """

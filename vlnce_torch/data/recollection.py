@@ -48,6 +48,7 @@ from vlnce_torch.envs.sim import SimulatorActions
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_obs_space, get_active_obs_transforms
 from vlnce_torch.parallel.distributed import rank_slice
 from vlnce_torch.utils.logging import logger
+from vlnce_torch.utils.progress import tqdm
 
 
 class TeacherRecollectionDataset:
@@ -104,7 +105,7 @@ class TeacherRecollectionDataset:
             logger.info("No GT file found; deriving GT actions from the shortest-path oracle")
             gt_data = self._derive_gt_with_oracle()
 
-        for episode_id, trajectory in gt_data.items():
+        for episode_id, trajectory in tqdm(gt_data.items(), "GT Collection"):
             actions = trajectory["actions"]
             if max_traj_len != -1 and len(actions) > max_traj_len:
                 continue

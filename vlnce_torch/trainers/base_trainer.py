@@ -63,8 +63,16 @@ from vlnce_torch.utils.checkpoints import (
 )
 from vlnce_torch.utils.logging import logger
 from vlnce_torch.utils.profiling import annotate
+from vlnce_torch.utils.progress import tqdm
 from vlnce_torch.utils.tensorboard import TensorboardWriter
 from vlnce_torch.utils.video import append_text_to_image, generate_video, observations_to_image
+
+
+def is_slurm_batch_job() -> bool:
+    """Progress bars are off under SLURM batch jobs (the JAX package's rule,
+    reference base_il_trainer.py:251,310 via habitat's is_slurm_batch_job):
+    a job id without an interactive pty."""
+    return bool(os.environ.get("SLURM_JOB_ID")) and os.environ.get("SLURM_PTY_PORT") is None
 
 
 def make_fused_act_step(policy, transforms):
@@ -371,6 +379,7 @@ class BaseVLNCETrainer:
         if config.EVAL.EPISODE_COUNT > -1:
             num_eps = min(config.EVAL.EPISODE_COUNT, num_eps)
 
+        pbar = tqdm(total=num_eps, desc=f"eval ckpt {checkpoint_index}", disable=is_slurm_batch_job())
         while any(active) and len(stats_episodes) < num_eps:
             current_episodes = envs.current_episodes()
             actions_np = loop.act()
@@ -388,6 +397,7 @@ class BaseVLNCETrainer:
                     ep_id = current_episodes[i].episode_id
                     stats_episodes[ep_id] = {k: v for k, v in info.items() if np.isscalar(v) or isinstance(v, (int, float))}
                     masks_np[i] = 0.0
+                    pbar.update()
                     if video:
                         generate_video(
                             video_option=config.VIDEO_OPTION, video_dir=config.VIDEO_DIR,
@@ -405,6 +415,7 @@ class BaseVLNCETrainer:
 
             loop.set_masks(masks_np)
 
+        pbar.close()
         envs.close()
 
         # per-episode stats and loop clocks retained for tests and diagnostics
@@ -493,25 +504,27 @@ class BaseVLNCETrainer:
         for i, episode in enumerate(envs.current_episodes()):
             start_episode(i, episode)
 
-        while any(active):
-            current_episodes = envs.current_episodes()
-            actions_np = loop.act()
+        with tqdm(total=sum(envs.number_of_episodes), desc="inference", disable=is_slurm_batch_job()) as pbar:
+            while any(active):
+                current_episodes = envs.current_episodes()
+                actions_np = loop.act()
 
-            masks_np = np.ones((N, 1), np.float32)
-            active_ids = [j for j in range(N) if active[j]]
-            stepped = loop.step_envs(envs, active_ids, actions_np)
-            for i, (obs, _, done, info) in zip(active_ids, stepped):
-                episode_predictions[current_episodes[i].episode_id].append(info)
-                if done:
-                    masks_np[i] = 0.0
-                    obs = envs.reset_at(i)[0]
-                    next_ep = envs.call_at(i, "current_episode")
-                    if next_ep.episode_id in episode_predictions and len(episode_predictions[next_ep.episode_id]) > 1:
-                        active[i] = False
-                    else:
-                        start_episode(i, next_ep)
-                loop.slots.update(i, obs)
-            loop.set_masks(masks_np)
+                masks_np = np.ones((N, 1), np.float32)
+                active_ids = [j for j in range(N) if active[j]]
+                stepped = loop.step_envs(envs, active_ids, actions_np)
+                for i, (obs, _, done, info) in zip(active_ids, stepped):
+                    episode_predictions[current_episodes[i].episode_id].append(info)
+                    if done:
+                        masks_np[i] = 0.0
+                        pbar.update()
+                        obs = envs.reset_at(i)[0]
+                        next_ep = envs.call_at(i, "current_episode")
+                        if next_ep.episode_id in episode_predictions and len(episode_predictions[next_ep.episode_id]) > 1:
+                            active[i] = False
+                        else:
+                            start_episode(i, next_ep)
+                    loop.slots.update(i, obs)
+                loop.set_masks(masks_np)
 
         envs.close()
         self.last_loop_timing = loop.timing()

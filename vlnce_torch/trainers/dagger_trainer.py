@@ -60,6 +60,7 @@ from vlnce_torch.trainers.base_trainer import BaseVLNCETrainer
 from vlnce_torch.utils.checkpoints import wait_for_pending
 from vlnce_torch.utils.logging import logger
 from vlnce_torch.utils.profiling import SectionTimers, StepClock, annotate, maybe_profile
+from vlnce_torch.utils.progress import tqdm, trange
 from vlnce_torch.utils.tensorboard import TensorboardWriter
 
 
@@ -171,12 +172,13 @@ class DaggerTrainer(BaseVLNCETrainer):
                     # overlapping the train step (IL.prefetch_batches)
                     diter = PrefetchIterator(diter, depth=config.IL.prefetch_batches)
 
-                for epoch in range(config.IL.epochs):
+                for epoch in trange(config.IL.epochs, dynamic_ncols=True):
                     loss = action_loss = aux_loss = float("nan")
                     if fused:
                         triples = self._run_fused_epoch(diter)
                     else:
-                        triples = (self._update_agent(*batch) for batch in diter)
+                        triples = (self._update_agent(*batch)
+                                   for batch in tqdm(diter, total=len(diter), leave=False, dynamic_ncols=True))
                     for loss, action_loss, aux_loss in triples:
                         self.loss_history.append((dagger_it, epoch, loss, action_loss, aux_loss))
                         writer.add_scalar(f"train_loss_iter_{dagger_it}", loss, step_id)
@@ -263,8 +265,10 @@ class DaggerTrainer(BaseVLNCETrainer):
             t_start = time.perf_counter()
             episodes, beta = self._collection_plan(data_it)
             stats: Dict[str, float] = {}
+            pbar = tqdm(total=len(episodes), dynamic_ncols=True)
             new_bank = collect_episodes_resident(self.policy, self.obs_transforms, config, episodes, beta,
-                                                 self.generator, stats=stats)
+                                                 self.generator, progress_cb=pbar.update, stats=stats)
+            pbar.close()
             self.collection_stats.append({
                 **stats, "data_it": data_it, "beta": beta, "episodes": len(new_bank),
                 "bank_bytes": new_bank.nbytes(), "total_time": time.perf_counter() - t_start,
@@ -309,14 +313,17 @@ class DaggerTrainer(BaseVLNCETrainer):
         t_start = time.perf_counter()
         episodes, beta = self._collection_plan(data_it)
         stats: Dict[str, float] = {}
+        pbar = tqdm(total=len(episodes), dynamic_ncols=True)
         results = collect_episodes_on_device(
-            self.policy, self.obs_transforms, self.config, episodes, beta, self.generator, stats=stats
+            self.policy, self.obs_transforms, self.config, episodes, beta, self.generator, progress_cb=pbar.update,
+            stats=stats,
         )
         writer = TrajectoryStoreWriter(self.features_dir, drop_existing=False)
         for payload in results:
             writer.put(list(payload))
         writer.commit()
         writer.close()
+        pbar.close()
         self.collection_stats.append({
             **stats, "data_it": data_it, "beta": beta, "episodes": len(results),
             "total_time": time.perf_counter() - t_start,
@@ -371,6 +378,7 @@ class DaggerTrainer(BaseVLNCETrainer):
         if ensure_unique_episodes:
             ep_ids_collected = {ep.episode_id for ep in envs.current_episodes()}
 
+        pbar = tqdm(total=config.IL.DAGGER.update_size, dynamic_ncols=True)
         store_dtype = torch.float16 if config.IL.DAGGER.lmdb_fp16 else torch.float32
 
         def flush_episode(i: int) -> None:
@@ -395,6 +403,7 @@ class DaggerTrainer(BaseVLNCETrainer):
                     ]
                 )
                 collected_eps += 1
+                pbar.update()
                 if collected_eps % config.IL.DAGGER.lmdb_commit_frequency == 0:
                     writer.commit()
                 if ensure_unique_episodes:
@@ -483,6 +492,7 @@ class DaggerTrainer(BaseVLNCETrainer):
 
         writer.close()
         envs.close()
+        pbar.close()
         self.collection_stats.append({
             "data_it": data_it, "beta": beta, "episodes": collected_eps, "collect_steps": collect_steps,
             "env_steps": env_steps, "pth_time": timers.totals["pth_time"], "env_time": timers.totals["env_time"],

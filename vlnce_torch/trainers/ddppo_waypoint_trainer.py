@@ -71,6 +71,7 @@ from vlnce_torch.trainers.base_trainer import BaseVLNCETrainer
 from vlnce_torch.utils.checkpoints import load_checkpoint, save_checkpoint, wait_for_pending
 from vlnce_torch.utils.logging import logger
 from vlnce_torch.utils.profiling import StepClock, annotate, maybe_profile
+from vlnce_torch.utils.progress import tqdm
 from vlnce_torch.utils.tensorboard import TensorboardWriter
 from vlnce_torch.utils.video import generate_video, waypoint_observations_to_image
 
@@ -512,6 +513,7 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
 
         timing = {"act_steps": 0, "env_steps": 0, "pth_time": 0.0, "env_time": 0.0}
         t_start = time.time()
+        pbar = tqdm(total=num_eps, desc=f"eval wpn ckpt {checkpoint_index}")
         while any(active) and len(stats_episodes) < num_eps:
             current_episodes = envs.current_episodes()
             t0 = time.time()
@@ -556,6 +558,7 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
                     ep_id = current_episodes[i].episode_id
                     stats_episodes[ep_id] = {k: v for k, v in info.items() if np.isscalar(v) and not isinstance(v, str)}
                     masks_np[i] = 0.0
+                    pbar.update()
                     if video:
                         generate_video(
                             video_option=config.VIDEO_OPTION, video_dir=config.VIDEO_DIR,
@@ -573,6 +576,7 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
             dev_batch, batch = self._prepare_batch(observations, obs_history)
             not_done_masks = torch.from_numpy(masks_np).to(device)
 
+        pbar.close()
         envs.close()
         self.envs = None
         self._last_eval_episode_stats = stats_episodes

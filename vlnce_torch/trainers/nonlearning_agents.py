@@ -21,6 +21,7 @@ from vlnce_torch.registry import registry
 from vlnce_torch.envs.env import Env
 from vlnce_torch.envs.sim import SimulatorActions
 from vlnce_torch.utils.logging import logger
+from vlnce_torch.utils.progress import tqdm
 
 
 class Agent:
@@ -103,7 +104,7 @@ def evaluate_agent(config) -> Dict[str, float]:
         num_episodes = min(config.EVAL.EPISODE_COUNT, num_episodes)
 
     stats = defaultdict(float)
-    for _ in range(num_episodes):
+    for _ in tqdm(range(num_episodes), desc=agent_name):
         obs = env.reset()
         agent.reset()
         while not env.episode_over:
@@ -140,7 +141,7 @@ def nonlearning_inference(config) -> None:
     agent = registry.get_agent(config.INFERENCE.NONLEARNING.AGENT)(seed=config.TASK_CONFIG.SEED)
 
     episode_predictions = defaultdict(list)
-    for _ in range(env.number_of_episodes):
+    for _ in tqdm(range(env.number_of_episodes), desc="inference"):
         obs = env.reset()
         agent.reset()
         ep_id = env.current_episode.episode_id

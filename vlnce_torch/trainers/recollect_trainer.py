@@ -38,6 +38,7 @@ from vlnce_torch.trainers.base_trainer import BaseVLNCETrainer
 from vlnce_torch.utils.checkpoints import wait_for_pending
 from vlnce_torch.utils.logging import logger
 from vlnce_torch.utils.profiling import StepClock
+from vlnce_torch.utils.progress import tqdm
 from vlnce_torch.utils.tensorboard import TensorboardWriter
 
 
@@ -93,7 +94,9 @@ class RecollectTrainer(BaseVLNCETrainer):
                 # the sims' stepping with the train step (IL.prefetch_batches;
                 # the reference's DataLoader worker, recollect_trainer.py:86)
                 batches = PrefetchIterator(dataset.batches(batches_per_epoch), depth=config.IL.prefetch_batches)
-                for batch_idx, batch in enumerate(batches):
+                for batch_idx, batch in enumerate(
+                    tqdm(batches, total=batches_per_epoch, desc=f"epoch {epoch}", dynamic_ncols=True)
+                ):
                     apply = accumulation == 1 or (batch_idx + 1) % accumulation == 0
                     loss, action_loss, aux_loss = self._update_agent(*batch, apply=apply, accumulation=accumulation)
                     losses.append(loss)

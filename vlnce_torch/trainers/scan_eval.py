@@ -85,6 +85,7 @@ from vlnce_torch.tasks.datasets import make_dataset
 from vlnce_torch.tasks.geometry import heading_from_quaternion
 from vlnce_torch.tasks.sensors import MAX_INSTRUCTION_LEN
 from vlnce_torch.utils.logging import logger
+from vlnce_torch.utils.progress import tqdm
 from vlnce_torch.utils.video import append_text_to_image, generate_video, observations_to_image
 
 _R2R_ACTIONS = ["STOP", "MOVE_FORWARD", "TURN_LEFT", "TURN_RIGHT"]
@@ -575,8 +576,10 @@ def inference_on_device(trainer, config) -> None:
     run_cfg.EVAL.SAMPLE = bool(config.INFERENCE.SAMPLE)
     run_cfg.freeze()
     scan = {}
+    pbar = tqdm(total=len(episodes), desc="scan-inference")
     action_seqs = run_scan_rollouts(trainer.policy, trainer.obs_transforms, run_cfg, episodes, trainer.generator,
-                                    stats=scan)
+                                    progress_cb=pbar.update, stats=scan)
+    pbar.close()
     t0 = time.perf_counter()
     episode_predictions = infos_from_actions(config, episodes, action_seqs)
     trainer.last_loop_timing = {**scan, "replay_seconds": time.perf_counter() - t0}
@@ -596,8 +599,10 @@ def eval_checkpoint_on_device(trainer, config, checkpoint_path: str, writer, che
         episodes = episodes[: config.EVAL.EPISODE_COUNT]
 
     scan = {}
+    pbar = tqdm(total=len(episodes), desc=f"scan-eval ckpt {checkpoint_index}")
     action_seqs = run_scan_rollouts(trainer.policy, trainer.obs_transforms, config, episodes, trainer.generator,
-                                    stats=scan)
+                                    progress_cb=pbar.update, stats=scan)
+    pbar.close()
     t0 = time.perf_counter()
     stats_episodes = metrics_from_actions(config, episodes, action_seqs, writer=writer, checkpoint_index=checkpoint_index)
     trainer.last_loop_timing = timing = {**scan, "replay_seconds": time.perf_counter() - t0}
