@@ -1,0 +1,9 @@
+"""The share of the traced rollout window in which no operation ran on the
+device: 1 - the union of the device's intervals over the window, %."""
+
+
+def read(ctx):
+    trace = ctx.get("trace")
+    if trace is None or trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
