@@ -1,0 +1,307 @@
+"""The port's spans (`vlnce_torch.utils.profiling.annotate`) in its two
+benchmarked loops, on the CPU at small sizes, and the benchmark's readers
+of them.
+
+- The scan rollout (`trainers/scan_eval.run_scan_rollouts`, R2R CMA, two
+  chunks of 3 episodes, the second padded) under `torch.profiler`: every
+  span of the loop with its parent, one `scan.chunk` per chunk, one
+  `scan.goal_field` per goal cell the scenes had not cached and none on a
+  second run over the same goals, and `scan.setup` agreeing with the
+  `setup_seconds` stat.
+- The fused DAgger epoch (`data/device_bank.run_fused_epoch` with the IL
+  step) under the profiler: one `train.run` per run of `epoch_runs`, one
+  `train.step` per batch, each holding `train.gather` and the IL step's
+  `il.forward`, `il.backward` and `il.optimizer`.
+- With no profiler recording, no span calls `record_function`.
+- The on-card eval and inference under `CUDA.PROFILE_DIR` write a trace
+  holding the scan rollout's spans.
+- The six span metrics in `benchmark/metrics/` read those traces, and read
+  nothing from a trace without the spans; `benchmark/spans.split` sums them
+  by name, with each name's self seconds.
+"""
+
+import json
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from benchmark import harness, spans as bench_spans
+from benchmark.trace import Trace
+from vlnce_torch.config import get_config
+from vlnce_torch.data.device_bank import DeviceTrajectoryBank, ResidentBatchIterator, run_fused_epoch
+from vlnce_torch.envs import ensure_registered
+from vlnce_torch.envs.gridworld import get_scene
+from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
+from vlnce_torch.models.cma_policy import CMAPolicy
+from vlnce_torch.parallel.il_step import build_il_train_step
+from vlnce_torch.parallel.optim import masked_adam
+from vlnce_torch.tasks.datasets import make_dataset
+from vlnce_torch.trainers import scan_eval
+from vlnce_torch.utils import profiling
+
+from tests.torch_port_cases import R2R_CMA, R2R_SMALL_OPTS
+
+ensure_registered()
+
+LOOP = [
+    "CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32",
+    "TASK_CONFIG.DATASET.NUM_EPISODES", 4,
+    "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 6,
+    "EVAL.SCAN_BATCH", 3,  # 4 episodes: two chunks, the second padded
+    "EVAL.SCAN_SEGMENT", 4,
+    "EVAL.SAMPLE", False,
+]
+SCAN_PARENTS = {
+    "scan.chunk": None, "scan.setup": "scan.chunk", "scan.scenes": "scan.setup", "scan.goal_field": "scan.scenes",
+    "scan.instructions": "scan.setup", "scan.upload": "scan.setup", "scan.load": "scan.chunk",
+    "scan.replays": "scan.chunk", "scan.readback": "scan.chunk",
+}
+TRAIN_PARENTS = {
+    "train.plan": None, "train.run": None, "train.run_upload": "train.run", "train.step": "train.run",
+    "train.gather": "train.step", "il.forward": "train.step", "il.backward": "train.step",
+    "il.optimizer": "train.step", "train.readback": "train.run",
+}
+LENGTHS = [3, 9, 14, 16, 18, 25, 31, 7, 12, 40, 5, 20]  # padded to 16, 32 or 48
+BATCH = 2
+SEED = 7
+
+
+def _program(name):
+    return name.startswith(("scan.", "train.", "il."))
+
+
+def _traced(fn):
+    """fn() under the profiler, as the benchmark's runners trace a window:
+    (fn's result, the Trace of the `window` span)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("window"):
+            out = fn()
+    events = prof.profiler.kineto_results.events()
+    span = next(e for e in events if e.name() == "window")
+    return out, Trace(events, span.start_ns(), span.start_ns() + span.duration_ns())
+
+
+def _spans(trace):
+    return [(s, e, n) for s, e, n in trace.cpu if _program(n)]
+
+
+def _parent(span, spans):
+    """The innermost program span around `span` (None at the top)."""
+    s, e, _ = span
+    around = [o for o in spans if o is not span and o[0] <= s and e <= o[1] and o[1] - o[0] > e - s]
+    return min(around, key=lambda o: o[1] - o[0])[2] if around else None
+
+
+def _count(trace, name):
+    return sum(1 for _, _, n in trace.cpu if n == name)
+
+
+def _seconds(trace, name):
+    return sum(e - s for s, e, n in trace.cpu if n == name) / 1e9
+
+
+# ---------------------------------------------------------------------------
+# the two loops
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def r2r():
+    cfg = get_config(R2R_CMA, R2R_SMALL_OPTS + LOOP)
+    torch.manual_seed(0)
+    policy = CMAPolicy.from_config(cfg, observation_space_from_config(cfg.TASK_CONFIG),
+                                   action_space_from_config(cfg.TASK_CONFIG))
+    return cfg, policy
+
+
+def _goal_cells(episodes):
+    cells = set()
+    for ep in episodes:
+        scene = get_scene(ep.scene_id)
+        for goal in ep.goals:
+            cells.add((ep.scene_id, scene.world_to_cell(float(goal.position[0]), float(goal.position[-1]))))
+    return cells
+
+
+def _rollout(cfg, policy, episodes):
+    stats = {}
+    scan_eval.run_scan_rollouts(policy, [], cfg, episodes, stats=stats)
+    return stats
+
+
+@pytest.fixture(scope="module")
+def scan(r2r):
+    """Two traced rollouts of the same episodes, the scenes' goal fields
+    dropped first: the first builds every field, the second none."""
+    cfg, policy = r2r
+    episodes = list(make_dataset(cfg.TASK_CONFIG.DATASET.TYPE, cfg.TASK_CONFIG.DATASET).episodes)
+    cells = _goal_cells(episodes)
+    for scene_id, _ in cells:
+        get_scene(scene_id)._distance_fields.clear()
+    first = _traced(lambda: _rollout(cfg, policy, episodes))
+    again = _traced(lambda: _rollout(cfg, policy, episodes))
+    return {"cells": cells, "first": first, "again": again}
+
+
+def _bank(policy):
+    rng = np.random.RandomState(SEED)
+    feat = {"rgb_features": (policy.net.rgb_encoder.resnet_layer_size, 4, 4),
+            "depth_features": tuple(policy.net.depth_encoder.visual_encoder.output_shape_chw()), "progress": (1,)}
+    n = sum(LENGTHS)
+    rows = {k: torch.from_numpy(rng.randn(n, int(np.prod(s))).astype(np.float16)) for k, s in feat.items()
+            if k != "progress"}
+    rows["progress"] = torch.from_numpy(rng.rand(n, 1).astype(np.float32))
+    prev = torch.from_numpy(rng.randint(0, 4, n).astype(np.int32))
+    oracle = torch.from_numpy(rng.randint(0, 4, n).astype(np.int32))
+    instr = torch.from_numpy(rng.randint(1, 64, (len(LENGTHS), 8)).astype(np.int32))
+    return DeviceTrajectoryBank.from_rows([rows], [prev], [oracle], [instr], LENGTHS, feat)
+
+
+@pytest.fixture(scope="module")
+def fused(r2r):
+    """One traced fused epoch over a small bank, and the runs its iterator plans."""
+    cfg, policy = r2r
+    bank = _bank(policy)
+    step = build_il_train_step(policy, masked_adam(1e-4, policy, cfg.MODEL))
+    runs = list(ResidentBatchIterator(bank, BATCH, seed=SEED, time_major=True).epoch_runs())
+    losses, trace = _traced(lambda: run_fused_epoch(ResidentBatchIterator(bank, BATCH, seed=SEED, time_major=True),
+                                                    step))
+    return {"runs": runs, "losses": losses, "trace": trace}
+
+
+def test_scan_rollout_spans_nest_once_a_chunk(scan):
+    stats, trace = scan["first"]
+    spans = _spans(trace)
+    assert {n for _, _, n in spans} == set(SCAN_PARENTS)
+    for span in spans:
+        assert _parent(span, spans) == SCAN_PARENTS[span[2]], span
+    assert _count(trace, "scan.chunk") == 2
+    assert _count(trace, "scan.setup") == _count(trace, "scan.upload") == _count(trace, "scan.load") == 2
+    assert _count(trace, "scan.replays") == _count(trace, "scan.readback") == stats["readbacks"]
+    # the span holds exactly the interval the counter times
+    assert _seconds(trace, "scan.setup") == pytest.approx(stats["setup_seconds"], rel=0.05)
+
+
+def test_scan_goal_field_once_per_new_goal(scan):
+    assert len(scan["cells"]) >= 3
+    assert _count(scan["first"][1], "scan.goal_field") == len(scan["cells"])
+    again = scan["again"][1]
+    assert _count(again, "scan.goal_field") == 0 and _count(again, "scan.chunk") == 2
+
+
+def test_fused_epoch_spans_a_run_and_a_step(fused):
+    trace, runs = fused["trace"], fused["runs"]
+    spans = _spans(trace)
+    assert {n for _, _, n in spans} == set(TRAIN_PARENTS)
+    for span in spans:
+        assert _parent(span, spans) == TRAIN_PARENTS[span[2]], span
+    steps = sum(len(rows) for _, rows in runs)
+    assert len(runs) >= 2 and steps == len(LENGTHS) // BATCH == len(fused["losses"])
+    assert _count(trace, "train.plan") == 1
+    for name in ("train.run", "train.run_upload", "train.readback"):
+        assert _count(trace, name) == len(runs), name
+    assert _count(trace, "train.step") == steps
+    for s, e, n in spans:
+        if n == "train.step":
+            inside = sorted(m for a, b, m in spans if s <= a and b <= e and m != n)
+            assert inside == ["il.backward", "il.forward", "il.optimizer", "train.gather"]
+
+
+@pytest.mark.parametrize("loop", ["scan", "fused"])
+def test_no_record_function_without_a_profiler(r2r, loop, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function called with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)  # annotate's (torch's own code has its own)
+    cfg, policy = r2r
+    assert profiling.annotate("scan.chunk") is profiling.annotate("train.step")
+    if loop == "scan":
+        episodes = list(make_dataset(cfg.TASK_CONFIG.DATASET.TYPE, cfg.TASK_CONFIG.DATASET).episodes)
+        assert _rollout(cfg, policy, episodes)["segments"] >= 2
+    else:
+        bank = _bank(policy)
+        step = build_il_train_step(policy, masked_adam(1e-4, policy, cfg.MODEL))
+        losses = run_fused_epoch(ResidentBatchIterator(bank, BATCH, seed=SEED, time_major=True), step)
+        assert len(losses) == len(LENGTHS) // BATCH
+
+
+def test_annotate_off_costs_little():
+    """A span with no profiler recording is one check and a shared object:
+    far under the record_function it enters while one records."""
+    n, best = 2000, float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with profiling.annotate("train.step"):
+                pass
+        best = min(best, (time.perf_counter() - t0) / n)
+    assert best < 5e-6
+
+
+# ---------------------------------------------------------------------------
+# the benchmark's readers
+# ---------------------------------------------------------------------------
+
+
+def _expected(name, scan, fused):
+    trace = scan["first"][1]
+    share = {"rollout.goal_field_share": "scan.goal_field", "rollout.instruction_read_share": "scan.instructions",
+             "rollout.upload_share": "scan.upload"}
+    if name in share:
+        return trace, 100.0 * _seconds(trace, share[name]) / trace.window_s
+    if name == "rollout.goal_fields_per_chunk":
+        return trace, len(scan["cells"]) / 2
+    runs, trace = fused["runs"], fused["trace"]
+    steps = [(s, e) for s, e, n in trace.cpu if n == "train.step"]
+    if name == "train.enqueue_ms":
+        return trace, float(np.mean([e - s for s, e in steps])) / 1e6
+    assert name == "train.steps_per_run"
+    return trace, len(steps) / len(runs)
+
+
+@pytest.mark.parametrize("name", ["rollout.goal_field_share", "rollout.instruction_read_share", "rollout.upload_share",
+                                  "rollout.goal_fields_per_chunk", "train.enqueue_ms", "train.steps_per_run"])
+def test_span_metrics_read_the_spans(name, scan, fused):
+    trace, want = _expected(name, scan, fused)
+    reader = harness.metric_reader(name)
+    got = reader.read({"trace": trace, "window_s": trace.window_s})
+    assert got == pytest.approx(want, rel=1e-9) and got > 0
+    # a trace without the program's spans (a program before them), and no trace
+    _, bare = _traced(lambda: torch.ones(4).add_(1))
+    assert reader.read({"trace": bare, "window_s": bare.window_s}) is None
+    assert reader.read({"trace": None, "window_s": 1.0}) is None
+
+
+@pytest.mark.parametrize("loop", ["scan", "fused"])
+def test_split_by_span_name(loop, scan, fused):
+    trace = scan["first"][1] if loop == "scan" else fused["trace"]
+    parents = SCAN_PARENTS if loop == "scan" else TRAIN_PARENTS
+    rows = {r["name"]: r for r in bench_spans.split(trace)}
+    assert set(rows) == set(parents)
+    for name in parents:
+        r = rows[name]
+        assert r["n"] == _count(trace, name) and r["s"] == pytest.approx(_seconds(trace, name), rel=1e-9)
+        assert r["idle_s"] == pytest.approx(r["s"], rel=1e-9)  # the CPU run has no device events
+        children = sum(rows[c]["s"] for c, p in parents.items() if p == name)
+        assert r["self_s"] == pytest.approx(r["s"] - children, rel=1e-9, abs=1e-9) and r["self_s"] >= 0
+
+
+@pytest.mark.parametrize("run_type", ["eval", "inference"])
+def test_on_card_eval_and_inference_write_the_spans_under_profile_dir(run_type, tmp_path):
+    from vlnce_torch.run import run_exp
+
+    missing = str(tmp_path / "none.pth")  # no checkpoint: seeded weights
+    opts = R2R_SMALL_OPTS + LOOP + [
+        "EVAL.ON_DEVICE_SCAN", True, "INFERENCE.ON_DEVICE_SCAN", True, "EVAL.USE_CKPT_CONFIG", False,
+        "INFERENCE.USE_CKPT_CONFIG", False, "INFERENCE.FORMAT", "r2r", "EVAL_CKPT_PATH_DIR", missing,
+        "INFERENCE.CKPT_PATH", missing, "INFERENCE.PREDICTIONS_FILE", str(tmp_path / "preds.json"),
+        "RESULTS_DIR", str(tmp_path / "evals"), "CUDA.PROFILE_DIR", str(tmp_path / "profile"), "LOG_FILE", "",
+    ]
+    run_exp(R2R_CMA, run_type, opts)
+    folder = "eval_ckpt_0" if run_type == "eval" else "inference"
+    with open(tmp_path / "profile" / folder / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert set(SCAN_PARENTS) <= names

@@ -91,7 +91,11 @@ _C.CUDA.PIPELINED_COLLECTION = False
 # torch.save + rename of a checkpoint on a background thread (the snapshot to
 # host memory stays synchronous)
 _C.CUDA.ASYNC_CHECKPOINT = True
-_C.CUDA.PROFILE_DIR = ""  # if set, training writes a torch.profiler trace here
+# If set, training and on-card eval write a torch.profiler trace here. An
+# eval's trace holds every kernel of every step replayed, so it grows with the
+# split: about 1.6 MB a step of a 64-episode RxR CMA chunk at full size (set
+# EVAL.EPISODE_COUNT to profile a few chunks).
+_C.CUDA.PROFILE_DIR = ""
 # DAgger collection on the card (trainers/device_dagger.py): render +
 # frozen-encoder features + policy act + device expert + beta mix + step,
 # one CUDA graph replay per step, one read-back of the done flags per

@@ -43,6 +43,7 @@ import torch
 
 from vlnce_torch.data.collate import LENGTH_QUANTUM, iterate_episode_keys
 from vlnce_torch.envs.device_sim import upload
+from vlnce_torch.utils.profiling import annotate
 
 
 def gather_core(data: Dict[str, torch.Tensor], prev: torch.Tensor, oracle: torch.Tensor, instruction: torch.Tensor,
@@ -214,8 +215,14 @@ class DeviceTrajectoryBank:
         """A run of K train steps over the [K, N] index matrix on the card:
         per step the time-major gather, then `step` (forward, backward,
         optimizer), all enqueued with no read-back. Returns the [K, 3]
-        losses on the card."""
-        losses = [torch.stack(step(*self.gather(idx[k], coef, T_b, time_major=True))) for k in range(idx.shape[0])]
+        losses on the card. Each step is a `train.step` span holding a
+        `train.gather`."""
+        losses = []
+        for k in range(idx.shape[0]):
+            with annotate("train.step"):
+                with annotate("train.gather"):
+                    batch = self.gather(idx[k], coef, T_b, time_major=True)
+                losses.append(torch.stack(step(*batch)))
         return torch.stack(losses)
 
     # --------------------------------------------------------------- archive
@@ -282,7 +289,8 @@ class ResidentBatchIterator:
         """The epoch's batches as (T_b, index matrix [K, N]) runs:
         consecutive batches of one padded length form a run, in the
         per-batch path's order."""
-        plan = [(self._batch_T(b), b) for b in self._epoch_batches()]
+        with annotate("train.plan"):
+            plan = [(self._batch_T(b), b) for b in self._epoch_batches()]
         i = 0
         while i < len(plan):
             j = i
@@ -300,11 +308,15 @@ def run_fused_epoch(riter: ResidentBatchIterator, step: Callable) -> List[Tuple[
     losses are read back once per run. The JAX package runs each run as one
     `lax.scan` program; capturing the train step in a CUDA graph is not done
     here. Batch composition and order are the per-batch path's. Returns
-    (loss, action_loss, aux_loss) per batch."""
+    (loss, action_loss, aux_loss) per batch. Each run is a `train.run` span
+    holding `train.run_upload`, the steps' spans and `train.readback`."""
     bank = riter.bank
     out: List[Tuple[float, float, float]] = []
     for T_b, rows in riter.epoch_runs():
-        idx = upload({"idx": rows}, bank.device)["idx"]
-        losses = bank.enqueue_steps(step, idx, riter.coef, T_b)
-        out.extend(tuple(r) for r in losses.tolist())
+        with annotate("train.run"):
+            with annotate("train.run_upload"):
+                idx = upload({"idx": rows}, bank.device)["idx"]
+            losses = bank.enqueue_steps(step, idx, riter.coef, T_b)
+            with annotate("train.readback"):
+                out.extend(tuple(r) for r in losses.tolist())
     return out

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from vlnce_torch.parallel.distributed import align_collective_step, world_size
 from vlnce_torch.parallel.optim import trainable_parameters
+from vlnce_torch.utils.profiling import annotate
 
 
 def il_loss_terms(policy, obs_tn: Dict[str, torch.Tensor], prev_tn, masks_tn, corrected, weights) -> Tuple:
@@ -96,15 +97,18 @@ def il_loss_and_grads(policy, optimizer, obs_tn, prev_tn, masks_tn, corrected, w
     the ranks and, with `reduce_grads`, so are the optimizer's gradients (all
     of `.grad`, whatever it had accumulated). Returns [loss, action_loss,
     aux_loss] (detached) on the policy's device; `mark` gets "forward" and
-    "backward"."""
-    loss, action_loss, aux_loss = il_losses(policy, obs_tn, prev_tn, masks_tn, corrected, weights, mesh)
+    "backward". The two halves are the spans `il.forward` and
+    `il.backward`."""
+    with annotate("il.forward"):
+        loss, action_loss, aux_loss = il_losses(policy, obs_tn, prev_tn, masks_tn, corrected, weights, mesh)
     mark("forward")
-    (loss if scale == 1.0 else loss / scale).backward()
-    losses = torch.stack([loss, action_loss, aux_loss]).detach()
-    if mesh is not None:
-        mesh.all_reduce(losses)
-        if reduce_grads:
-            mesh.all_reduce_grads(trainable_parameters(optimizer))
+    with annotate("il.backward"):
+        (loss if scale == 1.0 else loss / scale).backward()
+        losses = torch.stack([loss, action_loss, aux_loss]).detach()
+        if mesh is not None:
+            mesh.all_reduce(losses)
+            if reduce_grads:
+                mesh.all_reduce_grads(trainable_parameters(optimizer))
     mark("backward")
     return losses
 
@@ -116,12 +120,14 @@ def build_il_train_step(policy, optimizer, mark: Callable[[str], None] = _no_mar
     optimizer's state in place. `mark(name)` is called at the ends of
     "forward", "backward" and "optimizer" (a `StepClock.mark`, or nothing).
     With `mesh` each rank passes its own shard of the batch, and every rank
-    applies the same summed gradients."""
+    applies the same summed gradients. The update is the span
+    `il.optimizer`."""
 
     def train_step(obs_tn, prev_tn, masks_tn, corrected, weights):
         optimizer.zero_grad(set_to_none=True)
         losses = il_loss_and_grads(policy, optimizer, obs_tn, prev_tn, masks_tn, corrected, weights, mesh, mark=mark)
-        optimizer.step()
+        with annotate("il.optimizer"):
+            optimizer.step()
         mark("optimizer")
         return tuple(losses.unbind())
 
@@ -143,8 +149,9 @@ def build_il_accum_step(policy, optimizer, apply: bool, mark: Callable[[str], No
         losses = il_loss_and_grads(policy, optimizer, obs_tn, prev_tn, masks_tn, corrected, weights, mesh,
                                    scale=accum_scale, reduce_grads=apply, mark=mark)
         if apply:
-            optimizer.step()
-            optimizer.zero_grad(set_to_none=True)
+            with annotate("il.optimizer"):
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
         mark("optimizer")
         return tuple(losses.unbind())
 

@@ -238,7 +238,7 @@ class BaseVLNCETrainer:
         device = self.policy.device
         if clock:
             clock.start()
-        with annotate("il_upload"):
+        with annotate("train.upload"):
             if all(torch.is_tensor(v) for v in observations.values()):
                 obs_tn = observations
             else:
@@ -253,7 +253,7 @@ class BaseVLNCETrainer:
                 self.mesh, obs_tn, rest["prev"].reshape(T, N), rest["masks"].reshape(T, N), rest["corrected"],
                 rest["weights"],
             )
-        with annotate("il_step"):
+        with annotate("train.step"):
             losses = step(*batch)
         loss, action_loss, aux_loss = torch.stack(losses).tolist()
         return loss, action_loss, aux_loss

@@ -85,6 +85,7 @@ from vlnce_torch.tasks.datasets import make_dataset
 from vlnce_torch.tasks.geometry import heading_from_quaternion
 from vlnce_torch.tasks.sensors import MAX_INSTRUCTION_LEN
 from vlnce_torch.utils.logging import logger
+from vlnce_torch.utils.profiling import annotate, maybe_profile
 from vlnce_torch.utils.progress import tqdm
 from vlnce_torch.utils.video import append_text_to_image, generate_video, observations_to_image
 
@@ -167,10 +168,14 @@ def _episode_batch_arrays(episodes, instr_uuid: str = "instruction", task_cfg=No
 def chunk_tensors(chunk, instr_uuid: str, task_cfg, device, extra: Optional[Dict[str, np.ndarray]] = None):
     """A chunk's scenes, instruction and start poses (and `extra` arrays) on
     `device` in one upload. Returns (SceneBatch, {instruction, pos, heading,
-    *extra})."""
-    arrays = _episode_batch_arrays(chunk, instr_uuid=instr_uuid, task_cfg=task_cfg)
-    scene = scene_arrays(chunk)
-    on_dev = upload({**{f"scene.{k}": v for k, v in scene.items()}, **arrays, **(extra or {})}, device)
+    *extra}). Its parts are the spans `scan.instructions`, `scan.scenes` and
+    `scan.upload`."""
+    with annotate("scan.instructions"):
+        arrays = _episode_batch_arrays(chunk, instr_uuid=instr_uuid, task_cfg=task_cfg)
+    with annotate("scan.scenes"):
+        scene = scene_arrays(chunk)
+    with annotate("scan.upload"):
+        on_dev = upload({**{f"scene.{k}": v for k, v in scene.items()}, **arrays, **(extra or {})}, device)
     scenes = SceneBatch(**{k: on_dev.pop(f"scene.{k}") for k in SceneBatch._fields})
     return scenes, on_dev
 
@@ -201,7 +206,8 @@ class StepGraph:
         self.capture_launches: Dict[str, int] = {}
         self.capture_seconds = 0.0
         if device.type == "cuda" and not eager:
-            self._capture(device)
+            with annotate("scan.capture"):
+                self._capture(device)
 
     @torch.no_grad()
     def _capture(self, device) -> None:
@@ -392,11 +398,14 @@ class ScanSegment:
 
     def run(self, generator: Optional[torch.Generator] = None):
         """seg_len steps, then the one read-back: (actions [seg_len, B] int32,
-        done [B] bool) on the host."""
+        done [B] bool) on the host, in the spans `scan.replays` and
+        `scan.readback`."""
         if not self.deterministic:
             self.draws.uniform_(0.0, 1.0, generator=generator)
-        self.step.run(self.seg_len)
-        out = self.out.cpu().numpy().copy()  # on the CPU, .cpu() is the tensor itself
+        with annotate("scan.replays"):
+            self.step.run(self.seg_len)
+        with annotate("scan.readback"):
+            out = self.out.cpu().numpy().copy()  # on the CPU, .cpu() is the tensor itself
         self.segments += 1
         self.readbacks += 1
         return out[: self.seg_len], out[self.seg_len].astype(bool)
@@ -430,28 +439,34 @@ def run_scan_rollouts(policy, transforms, config, episodes: List, generator: Opt
         chunk = episodes[lo : lo + B]
         real = len(chunk)
         chunk = chunk + [chunk[-1]] * (B - real)  # a padded last chunk keeps the graph's shapes
-        t_setup = time.perf_counter()
-        scenes, arrays = chunk_tensors(chunk, instr_uuid, task_cfg, device)
-        chunk_bank = None if bank is None else load_chunk_bank(bank, chunk, device)
-        setup_seconds += time.perf_counter() - t_setup
-        key = ("eval", tuple(specs), B, seg_len, deterministic, instr_uuid, use_tilt,
-               tuple(type(t).__name__ for t in transforms), tuple(scenes.occupancy.shape),
-               tuple(arrays["instruction"].shape), task_cfg.SIMULATOR.FORWARD_STEP_SIZE, task_cfg.SIMULATOR.TURN_ANGLE,
-               eager, bank_key(bank, chunk_bank))
-        segment = cached(policy, key, tally.recording(lambda: ScanSegment(
-            policy, transforms, specs, task_cfg.SIMULATOR, deterministic, seg_len, scenes, arrays["instruction"],
-            instr_uuid=instr_uuid, use_tilt=use_tilt, eager=eager, bank=chunk_bank,
-            bank_max_dist=0.0 if bank is None else bank[1])))
-        segment.load(scenes, arrays["instruction"], arrays["pos"], arrays["heading"], chunk_bank)
-        tally.use(segment)  # a segment from the cache carries the counts of earlier calls
-        collected = []
-        t = 0
-        while t < T_max:
-            actions, done = segment.run(generator)
-            collected.append(actions)
-            t += seg_len
-            if done.all():
-                break  # every episode of the chunk has called STOP
+        with annotate("scan.chunk"):
+            with annotate("scan.setup"):
+                t_setup = time.perf_counter()
+                scenes, arrays = chunk_tensors(chunk, instr_uuid, task_cfg, device)
+                chunk_bank = None
+                if bank is not None:
+                    with annotate("scan.bank"):
+                        chunk_bank = load_chunk_bank(bank, chunk, device)
+                setup_seconds += time.perf_counter() - t_setup
+            key = ("eval", tuple(specs), B, seg_len, deterministic, instr_uuid, use_tilt,
+                   tuple(type(t).__name__ for t in transforms), tuple(scenes.occupancy.shape),
+                   tuple(arrays["instruction"].shape), task_cfg.SIMULATOR.FORWARD_STEP_SIZE,
+                   task_cfg.SIMULATOR.TURN_ANGLE, eager, bank_key(bank, chunk_bank))
+            segment = cached(policy, key, tally.recording(lambda: ScanSegment(
+                policy, transforms, specs, task_cfg.SIMULATOR, deterministic, seg_len, scenes, arrays["instruction"],
+                instr_uuid=instr_uuid, use_tilt=use_tilt, eager=eager, bank=chunk_bank,
+                bank_max_dist=0.0 if bank is None else bank[1])))
+            with annotate("scan.load"):
+                segment.load(scenes, arrays["instruction"], arrays["pos"], arrays["heading"], chunk_bank)
+            tally.use(segment)  # a segment from the cache carries the counts of earlier calls
+            collected = []
+            t = 0
+            while t < T_max:
+                actions, done = segment.run(generator)
+                collected.append(actions)
+                t += seg_len
+                if done.all():
+                    break  # every episode of the chunk has called STOP
         acts = np.concatenate(collected, axis=0)[:T_max]
         for i in range(real):
             seq = acts[:, i]
@@ -565,64 +580,74 @@ def _setup(trainer, config, load_from_ckpt: bool) -> List:
     return list(make_dataset(config.TASK_CONFIG.DATASET.TYPE, config.TASK_CONFIG.DATASET).episodes)
 
 
+def _profile_dir(config, run: str) -> str:
+    """Where a loop on the card writes its torch.profiler trace: a folder of
+    CUDA.PROFILE_DIR per run, or "" (no trace) where that is unset."""
+    root = str(config.CUDA.PROFILE_DIR or "")
+    return os.path.join(root, run) if root else ""
+
+
 def inference_on_device(trainer, config) -> None:
     """The scan counterpart of BaseVLNCETrainer.inference's env loop: actions
     collected on the card, the pose trace from the host replay, predictions
     written in the r2r or rxr format."""
-    episodes = _setup(trainer, config, os.path.exists(config.IL.ckpt_to_load))
-    # the rollout reads EVAL.SAMPLE; inference's flag is INFERENCE.SAMPLE
-    run_cfg = config.clone()
-    run_cfg.defrost()
-    run_cfg.EVAL.SAMPLE = bool(config.INFERENCE.SAMPLE)
-    run_cfg.freeze()
-    scan = {}
-    pbar = tqdm(total=len(episodes), desc="scan-inference")
-    action_seqs = run_scan_rollouts(trainer.policy, trainer.obs_transforms, run_cfg, episodes, trainer.generator,
-                                    progress_cb=pbar.update, stats=scan)
-    pbar.close()
-    t0 = time.perf_counter()
-    episode_predictions = infos_from_actions(config, episodes, action_seqs)
-    trainer.last_loop_timing = {**scan, "replay_seconds": time.perf_counter() - t0}
-    instruction_ids: Dict[str, str] = {}
-    if config.INFERENCE.FORMAT == "rxr":
-        for ep in episodes:
-            k = getattr(ep.instruction, "instruction_id", None) or ep.episode_id
-            instruction_ids[ep.episode_id] = int(k) if str(k).isdigit() else k
-    trainer._write_predictions(config, episode_predictions, instruction_ids)
+    with maybe_profile(_profile_dir(config, "inference")):
+        episodes = _setup(trainer, config, os.path.exists(config.IL.ckpt_to_load))
+        # the rollout reads EVAL.SAMPLE; inference's flag is INFERENCE.SAMPLE
+        run_cfg = config.clone()
+        run_cfg.defrost()
+        run_cfg.EVAL.SAMPLE = bool(config.INFERENCE.SAMPLE)
+        run_cfg.freeze()
+        scan = {}
+        pbar = tqdm(total=len(episodes), desc="scan-inference")
+        action_seqs = run_scan_rollouts(trainer.policy, trainer.obs_transforms, run_cfg, episodes, trainer.generator,
+                                        progress_cb=pbar.update, stats=scan)
+        pbar.close()
+        t0 = time.perf_counter()
+        episode_predictions = infos_from_actions(config, episodes, action_seqs)
+        trainer.last_loop_timing = {**scan, "replay_seconds": time.perf_counter() - t0}
+        instruction_ids: Dict[str, str] = {}
+        if config.INFERENCE.FORMAT == "rxr":
+            for ep in episodes:
+                k = getattr(ep.instruction, "instruction_id", None) or ep.episode_id
+                instruction_ids[ep.episode_id] = int(k) if str(k).isdigit() else k
+        trainer._write_predictions(config, episode_predictions, instruction_ids)
 
 
 def eval_checkpoint_on_device(trainer, config, checkpoint_path: str, writer, checkpoint_index: int,
                               stats_fname: Optional[str]) -> Dict[str, float]:
     """The scan counterpart of BaseVLNCETrainer._eval_checkpoint's env loop."""
-    episodes = _setup(trainer, config, os.path.exists(checkpoint_path))
-    if config.EVAL.EPISODE_COUNT > -1:
-        episodes = episodes[: config.EVAL.EPISODE_COUNT]
+    with maybe_profile(_profile_dir(config, f"eval_ckpt_{checkpoint_index}")):
+        episodes = _setup(trainer, config, os.path.exists(checkpoint_path))
+        if config.EVAL.EPISODE_COUNT > -1:
+            episodes = episodes[: config.EVAL.EPISODE_COUNT]
 
-    scan = {}
-    pbar = tqdm(total=len(episodes), desc=f"scan-eval ckpt {checkpoint_index}")
-    action_seqs = run_scan_rollouts(trainer.policy, trainer.obs_transforms, config, episodes, trainer.generator,
-                                    progress_cb=pbar.update, stats=scan)
-    pbar.close()
-    t0 = time.perf_counter()
-    stats_episodes = metrics_from_actions(config, episodes, action_seqs, writer=writer, checkpoint_index=checkpoint_index)
-    trainer.last_loop_timing = timing = {**scan, "replay_seconds": time.perf_counter() - t0}
-    trainer._last_eval_episode_stats = stats_episodes
+        scan = {}
+        pbar = tqdm(total=len(episodes), desc=f"scan-eval ckpt {checkpoint_index}")
+        action_seqs = run_scan_rollouts(trainer.policy, trainer.obs_transforms, config, episodes, trainer.generator,
+                                        progress_cb=pbar.update, stats=scan)
+        pbar.close()
+        t0 = time.perf_counter()
+        stats_episodes = metrics_from_actions(config, episodes, action_seqs, writer=writer,
+                                              checkpoint_index=checkpoint_index)
+        trainer.last_loop_timing = timing = {**scan, "replay_seconds": time.perf_counter() - t0}
+        trainer._last_eval_episode_stats = stats_episodes
 
-    aggregated: Dict[str, float] = {}
-    if stats_episodes:
-        for k in next(iter(stats_episodes.values())).keys():
-            aggregated[k] = float(np.mean([v[k] for v in stats_episodes.values()]))
-    if stats_fname is not None and stats_episodes:
-        with open(stats_fname, "w") as f:
-            json.dump(aggregated, f, indent=4)
+        aggregated: Dict[str, float] = {}
+        if stats_episodes:
+            for k in next(iter(stats_episodes.values())).keys():
+                aggregated[k] = float(np.mean([v[k] for v in stats_episodes.values()]))
+        if stats_fname is not None and stats_episodes:
+            with open(stats_fname, "w") as f:
+                json.dump(aggregated, f, indent=4)
 
-    steps = timing.get("env_steps", 0)
-    seconds = timing.get("seconds", 0.0) + timing["replay_seconds"]
-    logger.info(
-        f"Episodes evaluated (on-device scan): {len(stats_episodes)}; {steps} env steps in {seconds:.1f}s "
-        f"(device loop {timing.get('seconds', 0.0):.2f}s, host replay {timing['replay_seconds']:.2f}s)"
-    )
-    for k, v in aggregated.items():
-        logger.info(f"{k}: {v:.6f}")
-        writer.add_scalar(f"eval_{config.EVAL.SPLIT}_{k}", v, checkpoint_index + 1)
-    return aggregated
+        steps = timing.get("env_steps", 0)
+        seconds = timing.get("seconds", 0.0) + timing["replay_seconds"]
+        logger.info(
+            f"Episodes evaluated (on-device scan): {len(stats_episodes)}; {steps} env steps in {seconds:.1f}s "
+            f"(device loop {timing.get('seconds', 0.0):.2f}s, host replay {timing['replay_seconds']:.2f}s)"
+        )
+        for k, v in aggregated.items():
+            logger.info(f"{k}: {v:.6f}")
+            writer.add_scalar(f"eval_{config.EVAL.SPLIT}_{k}", v, checkpoint_index + 1)
+        return aggregated

@@ -1,11 +1,34 @@
-"""Profiling: torch.profiler traces, the reference's wall-clock split, and
-the train step's split on the card (port of vlnce_tpu/utils/profiling.py).
+"""Profiling: torch.profiler traces and the program's spans in them, the
+reference's wall-clock split, and the train step's split on the card (port
+of vlnce_tpu/utils/profiling.py).
 
 The reference logs pth_time (device compute) vs env_time (sim stepping) per
 rollout (reference ddppo_waypoint_trainer.py:154-157,187-188,222-225);
 trainers here keep that split and can additionally capture a device trace
 into CUDA.PROFILE_DIR (a chrome trace, readable by tensorboard's profile
-plugin or chrome://tracing).
+plugin or chrome://tracing): training and the on-card eval and inference.
+
+Spans (`annotate`) record exactly while a `torch.profiler` records, on
+the profiler's clock beside the device's kernels and copies; otherwise a
+span does nothing. They sit where the work happens:
+- the scan rollout (trainers/scan_eval.run_scan_rollouts): `scan.chunk`
+  per chunk, holding `scan.setup` (`scan.scenes` with a `scan.goal_field`
+  per Dijkstra field built, `scan.instructions`, `scan.upload`,
+  `scan.bank`), `scan.load`, and per segment `scan.replays` and
+  `scan.readback`; `scan.capture` around a step graph's capture. The
+  set-up's spans open in shared code, so they fire wherever it runs:
+  `scan.instructions`, `scan.scenes` and `scan.upload` in the on-card
+  DAgger collection too (trainers/device_dagger, `chunk_tensors`),
+  `scan.scenes` in device_recollect (`scene_arrays`), and `scan.goal_field`
+  at every miss of a scene's distance-field cache (envs/gridworld), the
+  host simulators' included;
+- the fused DAgger epoch (data/device_bank.run_fused_epoch): `train.plan`,
+  then per run `train.run` holding `train.run_upload`, a `train.step` per
+  step (`train.gather`, then the IL step's `il.forward`, `il.backward`,
+  `il.optimizer`) and `train.readback`; the per-batch IL step
+  (trainers/base_trainer._il_update) opens `train.upload` and `train.step`;
+- DAgger's host collection (`collect_step`), DD-PPO's `rollout`,
+  `rollout_step` and `ppo_update`.
 """
 
 from __future__ import annotations
@@ -24,7 +47,6 @@ class SectionTimers:
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
     def time(self, name: str) -> Iterator[None]:
@@ -33,14 +55,9 @@ class SectionTimers:
             yield
         finally:
             self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
 
     def summary(self) -> str:
         return " ".join(f"{k}={v:.1f}s" for k, v in sorted(self.totals.items()))
-
-    def reset(self) -> None:
-        self.totals.clear()
-        self.counts.clear()
 
 
 class StepClock:
@@ -110,8 +127,29 @@ def maybe_profile(profile_dir: Optional[str]) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region in profiler traces."""
-    with torch.profiler.record_function(name):
-        yield
+class _NoSpan:
+    """The span of `annotate` while no profiler records: nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NO_SPAN = _NoSpan()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def annotate(name: str):
+    """A named span in the profiler's trace, for a `with` statement: a
+    `torch.profiler.record_function(name)` while a profiler records on this
+    thread, else a shared object that does nothing (one check, about half a
+    microsecond). Spans nest: a span's parent is the span around it, so the
+    `scan.chunk` or `train.run` around a span says which chunk or run it
+    belongs to. Open none inside a CUDA graph's capture."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
