@@ -206,7 +206,19 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    only rank 0's checkpoint); then `python -m vlnce_torch.run --run-type
    train` of that resident DAgger at world size 1 through NCCL (torchrun's
    variables set by hand);
-28. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+28. `phase_goal_field` (after phase 3): the goal-field kernel
+   (csrc/goal_field.cu, no TPU counterpart) against its plain version and
+   the host's Dijkstra (BaseScene._dijkstra), bit for bit: 22 fields on
+   procedural 64 x 64 scenes (a chunk of the benchmark's rollout cell; the
+   fields in shared memory), 4 on rasterised lattices of 80 x 80 and
+   160 x 160 (shared memory above the default 48 KB, which the kernel asks
+   for; at n = 80 first inside a graph capture, the process's first launch
+   at that size) and 4 on one of 256 x 256 (in device memory); then the kernel's device time by graph replay beside its
+   bound (F n^2 9 bytes at 3.35 TB/s), the plain version's (events: it reads
+   back a flag each sweep) and the host Dijkstra's (host clock); the scan
+   eval and scan inference of phase 15 check one launch per chunk, counted
+   from 0, and the kernels line reports those launches;
+29. a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -695,6 +707,79 @@ def phase_resize(dev):
 
 
 # ---------------------------------------------------------------------------
+# the goal fields of the closed loops' chunks
+# ---------------------------------------------------------------------------
+
+
+def phase_goal_field(dev):
+    from vlnce_torch.envs.device_sim import _pad_grid
+    from vlnce_torch.envs.gridworld import _RES, get_scene
+    from vlnce_torch.envs.scene_import import scene_from_graph
+    from vlnce_torch.ops.goal_field import goal_distance_fields, goal_distance_fields_plain, shared_bytes
+    from vlnce_torch.utils.nav_graph import synthetic_lattice_graph
+
+    rng = np.random.RandomState(19)
+
+    def lattice(world):
+        return [scene_from_graph(f"goal_field_lattice_{int(world)}", synthetic_lattice_graph(world_size=world))]
+
+    cases = {  # label: (scenes, goals per scene)
+        "F=22 n=64": ([get_scene(f"goal_field_smoke_{k}") for k in range(22)], 1),
+        "F=4 n=80": (lattice(20.0), 4),
+        "F=4 n=160": (lattice(40.0), 4),
+        "F=4 n=256": (lattice(64.0), 4),
+    }
+    out = {"name": "goal_distance_fields", "route": "cuda", "source": "vlnce_torch/csrc/goal_field.cu",
+           "replaces": "none (the host's BaseScene._dijkstra)"}
+    for label, (scenes, per_scene) in cases.items():
+        n = max(s.n for s in scenes)
+        cells, want, host_s = [], [], 0.0
+        for row, scene in enumerate(scenes):
+            free, blocked = np.argwhere(~scene.occupancy), np.argwhere(scene.occupancy)
+            for k in range(per_scene):
+                pool = blocked if (row + k) % 5 == 4 else free  # some goals on blocked cells: snapped
+                cell = tuple(int(v) for v in pool[rng.randint(len(pool))])
+                t0 = time.perf_counter()
+                want.append(_pad_grid(scene._dijkstra(cell), n, np.inf))
+                host_s += time.perf_counter() - t0
+                cells.append((row, *scene.snap_goal_cell(*cell)))
+        occ = torch.from_numpy(np.stack([_pad_grid(s.occupancy, n, True) for s in scenes])).to(dev)
+        cells = torch.tensor(cells, dtype=torch.int32, device=dev)
+        want = np.stack(want)
+        F = cells.shape[0]
+        assert n == int(label.split("n=")[1]) and bool(shared_bytes(n)) == (n <= 160), (label, n)
+        captured = ""
+        if n == 80:  # the first launch at a size above 48 KB of shared memory: inside a capture
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                in_graph = goal_distance_fields(occ, cells, _RES)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert np.array_equal(in_graph.cpu().numpy(), want), f"goal field kernel {label}: captured, not the host's fields"
+            captured = "; its first launch, in a graph capture, too"
+        launches, fields = goal_distance_fields.launches, goal_distance_fields.fields
+        got = goal_distance_fields(occ, cells, _RES)
+        plain = goal_distance_fields_plain(occ, cells, _RES)
+        torch.cuda.synchronize()
+        assert (goal_distance_fields.launches - launches, goal_distance_fields.fields - fields) == (1, F)
+        assert np.array_equal(got.cpu().numpy(), want), f"goal field kernel {label}: not the host's fields"
+        assert np.array_equal(plain.cpu().numpy(), want), f"goal field plain {label}: not the host's fields"
+        reached = float(np.isfinite(want).mean())
+        ms = graph_ms(lambda: goal_distance_fields(occ, cells, _RES), reps=10, replays=5)
+        plain_ms = cuda_ms(lambda: goal_distance_fields_plain(occ, cells, _RES), iters=3, warmup=1)
+        b_ms, b_by = bound_ms(F * n * n * 9, 0.0)
+        route = "shared memory" if shared_bytes(n) else "device memory"
+        print(f"goal field {label} ({route}): kernel equals the plain version and the host's Dijkstra bit for bit "
+              f"(f64; {reached:.1%} of cells reachable{captured}); device time by graph replay {ms:.4f} ms a launch of {F} "
+              f"fields, bound {b_ms:.6f} ms ({b_by}, {F * n * n * 9 / 1e6:.3f} MB), plain version {plain_ms:.3f} ms "
+              f"(events), host Dijkstra {1e3 * host_s / F:.3f} ms a field, {1e3 * host_s:.1f} ms for the {F}")
+        out[label] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
+                      "host_ms": 1e3 * host_s, "fields": F, "n": n, "route": route}
+    print(json.dumps({"goal_field": out}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main path: the RxR CMA act step
 # ---------------------------------------------------------------------------
 
@@ -788,9 +873,21 @@ def _counted():
 
 
 def _reset_launches():
+    """Sets every kernel's launch counters to 0: those of `_counted()`,
+    which `_read_launches()` reads, and the goal-field kernel's, which
+    `_field_launches()` reads (a path's set-up launches it once a chunk)."""
+    from vlnce_torch.ops.goal_field import goal_distance_fields
+
     for wrapper in _counted().values():
         wrapper.launches = 0
     _counted()["gru_sequence_backward"].cluster_launches = 0
+    goal_distance_fields.launches = goal_distance_fields.fields = 0
+
+
+def _field_launches():
+    from vlnce_torch.ops.goal_field import goal_distance_fields
+
+    return {"goal_distance_fields": goal_distance_fields.launches}
 
 
 def _cluster_launches():
@@ -1345,8 +1442,12 @@ def phase_scan_eval(dev, host_eval_rate):
         ])
         wall = time.perf_counter() - t0
         eval_launches = _read_launches()
-        print(f"scan eval launches (warm-up and capture of one graph): {json.dumps(eval_launches)}")
+        builds = _field_launches()
+        print(f"scan eval launches (warm-up and capture of one graph; the goal fields, a launch a chunk): "
+              f"{json.dumps({**eval_launches, **builds})}")
         t = _check_scan_run(trainer, eval_launches, (2, 2), "scan eval")
+        assert builds["goal_distance_fields"] == -(-SCAN_EPISODES // SCAN_B), f"{builds} for the scan eval's chunks"
+        eval_launches.update(builds)
         assert torch.equal(trainer.policy.action_distribution.linear.bias.cpu(), mark), "the checkpoint's weights were not loaded"
         with open(os.path.join(tmp, "evals", f"stats_ckpt_0_{cfg.EVAL.SPLIT}.json")) as f:
             stats = json.load(f)
@@ -1397,6 +1498,9 @@ def phase_scan_eval(dev, host_eval_rate):
         ])
         inf_launches = _read_launches()
         t = _check_scan_run(inf_trainer, inf_launches, (2, 2), "scan inference")
+        builds = _field_launches()
+        assert builds["goal_distance_fields"] == -(-N_ENVS // SCAN_B), f"{builds} for the scan inference's chunks"
+        inf_launches.update(builds)
         with open(predictions) as f:
             lines = [json.loads(line) for line in f]
         assert len(lines) == N_ENVS and len({str(e["instruction_id"]) for e in lines}) == N_ENVS, lines
@@ -4091,6 +4195,7 @@ def main() -> int:
     name = phase_device()
     timed(phase_build)
     kernels = [timed(phase_gru, dev), *timed(phase_gru_backward, dev), timed(phase_resize, dev)]
+    goal_field = timed(phase_goal_field, dev)
     paths = {"act_phase": timed(phase_main_path, dev)[0]}
     paths["eval"], paths["inference"], host_eval_rate = timed(phase_serving, dev)
     paths["scan_eval"], paths["scan_inference"] = timed(phase_scan_eval, dev, host_eval_rate)
@@ -4127,6 +4232,12 @@ def main() -> int:
         for path, launches in paths.items():
             k[f"launches_{path}"] = launches[k["name"]]
         k["launches"] = sum(launches[k["name"]] for launches in paths.values())
+    # the goal-field kernel, on the paths whose launches of it the phases count
+    field_paths = {path: launches for path, launches in paths.items() if goal_field["name"] in launches}
+    for path, launches in field_paths.items():
+        goal_field[f"launches_{path}"] = launches[goal_field["name"]]
+    goal_field["launches"] = sum(launches[goal_field["name"]] for launches in field_paths.values())
+    kernels.append(goal_field)
     assert all(k["launches"] > 0 for k in kernels), "a kernel was launched on no path"
     print(f"chip_smoke: seconds by phase {json.dumps(phase_seconds)}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s (the build included)")

@@ -438,6 +438,123 @@ def test_wrappers_are_graph_capturable():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _field_batch(scenes, goals_per_scene, seed, host=None):
+    """Occupancy [R, n, n] of `scenes` (padded to the largest, blocked),
+    and cells [F, 3]: `goals_per_scene` goal cells on each, some blocked
+    (snapped as the host snaps them). Returns (occupancy, cells, the host
+    fields [F, n, n] padded with +inf): `host(scene, cell)`, by default the
+    port's Dijkstra (tests/test_torch_goal_field.py holds these cases' fields
+    to the JAX package's, on a machine with JAX)."""
+    from vlnce_torch.envs.device_sim import _pad_grid
+
+    host = host or (lambda scene, cell: scene._dijkstra(cell))
+    rng = np.random.RandomState(seed)
+    n = max(s.n for s in scenes)
+    cells, want = [], []
+    for row, scene in enumerate(scenes):
+        for _ in range(goals_per_scene):
+            cell = tuple(int(v) for v in rng.randint(0, scene.n, 2))
+            cells.append((row, *scene.snap_goal_cell(*cell)))
+            want.append(_pad_grid(host(scene, cell), n, np.inf))
+    occ = torch.from_numpy(np.stack([_pad_grid(s.occupancy, n, True) for s in scenes]))
+    return occ, torch.tensor(cells, dtype=torch.int32), np.stack(want)
+
+
+def _procedural_case():
+    from vlnce_torch.envs.gridworld import get_scene
+
+    return [get_scene(f"synth_scene_{k}") for k in range(11)], 2, 1
+
+
+def _lattice_case(world, seed):
+    def case():
+        from vlnce_torch.envs.scene_import import scene_from_graph
+        from vlnce_torch.utils.nav_graph import synthetic_lattice_graph
+
+        return [scene_from_graph(f"lattice_{int(world)}", synthetic_lattice_graph(world_size=world))], 3, seed
+
+    return case
+
+
+# label: () -> (scenes, goals per scene, seed). The kernel's routes: shared
+# memory under the default 48 KB (n = 64), shared memory above it, which needs
+# the kernel's attribute call (n = 80, and n = 160 at the top), device memory
+# (n = 176).
+GOAL_FIELD_CARD_CASES = {
+    "n=64 F=22": _procedural_case,
+    "n=80": _lattice_case(20.0, 4),
+    "n=160": _lattice_case(40.0, 5),
+    "n=176": _lattice_case(44.0, 2),
+}
+
+
+@pytest.mark.cuda
+def test_goal_field_build_is_graph_capturable_and_never_syncs():
+    """The kernel launches on the capture stream, at n = 64 and at n = 80,
+    where the first launch of the process at that size (this test runs
+    before the others at n >= 80) grants the block its shared memory inside
+    the capture; a chunk's whole field build (`scene_batch` after the
+    upload) runs under the sync check."""
+    from vlnce_torch.envs import device_sim as ds
+    from vlnce_torch.ops.goal_field import goal_distance_fields
+
+    dev = _card()
+    for case, warm in (("n=80", False), ("n=64 F=22", True)):
+        scenes, per_scene, seed = GOAL_FIELD_CARD_CASES[case]()
+        occ, cells, want = _field_batch(scenes, per_scene, seed)
+        occ, cells = occ.to(dev), cells.to(dev)
+        if warm:
+            goal_distance_fields(occ, cells, 0.25)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = goal_distance_fields(occ, cells, 0.25)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert np.array_equal(got.cpu().numpy(), want), case
+
+    class Goal:
+        def __init__(self, p):
+            self.position = p
+
+    class Ep:
+        def __init__(self, scene_id, start, goals):
+            self.scene_id, self.start_position, self.info = scene_id, start, {}
+            self.goals = [Goal(g) for g in goals]
+
+    eps = [Ep(f"synth_scene_{k % 3}", [1.5, 0.0, 1.5], [[13.5, 0.0, 13.5], [7.0, 0.0, 1.0]]) for k in range(6)]
+    on_dev = ds.upload(ds.scene_inputs(eps), dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scenes, _ = ds.scene_batch(on_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cpu = ds.build_scene_batch(eps)
+    assert torch.equal(scenes.goal_field.cpu(), cpu.goal_field) and torch.equal(scenes.d0.cpu(), cpu.d0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GOAL_FIELD_CARD_CASES))
+def test_goal_field_kernel_equals_plain_and_host(case):
+    """22 fields on procedural 64 x 64 scenes, and on rasterised lattices
+    of 80, 160 (shared memory above 48 KB) and 176 (device memory) cells a
+    side, bit for bit; one launch, its fields counted."""
+    from vlnce_torch.ops.goal_field import goal_distance_fields, goal_distance_fields_plain, shared_bytes
+
+    dev = _card()
+    scenes, per_scene, seed = GOAL_FIELD_CARD_CASES[case]()
+    occ, cells, want = _field_batch(scenes, per_scene, seed)
+    n = occ.shape[-1]
+    assert n == int(case.split()[0][2:]) and (shared_bytes(n) == 0) == (n == 176)
+    launches, fields = goal_distance_fields.launches, goal_distance_fields.fields
+    got = goal_distance_fields(occ.to(dev), cells.to(dev), 0.25)
+    torch.cuda.synchronize()
+    assert (goal_distance_fields.launches - launches, goal_distance_fields.fields - fields) == (1, cells.shape[0])
+    plain = goal_distance_fields_plain(occ, cells, 0.25).numpy()
+    assert np.array_equal(plain, want) and np.array_equal(got.cpu().numpy(), want)
+
+
 def test_gru_wrapper_rejects_bad_inputs():
     xi, masks, h0, w_hh, b_hh = _gru_inputs(2, 3, 8, "meta")
     with pytest.raises(ValueError, match="float32"):

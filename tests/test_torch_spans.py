@@ -5,9 +5,12 @@ of them.
 - The scan rollout (`trainers/scan_eval.run_scan_rollouts`, R2R CMA, two
   chunks of 3 episodes, the second padded) under `torch.profiler`: every
   span of the loop with its parent, one `scan.chunk` per chunk, one
-  `scan.goal_field` per goal cell the scenes had not cached and none on a
-  second run over the same goals, and `scan.setup` agreeing with the
-  `setup_seconds` stat.
+  `scan.field_build` per chunk (its goal fields built on the device, one
+  call of `goal_distance_fields` a chunk) and no `scan.goal_field`, and
+  `scan.setup` agreeing with the `setup_seconds` stat.
+- The host simulator's geodesic distance (`GridWorldSim.geodesic_distance`)
+  over the same episodes: one `scan.goal_field` per goal cell the scenes
+  had not cached, and none on a second pass over the same goals.
 - The fused DAgger epoch (`data/device_bank.run_fused_epoch` with the IL
   step) under the profiler: one `train.run` per run of `epoch_runs`, one
   `train.step` per batch, each holding `train.gather` and the IL step's
@@ -15,7 +18,9 @@ of them.
 - With no profiler recording, no span calls `record_function`.
 - The on-card eval and inference under `CUDA.PROFILE_DIR` write a trace
   holding the scan rollout's spans.
-- The six span metrics in `benchmark/metrics/` read those traces, and read
+- The six span metrics in `benchmark/metrics/` read those traces (the two
+  goal-field metrics read 0 from the scan loop's, and the host fields from
+  a trace of host Dijkstra fields inside `scan.chunk` spans), and read
   nothing from a trace without the spans; `benchmark/spans.split` sums them
   by name, with each name's self seconds.
 """
@@ -36,6 +41,7 @@ from vlnce_torch.envs import ensure_registered
 from vlnce_torch.envs.gridworld import get_scene
 from vlnce_torch.envs.spaces import action_space_from_config, observation_space_from_config
 from vlnce_torch.models.cma_policy import CMAPolicy
+from vlnce_torch.ops.goal_field import goal_distance_fields
 from vlnce_torch.parallel.il_step import build_il_train_step
 from vlnce_torch.parallel.optim import masked_adam
 from vlnce_torch.tasks.datasets import make_dataset
@@ -55,7 +61,7 @@ LOOP = [
     "EVAL.SAMPLE", False,
 ]
 SCAN_PARENTS = {
-    "scan.chunk": None, "scan.setup": "scan.chunk", "scan.scenes": "scan.setup", "scan.goal_field": "scan.scenes",
+    "scan.chunk": None, "scan.setup": "scan.chunk", "scan.scenes": "scan.setup", "scan.field_build": "scan.scenes",
     "scan.instructions": "scan.setup", "scan.upload": "scan.setup", "scan.load": "scan.chunk",
     "scan.replays": "scan.chunk", "scan.readback": "scan.chunk",
 }
@@ -132,18 +138,57 @@ def _rollout(cfg, policy, episodes):
     return stats
 
 
-@pytest.fixture(scope="module")
-def scan(r2r):
-    """Two traced rollouts of the same episodes, the scenes' goal fields
-    dropped first: the first builds every field, the second none."""
-    cfg, policy = r2r
-    episodes = list(make_dataset(cfg.TASK_CONFIG.DATASET.TYPE, cfg.TASK_CONFIG.DATASET).episodes)
-    cells = _goal_cells(episodes)
+def _episodes(cfg):
+    return list(make_dataset(cfg.TASK_CONFIG.DATASET.TYPE, cfg.TASK_CONFIG.DATASET).episodes)
+
+
+def _drop_fields(cells):
     for scene_id, _ in cells:
         get_scene(scene_id)._distance_fields.clear()
+
+
+@pytest.fixture(scope="module")
+def scan(r2r):
+    """Two traced rollouts of the same episodes, the scenes' host fields
+    dropped first, and goal_distance_fields' counters (calls, launches,
+    fields) over the first."""
+    cfg, policy = r2r
+    episodes = _episodes(cfg)
+    cells = _goal_cells(episodes)
+    _drop_fields(cells)
+    counters = lambda: (goal_distance_fields.calls, goal_distance_fields.launches, goal_distance_fields.fields)
+    before = counters()
     first = _traced(lambda: _rollout(cfg, policy, episodes))
+    built = tuple(a - b for a, b in zip(counters(), before))
     again = _traced(lambda: _rollout(cfg, policy, episodes))
-    return {"cells": cells, "first": first, "again": again}
+    return {"cells": cells, "first": first, "again": again, "built": built}
+
+
+@pytest.fixture(scope="module")
+def host(r2r):
+    """The host simulator's geodesic distance from each episode's start to
+    its goals, the scan loop's chunks each inside a `scan.chunk` span, the
+    scenes' fields dropped first; traced twice: the first pass builds every
+    goal's host Dijkstra field, the second none."""
+    from vlnce_torch.registry import registry
+
+    cfg, _ = r2r
+    episodes = _episodes(cfg)
+    cells = _goal_cells(episodes)
+    _drop_fields(cells)
+    sim = registry.get_simulator(cfg.TASK_CONFIG.SIMULATOR.TYPE)(cfg.TASK_CONFIG.SIMULATOR)
+    chunk = int(cfg.EVAL.SCAN_BATCH)
+
+    def distances():
+        out = []
+        for lo in range(0, len(episodes), chunk):
+            with profiling.annotate("scan.chunk"):
+                for ep in episodes[lo:lo + chunk]:
+                    sim.reconfigure(ep.scene_id)
+                    out.append(sim.geodesic_distance(ep.start_position, [g.position for g in ep.goals]))
+        return out
+
+    return {"cells": cells, "first": _traced(distances), "again": _traced(distances)}
 
 
 def _bank(policy):
@@ -185,11 +230,28 @@ def test_scan_rollout_spans_nest_once_a_chunk(scan):
     assert _seconds(trace, "scan.setup") == pytest.approx(stats["setup_seconds"], rel=0.05)
 
 
-def test_scan_goal_field_once_per_new_goal(scan):
-    assert len(scan["cells"]) >= 3
-    assert _count(scan["first"][1], "scan.goal_field") == len(scan["cells"])
-    again = scan["again"][1]
+def test_scan_builds_goal_fields_on_the_device_once_a_chunk(scan):
+    """Each chunk's set-up builds its goal fields in one call of
+    `goal_distance_fields`, in `scan.field_build`, whether or not the host's
+    field caches hold them; the host's Dijkstra (`scan.goal_field`) never
+    runs, and the two goal-field metrics read 0."""
+    for _, trace in (scan["first"], scan["again"]):
+        assert _count(trace, "scan.field_build") == _count(trace, "scan.chunk") == 2
+        assert _count(trace, "scan.goal_field") == 0
+        for name in ("rollout.goal_fields_per_chunk", "rollout.goal_field_share"):
+            assert harness.metric_reader(name).read({"trace": trace, "window_s": trace.window_s}) == 0.0, name
+    assert scan["built"] == (2, 0, 0)  # a call a chunk; on the CPU, the plain version and no launch
+
+
+def test_scan_goal_field_once_per_new_goal(host):
+    """On a host path (GridWorldSim.geodesic_distance) one `scan.goal_field`
+    fires per goal cell the scenes had not cached, and none on a repeat."""
+    assert len(host["cells"]) >= 3
+    first_d, first = host["first"]
+    assert _count(first, "scan.goal_field") == len(host["cells"])
+    again_d, again = host["again"]
     assert _count(again, "scan.goal_field") == 0 and _count(again, "scan.chunk") == 2
+    assert again_d == first_d and all(np.isfinite(first_d))
 
 
 def test_fused_epoch_spans_a_run_and_a_step(fused):
@@ -246,14 +308,16 @@ def test_annotate_off_costs_little():
 # ---------------------------------------------------------------------------
 
 
-def _expected(name, scan, fused):
+def _expected(name, scan, host, fused):
     trace = scan["first"][1]
+    if name in ("rollout.goal_field_share", "rollout.goal_fields_per_chunk"):
+        trace = host["first"][1]  # the scan loop's read 0 (test_scan_builds_goal_fields_on_the_device_once_a_chunk)
     share = {"rollout.goal_field_share": "scan.goal_field", "rollout.instruction_read_share": "scan.instructions",
              "rollout.upload_share": "scan.upload"}
     if name in share:
         return trace, 100.0 * _seconds(trace, share[name]) / trace.window_s
     if name == "rollout.goal_fields_per_chunk":
-        return trace, len(scan["cells"]) / 2
+        return trace, len(host["cells"]) / 2
     runs, trace = fused["runs"], fused["trace"]
     steps = [(s, e) for s, e, n in trace.cpu if n == "train.step"]
     if name == "train.enqueue_ms":
@@ -264,8 +328,8 @@ def _expected(name, scan, fused):
 
 @pytest.mark.parametrize("name", ["rollout.goal_field_share", "rollout.instruction_read_share", "rollout.upload_share",
                                   "rollout.goal_fields_per_chunk", "train.enqueue_ms", "train.steps_per_run"])
-def test_span_metrics_read_the_spans(name, scan, fused):
-    trace, want = _expected(name, scan, fused)
+def test_span_metrics_read_the_spans(name, scan, host, fused):
+    trace, want = _expected(name, scan, host, fused)
     reader = harness.metric_reader(name)
     got = reader.read({"trace": trace, "window_s": trace.window_s})
     assert got == pytest.approx(want, rel=1e-9) and got > 0

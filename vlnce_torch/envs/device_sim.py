@@ -26,7 +26,11 @@ Imported real-scene geometry (`SIMULATOR.GEOMETRY_DIR`,
 `CONNECTIVITY_GRAPHS`; envs/scene_import.py) reaches these functions
 through `get_scene`, as procedural scenes do: an imported scene keeps its
 native world frame, so `SceneBatch.origin_xz` is nonzero, and chunks of
-mixed grid sizes pad to their largest (`scene_arrays`).
+mixed grid sizes pad to their largest (`scene_inputs`).
+
+A batch's goal fields are built on its device (`scene_batch`, one launch of
+ops/goal_field's kernel on the card), not by the host's Dijkstra: the host
+uploads only the goals' cells.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ import numpy as np
 import torch
 
 from vlnce_torch.envs.gridworld import _RES, get_scene
+from vlnce_torch.ops.goal_field import goal_distance_fields
+from vlnce_torch.utils.profiling import annotate
 
 _WALL_HEIGHT = 2.0
 _EYE = 1.0  # _EYE_HEIGHT_FRAC * _WALL_HEIGHT
@@ -125,49 +131,94 @@ def _pad_grid(a: np.ndarray, n: int, fill) -> np.ndarray:
     return np.pad(a, pad, constant_values=fill)
 
 
-def scene_arrays(episodes) -> Dict[str, np.ndarray]:
-    """The host arrays of `build_scene_batch`, by SceneBatch field.
-
-    goal_field is the elementwise minimum of the goals' Dijkstra fields (the
-    host's min over goals, GridWorldSim.geodesic_distance). d0 comes from the
-    episode's annotation (info["geodesic_distance"]), as the host progress
-    sensor reads it, else from the field at the start cell."""
-    occ, colors, floor, ceil, fields, d0s, origins = [], [], [], [], [], [], []
-    for ep in episodes:
+def scene_inputs(episodes) -> Dict[str, np.ndarray]:
+    """The host arrays `scene_batch` builds a batch's SceneBatch from, for
+    one `upload`: the scenes' grids padded to the batch's largest
+    (occupancy blocked, wall colours 0), their colours and origins; the
+    batch's distinct goals, `field_cells` [F, 3] int32 (a row of the batch
+    on the goal's scene, and the goal's cell as the host's Dijkstra snaps it,
+    BaseScene.snap_goal_cell); each episode's goals as rows of field_cells,
+    `goal_index` [B, G] int32, padded with F (no goal); `start_cell` [B, 2]
+    int32; `d0` [B] f32, the episode's annotated start distance
+    (info["geodesic_distance"], as the host progress sensor reads it), or -1
+    where the field at the start cell gives it."""
+    occ, colors, floor, ceil, origins, starts, d0s, rows = [], [], [], [], [], [], [], []
+    index: Dict[Tuple[str, int, int], int] = {}
+    field_cells: List[Tuple[int, int, int]] = []
+    for b, ep in enumerate(episodes):
         scene = get_scene(ep.scene_id)
         occ.append(scene.occupancy)
         colors.append(scene.wall_colors)
         floor.append(scene.floor_color)
         ceil.append(scene.ceil_color)
         origins.append(scene.origin)
-        field = None
+        row = []
         for goal in ep.goals:
             g = np.asarray(goal.position, dtype=np.float64)
-            f = scene.distance_field(scene.world_to_cell(float(g[0]), float(g[-1])))
-            field = f if field is None else np.minimum(field, f)
-        fields.append(field.astype(np.float32))
+            cell = scene.snap_goal_cell(*scene.world_to_cell(float(g[0]), float(g[-1])))
+            key = (ep.scene_id, *cell)
+            if key not in index:
+                index[key] = len(field_cells)
+                field_cells.append((b, *cell))
+            row.append(index[key])
+        rows.append(row)
         s = np.asarray(ep.start_position, dtype=np.float64)
-        si, sj = scene.world_to_cell(float(s[0]), float(s[-1]))
+        starts.append(scene.world_to_cell(float(s[0]), float(s[-1])))
         info = getattr(ep, "info", None) or {}
         d0 = float(info.get("geodesic_distance") or 0.0)
-        if d0 <= 0.0:
-            d0 = max(float(field[si, sj]), 1e-6)
-        d0s.append(d0)
+        d0s.append(d0 if d0 > 0.0 else -1.0)
     n = max(a.shape[0] for a in occ)
+    goal_index = np.full((len(rows), max(len(r) for r in rows)), len(field_cells), np.int32)
+    for b, row in enumerate(rows):
+        goal_index[b, : len(row)] = row
     return {
         "occupancy": np.stack([_pad_grid(a, n, True) for a in occ]),
         "wall_colors": np.stack([_pad_grid(a, n, 0) for a in colors]),
         "floor_color": np.stack(floor),
         "ceil_color": np.stack(ceil),
-        "goal_field": np.stack([_pad_grid(a, n, np.inf) for a in fields]),
-        "d0": np.array(d0s, dtype=np.float32),
         "origin_xz": np.array(origins, dtype=np.float32),
+        "field_cells": np.array(field_cells, dtype=np.int32).reshape(-1, 3),
+        "goal_index": goal_index,
+        "start_cell": np.array(starts, dtype=np.int32),
+        "d0": np.array(d0s, dtype=np.float32),
     }
+
+
+def scene_batch(t: Dict[str, torch.Tensor]) -> Tuple[SceneBatch, torch.Tensor]:
+    """The SceneBatch of `scene_inputs`' arrays on the device, in the span
+    `scan.field_build`: the distinct goals' fields in one launch of
+    `goal_distance_fields` (f64, equal to the host's Dijkstra fields), each
+    episode's goal_field the minimum of its goals' fields (the host's min
+    over goals, GridWorldSim.geodesic_distance) in f32, +inf in the padding;
+    d0 the annotated distance, else max(field at the start cell, 1e-6).
+    Returns (SceneBatch, fields [F + 1, N, N] f32): an episode's field of its
+    k-th goal is fields[goal_index[:, k]], the last row +inf. Nothing reads
+    back from the device."""
+    with annotate("scan.field_build"):
+        n = t["occupancy"].shape[-1]
+        fields = goal_distance_fields(t["occupancy"], t["field_cells"], _RES)
+        fields = torch.cat([fields, fields.new_full((1, n, n), math.inf)])
+        index = t["goal_index"].long()
+        start = t["start_cell"][:, 0].long() * n + t["start_cell"][:, 1].long()
+        at_start = fields.reshape(-1, n * n)[index, start[:, None]].amin(dim=1)
+        d0 = torch.where(t["d0"] < 0, at_start.clamp(min=1e-6).to(torch.float32), t["d0"])
+        fields = fields.to(torch.float32)  # the cast commutes with the minimum over goals
+        goal_field = fields[index[:, 0]]
+        for k in range(1, index.shape[1]):
+            goal_field = torch.minimum(goal_field, fields[index[:, k]])
+        scenes = SceneBatch(t["occupancy"], t["wall_colors"], t["floor_color"], t["ceil_color"], goal_field, d0,
+                            t["origin_xz"])
+    return scenes, fields
 
 
 def build_scene_batch(episodes, device="cpu") -> SceneBatch:
     """The scenes of a batch of episodes on `device`, in one upload."""
-    return SceneBatch(**upload(scene_arrays(episodes), device))
+    return scene_batch(upload(scene_inputs(episodes), device))[0]
+
+
+def scene_arrays(episodes) -> Dict[str, np.ndarray]:
+    """`build_scene_batch` on the CPU as host arrays, by SceneBatch field."""
+    return {k: v.numpy() for k, v in build_scene_batch(episodes)._asdict().items()}
 
 
 # ---------------------------------------------------------------------------

@@ -111,10 +111,7 @@ class BaseScene:
     def _dijkstra(self, goal_cell: Tuple[int, int]) -> np.ndarray:
         _N = self.n
         dist = np.full((_N, _N), np.inf)
-        gi, gj = goal_cell
-        if not self.navigable_cell(gi, gj):
-            # snap goal to the nearest navigable cell
-            gi, gj = self.nearest_navigable_cell(gi, gj)
+        gi, gj = self.snap_goal_cell(*goal_cell)
         dist[gi, gj] = 0.0
         pq: List[Tuple[float, int, int]] = [(0.0, gi, gj)]
         diag = math.sqrt(2.0) * _RES
@@ -133,6 +130,13 @@ class BaseScene:
                     dist[ni, nj] = nd
                     heapq.heappush(pq, (nd, ni, nj))
         return dist
+
+    def snap_goal_cell(self, i: int, j: int) -> Tuple[int, int]:
+        """Where a goal's distance field starts: the goal's cell where it is
+        navigable, else the nearest navigable cell."""
+        if self.navigable_cell(i, j):
+            return i, j
+        return self.nearest_navigable_cell(i, j)
 
     def nearest_navigable_cell(self, i: int, j: int) -> Tuple[int, int]:
         free = np.argwhere(~self.occupancy)

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 
 import torch
 
-KERNELS = ("gru_sequence", "resize_normalize")
+KERNELS = ("gru_sequence", "resize_normalize", "goal_field")
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")

@@ -54,7 +54,6 @@ import torch
 from vlnce_torch.data.feature_bank import lookup_features
 from vlnce_torch.envs.device_sim import (
     SceneBatch,
-    _pad_grid,
     camera_specs_from_config,
     expert_action,
     progress_batch,
@@ -62,7 +61,6 @@ from vlnce_torch.envs.device_sim import (
     step_batch,
     upload,
 )
-from vlnce_torch.envs.gridworld import get_scene
 from vlnce_torch.envs.scene_import import apply_scene_geometry
 from vlnce_torch.models.distributions import Categorical
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch
@@ -80,19 +78,19 @@ from vlnce_torch.utils.logging import logger
 _F16_MAX = 65504.0
 
 
-def _expert_arrays(episodes) -> Tuple[np.ndarray, np.ndarray]:
-    """Each episode's first-goal distance field and that goal's x, z: what
-    the host ShortestPathSensor steers by (it passes
-    episode.goals[0].position). Fields pad to the batch's largest grid with
-    +inf."""
-    fields, goals = [], []
-    for ep in episodes:
-        scene = get_scene(ep.scene_id)
-        g = np.asarray(ep.goals[0].position, np.float64)
-        fields.append(scene.distance_field(scene.world_to_cell(float(g[0]), float(g[-1]))).astype(np.float32))
-        goals.append([float(g[0]), float(g[-1])])
-    n = max(f.shape[0] for f in fields)
-    return np.stack([_pad_grid(f, n, np.inf) for f in fields]), np.asarray(goals, np.float32)
+def _goal_xz(episodes) -> np.ndarray:
+    """Each episode's first goal's x, z [B, 2] f32: the host ShortestPathSensor
+    steers by episode.goals[0].position."""
+    return np.asarray([[float(ep.goals[0].position[0]), float(ep.goals[0].position[-1])] for ep in episodes],
+                      np.float32)
+
+
+def _expert_field(tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Each episode's first-goal distance field [B, N, N] f32, the expert's:
+    that goal's row of the chunk's goal fields, built on the device with the
+    rest (`chunk_tensors`' goal_fields and goal_index; +inf in the padding
+    of a smaller grid)."""
+    return tensors["goal_fields"][tensors["goal_index"][:, 0].long()]
 
 
 def _wire(v: torch.Tensor, store_f16: bool) -> torch.Tensor:
@@ -246,8 +244,8 @@ def _chunk_rollouts(policy, transforms, config, episodes: List, beta: float, gen
         real = len(chunk)
         chunk = chunk + [chunk[-1]] * (B - real)
         t_setup = time.perf_counter()
-        ef, gxz = _expert_arrays(chunk)
-        scenes, tensors = chunk_tensors(chunk, instr_uuid, task_cfg, device, {"expert_field": ef, "goal_xz": gxz})
+        scenes, tensors = chunk_tensors(chunk, instr_uuid, task_cfg, device, {"goal_xz": _goal_xz(chunk)})
+        tensors["expert_field"] = _expert_field(tensors)
         chunk_bank = None if bank is None else load_chunk_bank(bank, chunk, device)
         setup_seconds += time.perf_counter() - t_setup
         key = ("dagger", tuple(specs), B, seg_len, bool(config.IL.DAGGER.lmdb_fp16),

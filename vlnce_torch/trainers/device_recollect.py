@@ -47,7 +47,8 @@ from vlnce_torch.envs.device_sim import (
     camera_specs_from_config,
     progress_batch,
     render_batch,
-    scene_arrays,
+    scene_batch,
+    scene_inputs,
     step_batch,
     step_tilt,
     upload,
@@ -161,9 +162,10 @@ def _chunk(config, episodes: List, trajectories: Dict, instr_uuid: str, quantum:
         actions[: len(traj), b] = [step[1] for step in traj]
     arrays = _episode_batch_arrays(episodes, instr_uuid=instr_uuid, task_cfg=config.TASK_CONFIG)
     wanted = ("pos", "heading") + (("instruction",) if instruction else ())
-    on_dev = upload({**{f"scene.{k}": v for k, v in scene_arrays(episodes).items()},
-                     **{k: arrays[k] for k in wanted}, "actions": actions}, device)
-    scenes = SceneBatch(**{k: on_dev.pop(f"scene.{k}") for k in SceneBatch._fields})
+    scene = scene_inputs(episodes)
+    on_dev = upload({**{f"scene.{k}": v for k, v in scene.items()}, **{k: arrays[k] for k in wanted},
+                     "actions": actions}, device)
+    scenes, _ = scene_batch({k: on_dev.pop(f"scene.{k}") for k in scene})
     return trajs, T_pad, arrays, scenes, on_dev
 
 

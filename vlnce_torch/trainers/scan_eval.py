@@ -73,7 +73,8 @@ from vlnce_torch.envs.device_sim import (
     camera_specs_from_config,
     progress_batch,
     render_batch,
-    scene_arrays,
+    scene_batch,
+    scene_inputs,
     step_batch,
     step_tilt,
     upload,
@@ -167,16 +168,22 @@ def _episode_batch_arrays(episodes, instr_uuid: str = "instruction", task_cfg=No
 
 def chunk_tensors(chunk, instr_uuid: str, task_cfg, device, extra: Optional[Dict[str, np.ndarray]] = None):
     """A chunk's scenes, instruction and start poses (and `extra` arrays) on
-    `device` in one upload. Returns (SceneBatch, {instruction, pos, heading,
-    *extra}). Its parts are the spans `scan.instructions`, `scan.scenes` and
-    `scan.upload`."""
+    `device` in one upload, then its goal fields built there. Returns
+    (SceneBatch, {instruction, pos, heading, goal_fields, goal_index,
+    *extra}), with `scene_batch`'s per-goal fields and the episodes' rows of
+    them. Its parts are the spans `scan.instructions`, `scan.scenes` (the
+    host's scene arrays, and after the upload the field build,
+    `scan.field_build`) and `scan.upload`."""
     with annotate("scan.instructions"):
         arrays = _episode_batch_arrays(chunk, instr_uuid=instr_uuid, task_cfg=task_cfg)
     with annotate("scan.scenes"):
-        scene = scene_arrays(chunk)
+        scene = scene_inputs(chunk)
     with annotate("scan.upload"):
         on_dev = upload({**{f"scene.{k}": v for k, v in scene.items()}, **arrays, **(extra or {})}, device)
-    scenes = SceneBatch(**{k: on_dev.pop(f"scene.{k}") for k in SceneBatch._fields})
+    with annotate("scan.scenes"):
+        inputs = {k: on_dev.pop(f"scene.{k}") for k in scene}
+        scenes, on_dev["goal_fields"] = scene_batch(inputs)
+    on_dev["goal_index"] = inputs["goal_index"]
     return scenes, on_dev
 
 

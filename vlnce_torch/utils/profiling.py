@@ -12,16 +12,18 @@ Spans (`annotate`) record exactly while a `torch.profiler` records, on
 the profiler's clock beside the device's kernels and copies; otherwise a
 span does nothing. They sit where the work happens:
 - the scan rollout (trainers/scan_eval.run_scan_rollouts): `scan.chunk`
-  per chunk, holding `scan.setup` (`scan.scenes` with a `scan.goal_field`
-  per Dijkstra field built, `scan.instructions`, `scan.upload`,
+  per chunk, holding `scan.setup` (`scan.instructions`, `scan.scenes` for
+  the host's scene arrays, `scan.upload`, then `scan.scenes` again holding
+  `scan.field_build`, the goal fields' build on the device, and
   `scan.bank`), `scan.load`, and per segment `scan.replays` and
   `scan.readback`; `scan.capture` around a step graph's capture. The
   set-up's spans open in shared code, so they fire wherever it runs:
-  `scan.instructions`, `scan.scenes` and `scan.upload` in the on-card
-  DAgger collection too (trainers/device_dagger, `chunk_tensors`),
-  `scan.scenes` in device_recollect (`scene_arrays`), and `scan.goal_field`
-  at every miss of a scene's distance-field cache (envs/gridworld), the
-  host simulators' included;
+  `scan.instructions`, `scan.scenes`, `scan.upload` and `scan.field_build`
+  in the on-card DAgger collection too (trainers/device_dagger,
+  `chunk_tensors`), `scan.field_build` in device_recollect
+  (envs/device_sim.scene_batch), and `scan.goal_field` at every miss of a
+  scene's distance-field cache (envs/gridworld): the host simulators'
+  Dijkstra, which the loops on the card no longer run;
 - the fused DAgger epoch (data/device_bank.run_fused_epoch): `train.plan`,
   then per run `train.run` holding `train.run_upload`, a `train.step` per
   step (`train.gather`, then the IL step's `il.forward`, `il.backward`,
