@@ -3397,9 +3397,12 @@ def phase_device_waypoint(dev, host):
     the card (per minibatch B1 2 forward, 2 backward on the cluster route, 2
     weight gradients), B2 never; then again with CUDA.PPO_UPDATE_SCAN. The
     rollout's replays (both runs) and update_device_scan's minibatch loop
-    run under set_sync_debug_mode("error"). Then the last checkpoint's eval
-    over forked workers as in phase_waypoint, and the rollout's and the
-    update's times beside the host path's of this run."""
+    run under set_sync_debug_mode("error"). Each train() builds its episode
+    bank's goal fields in one launch of goal_field.cu, counted in the
+    goal-field kernel's launch line; one more update under the profiler
+    holds each of the rollout's and the update's `ppo.*` spans. Then the
+    last checkpoint's eval over forked workers as in phase_waypoint, and the
+    rollout's and the update's times beside the host path's of this run."""
     from vlnce_torch.config import get_config
     from vlnce_torch.models.waypoint_policy import WaypointPolicy
     from vlnce_torch.parallel.optim import trainable_mask
@@ -3436,6 +3439,8 @@ def phase_device_waypoint(dev, host):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = _read_launches()
+            builds = _field_launches()
+            assert builds["goal_distance_fields"] == 1, f"{builds}: the episode bank's goal fields, one launch"
             ppo, c, r = trainer.config.RL.PPO, trainer.collector, trainer.rollout_stats
             minibatches = WP_UPDATES * ppo.ppo_epoch * ppo.num_mini_batch
             print(f"{name}: run_exp took {wall:.1f} s, no env pool ({trainer.envs}); launches {json.dumps(launches)}: the "
@@ -3450,6 +3455,7 @@ def phase_device_waypoint(dev, host):
             assert launches == {"gru_sequence": 10 + 2 * minibatches, "gru_sequence_backward": 2 * minibatches,
                                 "gru_weight_gradient": 2 * minibatches, "fused_resize_normalize": 0}, launches
             assert _cluster_launches() == 2 * minibatches, "B1's backward left the cluster route"
+            launches.update(builds)
             history = trainer.update_history
             assert len(history) == WP_UPDATES and all(math.isfinite(v) for h in history for v in h.values()), history
             mask = trainable_mask(trainer.policy, trainer.config.MODEL)
@@ -3508,6 +3514,21 @@ def phase_device_waypoint(dev, host):
             else:
                 print(f"{name}: update_device_scan {r['update_time'] / WP_UPDATES:.3f} s per update, {minibatches // WP_UPDATES} "
                       f"minibatch steps enqueued after one index upload, one read-back")
+                from torch.profiler import ProfilerActivity, profile
+
+                steps = trainer.agent.minibatch_steps
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    trainer.train_update_on_device(WP_UPDATES, np.random.RandomState(0))
+                spans = {}
+                for e in prof.events():
+                    if e.name.startswith("ppo."):
+                        spans[e.name] = spans.get(e.name, 0) + 1
+                want = ("ppo.rollout", "ppo.load", "ppo.replays", "ppo.readback", "ppo.update", "ppo.plan",
+                        "ppo.minibatches", "ppo.update_readback")
+                print(f"{name}: one more update under the profiler: spans {json.dumps(spans)}, "
+                      f"{trainer.agent.minibatch_steps - steps} minibatch steps counted")
+                assert all(spans.get(k) == 1 for k in want), spans
+                assert trainer.agent.minibatch_steps - steps == minibatches // WP_UPDATES
             out[name] = launches
 
         evaluator, eval_launches, eval_wall = _run_loop("eval", common + [

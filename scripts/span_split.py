@@ -38,7 +38,7 @@ def main(argv=None) -> int:
 
     torch.set_num_threads(1)
     trace = harness.runner(cell).run(cell, T0)["ctx"]["trace"]
-    rows = spans.split(trace)
+    rows = spans.split(trace, spans.PROGRAM + ("ppo.",))
     print(f"{'span':<20} {'n':>6} {'s':>10} {'self s':>10} {'idle s':>10} {'ms each':>10}")
     for r in rows:
         print(f"{r['name']:<20} {r['n']:>6} {r['s']:>10.4f} {r['self_s']:>10.4f} {r['idle_s']:>10.4f} "

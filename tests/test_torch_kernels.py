@@ -555,6 +555,47 @@ def test_goal_field_kernel_equals_plain_and_host(case):
     assert np.array_equal(plain, want) and np.array_equal(got.cpu().numpy(), want)
 
 
+@pytest.mark.cuda
+def test_ddppo_bank_goal_fields_equal_the_host_dijkstra():
+    """The DD-PPO episode bank on the card (`rl/device_rollout.
+    build_episode_queue`: one kernel launch for the split's distinct goals):
+    each episode's field, the minimum over its goals, and its d0 equal the
+    host Dijkstra's bit for bit, and the CPU route's (the plain
+    relaxation)."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.envs.device_sim import _pad_grid
+    from vlnce_torch.envs.gridworld import get_scene
+    from vlnce_torch.ops.goal_field import goal_distance_fields
+    from vlnce_torch.rl.device_rollout import build_episode_queue
+    from vlnce_torch.tasks.datasets import make_dataset
+
+    dev = _card()
+    cfg = get_config("vlnce_torch/config/experiments/r2r_waypoint/1-wpn-cc.yaml", [
+        "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_EPISODES", 48,
+        "TASK_CONFIG.DATASET.NUM_SCENES", 6])
+    eps = list(make_dataset(cfg.TASK_CONFIG.DATASET.TYPE, cfg.TASK_CONFIG.DATASET).episodes)
+    eps[1].goals = list(eps[1].goals) + [eps[7].goals[0]]  # two goals: the minimum of their fields
+    launches = goal_distance_fields.launches
+    bank = build_episode_queue([eps], dev)
+    torch.cuda.synchronize()
+    assert goal_distance_fields.launches - launches == 1
+    cpu = build_episode_queue([eps], "cpu")
+    n = bank.goal_field.shape[-1]
+    want, d0 = [], []
+    for ep in eps:
+        scene = get_scene(ep.scene_id)
+        f = None
+        for goal in ep.goals:
+            h = scene._dijkstra(scene.world_to_cell(float(goal.position[0]), float(goal.position[-1])))
+            f = h if f is None else np.minimum(f, h)
+        si, sj = scene.world_to_cell(float(ep.start_position[0]), float(ep.start_position[-1]))
+        d0.append(np.float32(max(float(f[si, sj]), 1e-6)))
+        want.append(_pad_grid(f.astype(np.float32), n, np.inf))
+    assert np.array_equal(bank.goal_field[0].cpu().numpy(), np.stack(want))
+    assert np.array_equal(bank.d0[0].cpu().numpy(), np.asarray(d0, np.float32))
+    assert torch.equal(bank.goal_field.cpu(), cpu.goal_field) and torch.equal(bank.d0.cpu(), cpu.d0)
+
+
 def test_gru_wrapper_rejects_bad_inputs():
     xi, masks, h0, w_hh, b_hh = _gru_inputs(2, 3, 8, "meta")
     with pytest.raises(ValueError, match="float32"):

@@ -18,6 +18,13 @@ of them.
 - With no profiler recording, no span calls `record_function`.
 - The on-card eval and inference under `CUDA.PROFILE_DIR` write a trace
   holding the scan rollout's spans.
+- DD-PPO with the rollout on the card (the small waypoint policy, the
+  trainer built as the benchmark builds it): the episode bank's build in
+  `ppo.bank` holding `ppo.field_build` (one call of `goal_distance_fields`),
+  then per update `ppo.rollout` (`ppo.load`, `ppo.replays`,
+  `ppo.readback`) and `ppo.update` (`ppo.plan`, `ppo.minibatches`,
+  `ppo.update_readback`), WDDPPO's `minibatch_steps` counting the
+  minibatch steps, and the cell's span metrics reading them.
 - The six span metrics in `benchmark/metrics/` read those traces (the two
   goal-field metrics read 0 from the scan loop's, and the host fields from
   a trace of host Dijkstra fields inside `scan.chunk` spans), and read
@@ -75,8 +82,21 @@ BATCH = 2
 SEED = 7
 
 
+PPO_PARENTS = {
+    "ppo.rollout": None, "ppo.load": "ppo.rollout", "ppo.replays": "ppo.rollout", "ppo.readback": "ppo.rollout",
+    "ppo.update": None, "ppo.plan": "ppo.update", "ppo.minibatches": "ppo.update", "ppo.update_readback": "ppo.update",
+}
+WAYPOINT = [
+    "CUDA.DEVICE", "cpu", "CUDA.PRECISION.compute_dtype", "float32", "CUDA.ON_DEVICE_ROLLOUT", True,
+    "CUDA.PPO_UPDATE_SCAN", True, "TASK_CONFIG.DATASET.NUM_EPISODES", 4, "RL.PPO.num_steps", 2,
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.HEIGHT", 16, "TASK_CONFIG.SIMULATOR.RGB_SENSOR.WIDTH", 16,
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT", 16, "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH", 16,
+]
+UPDATES = 2
+
+
 def _program(name):
-    return name.startswith(("scan.", "train.", "il."))
+    return name.startswith(("scan.", "train.", "il.", "ppo."))
 
 
 def _traced(fn):
@@ -215,6 +235,59 @@ def fused(r2r):
     losses, trace = _traced(lambda: run_fused_epoch(ResidentBatchIterator(bank, BATCH, seed=SEED, time_major=True),
                                                     step))
     return {"runs": runs, "losses": losses, "trace": trace}
+
+
+@pytest.fixture(scope="module")
+def ppo():
+    """The small waypoint trainer as the benchmark builds it: its collector
+    started under the profiler (the bank), then UPDATES traced updates."""
+    from benchmark import program
+
+    cfg = get_config("vlnce_torch/config/experiments/synthetic/smoke_waypoint.yaml", WAYPOINT)
+    trainer = program.trainer_with_policy(cfg, "ddppo-waypoint")
+    calls = goal_distance_fields.calls
+    _, bank = _traced(trainer.start_device_rollout)
+    built = goal_distance_fields.calls - calls
+    rng = np.random.RandomState(0)
+    before = trainer.agent.minibatch_steps
+    stats, trace = _traced(lambda: [trainer.train_update_on_device(u, rng) for u in range(UPDATES)])
+    return {"bank": bank, "built": built, "trace": trace, "stats": stats, "trainer": trainer,
+            "steps": trainer.agent.minibatch_steps - before}
+
+
+def test_ddppo_spans_nest_once_an_update(ppo):
+    bank = ppo["bank"]
+    assert _count(bank, "ppo.bank") == _count(bank, "ppo.field_build") == 1 and ppo["built"] == 1
+    (s, e, _), = [x for x in bank.cpu if x[2] == "ppo.bank"]
+    assert all(s <= a and b <= e for a, b, n in bank.cpu if n == "ppo.field_build")
+    trace, trainer = ppo["trace"], ppo["trainer"]
+    spans = _spans(trace)
+    assert {n for _, _, n in spans} == set(PPO_PARENTS)
+    for span in spans:
+        assert _parent(span, spans) == PPO_PARENTS[span[2]], span
+    for name in PPO_PARENTS:
+        assert _count(trace, name) == UPDATES, name
+    ppo_cfg = trainer.config.RL.PPO
+    assert ppo["steps"] == UPDATES * ppo_cfg.ppo_epoch * ppo_cfg.num_mini_batch
+    assert trainer.collector.replays == UPDATES * ppo_cfg.num_steps and all(
+        np.isfinite(v) for st, _ in ppo["stats"] for v in st.values())
+
+
+def test_ddppo_span_metrics_read_the_spans(ppo):
+    trace = ppo["trace"]
+    ctx = {"trace": trace, "window_s": trace.window_s, "replays": ppo["trainer"].collector.replays,
+           "minibatch_steps": ppo["steps"]}
+    share = harness.metric_reader("ppo.update_share").read(ctx)
+    assert share == pytest.approx(100.0 * _seconds(trace, "ppo.update") / trace.window_s, rel=1e-9) and 0 < share < 100
+    per_step = harness.metric_reader("ppo.replay_ms").read(ctx)
+    want = 1e3 * (_seconds(trace, "ppo.replays") + _seconds(trace, "ppo.readback")) / ctx["replays"]
+    assert per_step == pytest.approx(want, rel=1e-9) and per_step > 0
+    assert harness.metric_reader("ppo.launches_per_minibatch").read(ctx) == 0.0  # the CPU launches no kernel
+    _, bare = _traced(lambda: torch.ones(4).add_(1))
+    for name in ("ppo.update_share", "ppo.replay_ms", "ppo.launches_per_minibatch"):
+        assert harness.metric_reader(name).read({**ctx, "trace": bare, "window_s": bare.window_s}) is None, name
+    rows = {r["name"]: r for r in bench_spans.split(trace, bench_spans.PROGRAM + ("ppo.",))}
+    assert set(rows) == set(PPO_PARENTS)
 
 
 def test_scan_rollout_spans_nest_once_a_chunk(scan):

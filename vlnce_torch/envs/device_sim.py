@@ -184,28 +184,38 @@ def scene_inputs(episodes) -> Dict[str, np.ndarray]:
     }
 
 
+def goal_fields(occupancy, field_cells, goal_index, start_cell, d0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Episodes' goal fields on the device: the distinct goals' fields
+    (`field_cells` [F, 3] int32, rows of `occupancy` [R, N, N]) in one
+    launch of `goal_distance_fields` (f64, equal to the host's Dijkstra
+    fields); each episode's field the minimum of its goals' (`goal_index`
+    [E, G], padded with F: the host's min over goals,
+    GridWorldSim.geodesic_distance) in f32, +inf in the padding; d0 [E] the
+    given distance, else (where it is below 0) max(field at `start_cell`
+    [E, 2], 1e-6) in f32. Returns (goal_field [E, N, N], d0, fields
+    [F + 1, N, N] f32): an episode's field of its k-th goal is
+    fields[goal_index[:, k]], the last row +inf. Nothing reads back from the
+    device."""
+    n = occupancy.shape[-1]
+    fields = goal_distance_fields(occupancy, field_cells, _RES)
+    fields = torch.cat([fields, fields.new_full((1, n, n), math.inf)])
+    index = goal_index.long()
+    start = start_cell[:, 0].long() * n + start_cell[:, 1].long()
+    at_start = fields.reshape(-1, n * n)[index, start[:, None]].amin(dim=1)
+    d0 = torch.where(d0 < 0, at_start.clamp(min=1e-6).to(torch.float32), d0)
+    fields = fields.to(torch.float32)  # the cast commutes with the minimum over goals
+    goal_field = fields[index[:, 0]]
+    for k in range(1, index.shape[1]):
+        goal_field = torch.minimum(goal_field, fields[index[:, k]])
+    return goal_field, d0, fields
+
+
 def scene_batch(t: Dict[str, torch.Tensor]) -> Tuple[SceneBatch, torch.Tensor]:
-    """The SceneBatch of `scene_inputs`' arrays on the device, in the span
-    `scan.field_build`: the distinct goals' fields in one launch of
-    `goal_distance_fields` (f64, equal to the host's Dijkstra fields), each
-    episode's goal_field the minimum of its goals' fields (the host's min
-    over goals, GridWorldSim.geodesic_distance) in f32, +inf in the padding;
-    d0 the annotated distance, else max(field at the start cell, 1e-6).
-    Returns (SceneBatch, fields [F + 1, N, N] f32): an episode's field of its
-    k-th goal is fields[goal_index[:, k]], the last row +inf. Nothing reads
-    back from the device."""
+    """The SceneBatch of `scene_inputs`' arrays on the device, its goal
+    fields and d0 by `goal_fields` in the span `scan.field_build`. Returns
+    (SceneBatch, fields [F + 1, N, N] f32), as `goal_fields` returns them."""
     with annotate("scan.field_build"):
-        n = t["occupancy"].shape[-1]
-        fields = goal_distance_fields(t["occupancy"], t["field_cells"], _RES)
-        fields = torch.cat([fields, fields.new_full((1, n, n), math.inf)])
-        index = t["goal_index"].long()
-        start = t["start_cell"][:, 0].long() * n + t["start_cell"][:, 1].long()
-        at_start = fields.reshape(-1, n * n)[index, start[:, None]].amin(dim=1)
-        d0 = torch.where(t["d0"] < 0, at_start.clamp(min=1e-6).to(torch.float32), t["d0"])
-        fields = fields.to(torch.float32)  # the cast commutes with the minimum over goals
-        goal_field = fields[index[:, 0]]
-        for k in range(1, index.shape[1]):
-            goal_field = torch.minimum(goal_field, fields[index[:, k]])
+        goal_field, d0, fields = goal_fields(t["occupancy"], t["field_cells"], t["goal_index"], t["start_cell"], t["d0"])
         scenes = SceneBatch(t["occupancy"], t["wall_colors"], t["floor_color"], t["ceil_color"], goal_field, d0,
                             t["origin_xz"])
     return scenes, fields
@@ -434,22 +444,38 @@ def progress_batch(scenes: SceneBatch, pos: torch.Tensor) -> torch.Tensor:
 _NEAREST_FREE_CACHE: Dict[str, np.ndarray] = {}
 
 
+def _offsets_by_distance(n: int) -> np.ndarray:
+    """Every offset (di, dj) of an [n, n] grid, [(2n - 1)^2, 2] int64, in
+    order of squared length, then di, then dj."""
+    d = np.arange(-(n - 1), n)
+    di, dj = (a.reshape(-1) for a in np.meshgrid(d, d, indexing="ij"))
+    order = np.lexsort((dj, di, di * di + dj * dj))
+    return np.stack([di[order], dj[order]], axis=1)
+
+
 def nearest_free_cells(occ: np.ndarray) -> np.ndarray:
     """[N, N, 2] int32: for every cell, the nearest free cell, with the host's
     tie-break (the first minimum in the row-major free list,
-    GridWorldScene.nearest_navigable_cell). Chunked over the query cells so
-    the distance matrix stays bounded."""
+    GridWorldScene.nearest_navigable_cell). The offsets are tried in order
+    of squared length, and at equal length in row-major order of the cell
+    they reach, which is (di, dj) order: the first free cell an offset
+    reaches is the host's. Each offset is tried on the cells still without
+    one, until none is left."""
     n = occ.shape[0]
-    free = np.argwhere(~occ)
+    if occ.all():
+        raise ValueError("nearest_free_cells: the grid has no free cell")
     ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
-    cells = np.stack([ii.ravel(), jj.ravel()], axis=1)
-    out = np.empty((n * n, 2), np.int32)
-    chunk = max(1, (1 << 22) // max(1, len(free)))
-    for lo in range(0, len(cells), chunk):
-        c = cells[lo : lo + chunk]
-        d2 = (c[:, None, 0] - free[None, :, 0]) ** 2 + (c[:, None, 1] - free[None, :, 1]) ** 2
-        out[lo : lo + chunk] = free[np.argmin(d2, axis=1)]
-    return out.reshape(n, n, 2)
+    out = np.stack([ii, jj], axis=-1).astype(np.int32)  # a free cell is its own nearest
+    todo_i, todo_j = np.nonzero(occ)
+    for di, dj in _offsets_by_distance(n):
+        if not len(todo_i):
+            break
+        ti, tj = todo_i + di, todo_j + dj
+        ok = (ti >= 0) & (ti < n) & (tj >= 0) & (tj < n)
+        ok[ok] = ~occ[ti[ok], tj[ok]]
+        out[todo_i[ok], todo_j[ok]] = np.stack([ti[ok], tj[ok]], axis=1)
+        todo_i, todo_j = todo_i[~ok], todo_j[~ok]
+    return out
 
 
 def nearest_free_cell_map(scene_id: str) -> np.ndarray:

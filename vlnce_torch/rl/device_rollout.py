@@ -26,11 +26,19 @@ the card for PPO.num_steps steps, and the PPO batch stays there for
   ones agree exactly.
 - **Episodes.** One round-robin stream of the train split per slot (the
   analog of construct_envs' scene split and the workers' auto-reset). The
-  whole split (at most CUDA.EPISODE_BANK_MAX episodes) is uploaded once as a
-  bank; a rollout then uploads only its [B, Q] slot map (Q = T + 1, one done
-  per step at most) and gathers its queue from the bank on the card. Above
-  the cap each rollout uploads its queue. Imported scenes of mixed sizes
-  pad to the split's largest grid.
+  whole split (at most CUDA.EPISODE_BANK_MAX episodes) is built once as a
+  bank on the card; a rollout then uploads only its [B, Q] slot map (Q = T +
+  1, one done per step at most) and gathers its queue from the bank on the
+  card. Above the cap each rollout builds its queue. Either way the host
+  uploads the distinct scenes and each episode's goal cells, and the card
+  builds the distinct goals' fields in one launch of `goal_distance_fields`
+  (csrc/goal_field.cu; its plain relaxation on the CPU), equal to the
+  host's Dijkstra fields bit for bit. Imported scenes of mixed sizes pad to
+  the split's largest grid.
+- **Spans** (`utils/profiling.annotate`): `ppo.bank` around the bank's
+  build, holding `ppo.field_build`; per rollout `ppo.rollout` around
+  `ppo.load` (the queue's gather, the graphs' build at a new grid size),
+  `ppo.replays` (the T step replays and the bootstrap) and `ppo.readback`.
 - **One read-back per rollout**: the episode stats, the slots' episode
   indices and the running episode rewards, in one copy.
 
@@ -61,6 +69,7 @@ import torch
 from vlnce_torch.envs.device_sim import (
     _pad_grid,
     camera_specs_from_config,
+    goal_fields,
     nearest_free_cell_map,
     render_arrays,
     upload,
@@ -74,6 +83,7 @@ from vlnce_torch.tasks.datasets import make_dataset
 from vlnce_torch.tasks.geometry import heading_from_quaternion
 from vlnce_torch.tasks.sensors import MAX_INSTRUCTION_LEN
 from vlnce_torch.utils.logging import logger
+from vlnce_torch.utils.profiling import annotate
 
 _ACTION_KEYS = ("pano", "offset", "distance")
 _STAT_KEYS = ("reward", "count", "success", "distance_to_goal")
@@ -97,56 +107,85 @@ class EpisodeQueue(NamedTuple):
     instruction: torch.Tensor  # [B, Q, L] int32
 
 
-def _episode_entry(ep) -> Dict[str, np.ndarray]:
+def _episode_entry(ep) -> Dict:
+    """What the host reads of an episode: its scene, its goals' cells as
+    the host's Dijkstra snaps them (BaseScene.snap_goal_cell), its start
+    cell, pose and instruction tokens."""
     scene = get_scene(ep.scene_id)
-    field = None
+    goals = []
     for goal in ep.goals:
         g = np.asarray(goal.position, np.float64)
-        f = scene.distance_field(scene.world_to_cell(float(g[0]), float(g[-1])))
-        field = f if field is None else np.minimum(field, f)
+        goals.append(scene.snap_goal_cell(*scene.world_to_cell(float(g[0]), float(g[-1]))))
     s = np.asarray(ep.start_position, np.float64)
-    si, sj = scene.world_to_cell(float(s[0]), float(s[-1]))
     tokens = ep.instruction.instruction_tokens or []
     instr = np.zeros((MAX_INSTRUCTION_LEN,), np.int32)
     n = min(len(tokens), MAX_INSTRUCTION_LEN)
     instr[:n] = np.asarray(tokens[:n], np.int32)
     return {
-        "occupancy": scene.occupancy,
-        "wall_colors": scene.wall_colors,
-        "origin": np.asarray(scene.origin, np.float32),
-        "floor_color": scene.floor_color,
-        "ceil_color": scene.ceil_color,
-        "goal_field": field.astype(np.float32),
-        "nearest": nearest_free_cell_map(ep.scene_id),
-        "d0": np.float32(max(float(field[si, sj]), 1e-6)),
+        "scene": ep.scene_id,
+        "goals": goals,
+        "start_cell": scene.world_to_cell(float(s[0]), float(s[-1])),
         "start_pos": s.astype(np.float32),
         "start_heading": np.float32(heading_from_quaternion(np.asarray(ep.start_rotation, np.float64))),
         "instruction": instr,
     }
 
 
-_GRID_PAD_FILL = {"occupancy": True, "wall_colors": 0, "goal_field": np.inf}
-
-
 def build_episode_queue(episodes_by_slot: List[List], device) -> EpisodeQueue:
-    """The episodes of every slot, stacked [S, Q, ...] on `device` in one
-    upload. Imported scenes of mixed sizes pad to the largest grid here as
+    """The episodes of every slot, stacked [S, Q, ...] on `device`. The
+    host uploads the distinct scenes once with each episode's row of them,
+    goal cells and start; the card gathers each episode's grids and builds
+    the distinct goals' fields in one launch of `goal_distance_fields`
+    (device_sim.goal_fields, in the span `ppo.field_build`: equal to the
+    host's Dijkstra fields bit for bit), each episode's field the minimum
+    over its goals and d0 max(field at the start cell, 1e-6). Imported
+    scenes of mixed sizes pad to the largest grid here as
     `device_sim.build_scene_batch` pads them: blocked and +inf; `nearest`
     pads by repeating its edge, so a padded lookup still names a navigable
     cell of the scene. The padded size is part of the result: the render
     shades walls by the grid's width."""
-    entries_by_slot = [[_episode_entry(ep) for ep in slot] for slot in episodes_by_slot]
-    n = max(e["occupancy"].shape[0] for slot in entries_by_slot for e in slot)
-    for slot in entries_by_slot:
-        for e in slot:
-            m = e["occupancy"].shape[0]
-            if m == n:
-                continue
-            for f, fill in _GRID_PAD_FILL.items():
-                e[f] = _pad_grid(e[f], n, fill)
-            e["nearest"] = np.pad(e["nearest"], [(0, n - m), (0, n - m), (0, 0)], mode="edge")
-    stacked = {f: np.stack([np.stack([e[f] for e in slot]) for slot in entries_by_slot]) for f in EpisodeQueue._fields}
-    return EpisodeQueue(**upload(stacked, device))
+    S, Q = len(episodes_by_slot), len(episodes_by_slot[0])
+    entries = [_episode_entry(ep) for slot in episodes_by_slot for ep in slot]
+    rows: Dict[str, int] = {}
+    for e in entries:
+        rows.setdefault(e["scene"], len(rows))
+    scenes = [get_scene(sid) for sid in rows]
+    n = max(sc.occupancy.shape[0] for sc in scenes)
+    cells: Dict[Tuple[int, int, int], int] = {}
+    goal_rows = []
+    for e in entries:
+        row = rows[e["scene"]]
+        goal_rows.append([cells.setdefault((row, *cell), len(cells)) for cell in e["goals"]])
+    goal_index = np.full((len(entries), max(len(g) for g in goal_rows)), len(cells), np.int32)
+    for i, g in enumerate(goal_rows):
+        goal_index[i, : len(g)] = g
+
+    def padded(sc, name, fill):
+        return _pad_grid(getattr(sc, name), n, fill)
+
+    t = upload({
+        "occupancy": np.stack([padded(sc, "occupancy", True) for sc in scenes]),
+        "wall_colors": np.stack([padded(sc, "wall_colors", 0) for sc in scenes]),
+        "nearest": np.stack([np.pad(nearest_free_cell_map(sid), [(0, n - sc.occupancy.shape[0])] * 2 + [(0, 0)],
+                                    mode="edge") for sid, sc in zip(rows, scenes)]),
+        "origin": np.asarray([sc.origin for sc in scenes], np.float32).reshape(-1, 2),
+        "floor_color": np.stack([sc.floor_color for sc in scenes]),
+        "ceil_color": np.stack([sc.ceil_color for sc in scenes]),
+        "field_cells": np.asarray(list(cells), np.int32).reshape(-1, 3),
+        "goal_index": goal_index,
+        "start_cell": np.asarray([e["start_cell"] for e in entries], np.int32),
+        "row": np.asarray([rows[e["scene"]] for e in entries], np.int64),
+        **{f: np.stack([e[f] for e in entries]) for f in ("start_pos", "start_heading", "instruction")},
+    }, device)
+    with annotate("ppo.field_build"):
+        goal_field, d0, _ = goal_fields(t["occupancy"], t["field_cells"], t["goal_index"], t["start_cell"],
+                                        torch.full((len(entries),), -1.0, device=t["start_cell"].device))
+    row = t["row"]
+    flat = {f: t[f].index_select(0, row) for f in ("occupancy", "wall_colors", "nearest", "origin", "floor_color",
+                                                    "ceil_color")}
+    flat.update(goal_field=goal_field, d0=d0, start_pos=t["start_pos"], start_heading=t["start_heading"],
+                instruction=t["instruction"])
+    return EpisodeQueue(**{f: flat[f].reshape((S, Q) + tuple(flat[f].shape[1:])) for f in EpisodeQueue._fields})
 
 
 def _select_axis1(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -191,7 +230,7 @@ class DeviceRolloutCollector:
     captured step, its state and output buffers, and the per-slot episode
     schedule. `collect_device` runs one rollout of T steps."""
 
-    def __init__(self, policy, obs_transforms, config, num_envs: int, eager: bool = False):
+    def __init__(self, policy, obs_transforms, config, num_envs: int, eager: bool = False, episodes=None):
         task_cfg = config.TASK_CONFIG
         sim_type = task_cfg.SIMULATOR.TYPE
         if sim_type != "GridWorldSim-v0":
@@ -236,9 +275,10 @@ class DeviceRolloutCollector:
             np.stack([np.array([np.sin(o), np.cos(o), 0.0, 1.0]) for o in orient]).astype(np.float32)
         ).to(self.device)
 
-        # episode schedule: round-robin over the train split, one stream per
-        # slot (the analog of construct_envs' scene split + auto-reset)
-        eps = list(make_dataset(task_cfg.DATASET.TYPE, task_cfg.DATASET).episodes)
+        # episode schedule: round-robin over the train split (the configured
+        # dataset's, or `episodes`), one stream per slot (the analog of
+        # construct_envs' scene split + auto-reset)
+        eps = list(make_dataset(task_cfg.DATASET.TYPE, task_cfg.DATASET).episodes if episodes is None else episodes)
         if not eps:
             raise ValueError("no episodes in the train split")
         self._slot_streams = [eps[i :: self.B] or eps for i in range(self.B)]
@@ -252,10 +292,11 @@ class DeviceRolloutCollector:
         if self._bank_episodes is None:
             logger.info(f"on-device rollout: the split has {len(eps)} episodes > CUDA.EPISODE_BANK_MAX={bank_cap}; "
                         "each rollout uploads its episode queue")
-        self._bank: Optional[EpisodeQueue] = None  # uploaded at the first collect
+        self._bank: Optional[EpisodeQueue] = None  # built by initial_carry_and_obs
         self._bank_pos = {id(ep): i for i, ep in enumerate(eps)} if self._bank_episodes else None
 
         self._state: Optional[Dict[str, torch.Tensor]] = None  # the carry, set by initial_carry_and_obs
+        self._fresh = False
         # a queue pads to its own largest grid, as the JAX module's does (it
         # recompiles per size): the graphs' input queue [B, Q, ...] and both
         # graphs for each grid size, a FIFO of _GRAPH_SIZES_MAX sizes
@@ -277,12 +318,10 @@ class DeviceRolloutCollector:
     def _rollout_inputs(self) -> Tuple[EpisodeQueue, np.ndarray]:
         """(bank [E, ...], slot_map [B, Q]) such that bank[slot_map] is the
         slots' episode queue. With the bank on the card only the index map
-        crosses to the card per rollout; above the cap the stacked queue
-        itself is uploaded (bank = the flattened queue, identity map)."""
+        crosses to the card per rollout; above the cap the slots' queue is
+        built (`build_episode_queue`: bank = the flattened queue, identity
+        map)."""
         if self._bank_episodes is not None:
-            if self._bank is None:
-                bank = build_episode_queue([self._bank_episodes], self.device)
-                self._bank = EpisodeQueue(*(a[0] for a in bank))
             slot_map = np.asarray(
                 [[self._bank_pos[id(self._slot_episode(b, q))] for q in range(self.Q)] for b in range(self.B)], np.int64
             )
@@ -446,23 +485,25 @@ class DeviceRolloutCollector:
 
     # -- public API --------------------------------------------------------------
     def initial_carry_and_obs(self) -> Dict[str, np.ndarray]:
-        """Set up the slots' state at their first episodes. Returns an empty
-        dict: nothing is rendered here, the first rollout emits the step-0
-        observations itself."""
-        firsts = [_episode_entry(self._slot_episode(b, 0)) for b in range(self.B)]
+        """Build the episode bank (at most CUDA.EPISODE_BANK_MAX episodes;
+        span `ppo.bank`) and set up the slots' state; their poses and start
+        distances are their first episodes', taken from the first rollout's
+        queue when it is loaded. Returns an empty dict: nothing is rendered
+        here, the first rollout emits the step-0 observations itself."""
+        if self._bank_episodes is not None and self._bank is None:
+            with annotate("ppo.bank"):
+                self._bank = EpisodeQueue(*(a[0] for a in build_episode_queue([self._bank_episodes], self.device)))
         rgb_spec = next(s for s in self.specs if s.kind == "rgb")
         depth_spec = next(s for s in self.specs if s.kind == "depth")
         B, dev = self.B, self.device
-        init = upload({"pos": np.stack([e["start_pos"] for e in firsts]),
-                       "heading": np.stack([e["start_heading"] for e in firsts]),
-                       "prev_d": np.stack([e["d0"] for e in firsts])}, dev)
+        self._fresh = True  # the slots' poses and start distances are still to be set
         self._state = {
-            "pos": init["pos"].clone(),
-            "heading": init["heading"].clone(),
+            "pos": torch.zeros(B, 3, device=dev),
+            "heading": torch.zeros(B, device=dev),
             "rnn": self.policy.initial_rnn_states(B),
             **{f"prev_{k}": torch.zeros(B, 1, device=dev) for k in _ACTION_KEYS},
             "mask": torch.zeros(B, 1, device=dev),  # 0: the recurrence starts afresh
-            "prev_d": init["prev_d"].clone(),
+            "prev_d": torch.zeros(B, device=dev),
             "ep_idx": torch.zeros(B, dtype=torch.int64, device=dev),
             "step_in_ep": torch.zeros(B, dtype=torch.int64, device=dev),
             "ep_reward": torch.zeros(B, 1, device=dev),
@@ -473,11 +514,16 @@ class DeviceRolloutCollector:
         return {}
 
     def load_rollout(self) -> None:
-        """Everything a rollout needs before its steps, on the card: the
-        queue gathered from the bank by the slot map, the step counter, the
-        stats and the rollout's first recurrent state."""
+        """Everything a rollout needs before its steps, on the card (span
+        `ppo.load`): the queue gathered from the bank by the slot map (the
+        graphs built at a grid size first met), the step counter, the stats
+        and the rollout's first recurrent state."""
         if self._state is None:
             raise RuntimeError("call initial_carry_and_obs() before collect_device()")
+        with annotate("ppo.load"):
+            self._load_rollout()
+
+    def _load_rollout(self) -> None:
         from vlnce_torch.trainers.scan_eval import cached_in
 
         bank, slot_map = self._rollout_inputs()
@@ -492,6 +538,10 @@ class DeviceRolloutCollector:
         else:
             self._queue, self._step, self._bootstrap = built
         self._load_queue(bank, slot_map)
+        if self._fresh:  # each slot at its queue's entry 0, its first episode
+            for k, v in (("pos", self._queue.start_pos), ("heading", self._queue.start_heading), ("prev_d", self._queue.d0)):
+                self._state[k].copy_(v[:, 0])
+            self._fresh = False
         self._state["g"].zero_()
         if built is None:
             self._build()  # the warm-ups compute on the loaded queue
@@ -500,11 +550,12 @@ class DeviceRolloutCollector:
         self._buffers["hidden0"].copy_(self._state["rnn"])
 
     def run_rollout(self, generator: Optional[torch.Generator] = None) -> None:
-        """The rollout's uniforms (one launch), its T steps and the bootstrap:
-        nothing here reads a value back."""
-        self._uniforms.uniform_(0.0, 1.0, generator=generator)
-        self._step.run(self.T)
-        self._bootstrap.run(1)
+        """The rollout's uniforms (one launch), its T steps and the bootstrap
+        (span `ppo.replays`): nothing here reads a value back."""
+        with annotate("ppo.replays"):
+            self._uniforms.uniform_(0.0, 1.0, generator=generator)
+            self._step.run(self.T)
+            self._bootstrap.run(1)
         self.replays += self.T
 
     def collect_device(self, current_episode_reward, running_episode_stats, generator=None):
@@ -512,9 +563,15 @@ class DeviceRolloutCollector:
         the batch's tensors stay on the card (for WDDPPO.update_device) and
         are the collector's buffers, valid until the next rollout. Only the
         slots' episode stats, indices and rewards are read back, in one
-        copy."""
-        self.load_rollout()
-        self.run_rollout(generator)
+        copy. Spans: `ppo.rollout` around `ppo.load`, `ppo.replays` and
+        `ppo.readback`."""
+        with annotate("ppo.rollout"):
+            self.load_rollout()
+            self.run_rollout(generator)
+            with annotate("ppo.readback"):
+                return self._read_back(current_episode_reward, running_episode_stats)
+
+    def _read_back(self, current_episode_reward, running_episode_stats):
         B, s = self.B, self._state
         packed = torch.cat([self._stat_sums.reshape(-1), s["ep_idx"].to(torch.float32), s["ep_reward"].reshape(-1)])
         host = packed.cpu().numpy().copy()  # the one read-back (on the CPU, .cpu() is the tensor itself)

@@ -13,6 +13,11 @@ clip `max_grad_norm`). Linear clip decay and linear LR decay follow
 `update_idx` and the count of optimizer steps, as the JAX package's optax
 schedule does.
 
+Spans (`utils/profiling.annotate`): `ppo.update` around each update;
+inside the device updates `ppo.plan` (the index matrix, and its upload in
+`update_device_scan`), `ppo.minibatches` (the K enqueued steps) and
+`ppo.update_readback`. `minibatch_steps` counts the minibatch steps taken.
+
 `update_device` and `update_device_scan` take the PPO batch that
 `rl/device_rollout.DeviceRolloutCollector` leaves on the card ([T, B, ...]
 tensors in their natural shapes): a minibatch is `index_select(1, idx)` of
@@ -51,6 +56,7 @@ from vlnce_torch.envs.device_sim import upload
 from vlnce_torch.models.waypoint_predictors import offset_to_continuous
 from vlnce_torch.parallel.distributed import align_collective_step, world_size
 from vlnce_torch.parallel.optim import masked_adam, trainable_parameters
+from vlnce_torch.utils.profiling import annotate
 
 STAT_KEYS = ("value_loss", "action_loss", "entropy_loss", "pano_entropy", "offset_entropy", "distance_entropy")
 
@@ -82,6 +88,7 @@ class WDDPPO:
             if getattr(ppo_cfg, "use_linear_lr_decay", False) and num_updates else 0
         )
         self.optimizer_steps = 0
+        self.minibatch_steps = 0  # the minibatch steps this process has taken (optimizer_steps resumes a count)
 
     # ------------------------------------------------------------- advantages
     def get_advantages(self, rollouts) -> np.ndarray:
@@ -200,6 +207,7 @@ class WDDPPO:
         self._set_lr()
         self.optimizer.step()
         self.optimizer_steps += 1
+        self.minibatch_steps += 1
         mark("optimizer")
         return stats
 
@@ -211,18 +219,19 @@ class WDDPPO:
         `clock` (a `utils.profiling.StepClock`), every minibatch is one of its
         steps, split into "upload", "forward", "backward" and "optimizer"."""
         mark: Callable[[str], None] = clock.mark if clock else _no_mark
-        clip_param = self.clip_param(update_idx)
-        advantages = self.get_advantages(rollouts)
-        all_stats = []
-        for _ in range(self.cfg.ppo_epoch):
-            for *arrays, T, _n in rollouts.recurrent_generator(advantages, self.cfg.num_mini_batch, rng):
-                if clock:
-                    clock.start()
-                sample = self.upload(arrays)
-                mark("upload")
-                all_stats.append(self._minibatch_step(sample, clip_param, T, mark))
-        # one download of every minibatch's stats
-        return _means(torch.stack(all_stats))
+        with annotate("ppo.update"):
+            clip_param = self.clip_param(update_idx)
+            advantages = self.get_advantages(rollouts)
+            all_stats = []
+            for _ in range(self.cfg.ppo_epoch):
+                for *arrays, T, _n in rollouts.recurrent_generator(advantages, self.cfg.num_mini_batch, rng):
+                    if clock:
+                        clock.start()
+                    sample = self.upload(arrays)
+                    mark("upload")
+                    all_stats.append(self._minibatch_step(sample, clip_param, T, mark))
+            # one download of every minibatch's stats
+            return _means(torch.stack(all_stats))
 
     # --------------------------------------------------- update (device batch)
     def _minibatch_plan(self, batch: Dict, rng: np.random.RandomState, update_idx: int):
@@ -265,11 +274,17 @@ class WDDPPO:
     def update_device(self, batch: Dict, rng: np.random.RandomState, update_idx: int = 0,
                       clock=None) -> Dict[str, float]:
         """The PPO update over a batch on the card, one minibatch's indices
-        uploaded at a time; the stats read back once."""
-        T, rows, clip_param = self._minibatch_plan(batch, rng, update_idx)
-        device = batch["value_preds"].device
-        all_stats = [self._gather_step(batch, torch.from_numpy(row).to(device), clip_param, T, clock) for row in rows]
-        return _means(torch.stack(all_stats))
+        uploaded at a time; the stats read back once. Spans: `ppo.update`
+        around `ppo.plan`, `ppo.minibatches` and `ppo.update_readback`."""
+        with annotate("ppo.update"):
+            with annotate("ppo.plan"):
+                T, rows, clip_param = self._minibatch_plan(batch, rng, update_idx)
+            device = batch["value_preds"].device
+            with annotate("ppo.minibatches"):
+                all_stats = torch.stack([self._gather_step(batch, torch.from_numpy(row).to(device), clip_param, T, clock)
+                                         for row in rows])
+            with annotate("ppo.update_readback"):
+                return _means(all_stats)
 
     def minibatch_loop(self, batch: Dict, idx: torch.Tensor, clip_param: float, T: int, clock=None) -> torch.Tensor:
         """The K minibatch steps of the index matrix idx [K, n] on the card,
@@ -281,12 +296,18 @@ class WDDPPO:
         """The PPO update over a batch on the card with the [K, n] index
         matrix uploaded once and all K minibatch steps enqueued together; the
         minibatches are update_device's, and so are the stats (one
-        read-back). Single-process only, as in the JAX package."""
+        read-back). Single-process only, as in the JAX package. Spans as
+        update_device's; the plan holds the index upload."""
         if world_size() > 1:
             raise RuntimeError("CUDA.PPO_UPDATE_SCAN is single-process; under several ranks use update_device")
-        T, rows, clip_param = self._minibatch_plan(batch, rng, update_idx)
-        idx = upload({"idx": rows}, batch["value_preds"].device)["idx"]
-        return _means(self.minibatch_loop(batch, idx, clip_param, T, clock))
+        with annotate("ppo.update"):
+            with annotate("ppo.plan"):
+                T, rows, clip_param = self._minibatch_plan(batch, rng, update_idx)
+                idx = upload({"idx": rows}, batch["value_preds"].device)["idx"]
+            with annotate("ppo.minibatches"):
+                stats = self.minibatch_loop(batch, idx, clip_param, T, clock)
+            with annotate("ppo.update_readback"):
+                return _means(stats)
 
 
 def _means(stats: torch.Tensor) -> Dict[str, float]:

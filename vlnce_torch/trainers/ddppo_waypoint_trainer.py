@@ -27,7 +27,11 @@ auto-reset; one CUDA graph replay per env step, the bootstrap value and GAE
 in a second graph, one read-back of the episode stats). The PPO batch stays
 on the card for `WDDPPO.update_device`, or `update_device_scan` with
 `CUDA.PPO_UPDATE_SCAN` (which, as in the JAX package, takes effect only
-with the rollout on the card, and on one process).
+with the rollout on the card, and on one process). One such update is
+`train_update_on_device`, which `train` calls once per update after
+`start_device_rollout` (the benchmark drives the same two methods).
+`train` builds the spaces, the policy and WDDPPO by `_get_spaces` and
+`_initialize_policy`, which the benchmark calls too.
 
 Across ranks (the reference's DD-PPO ranks; `CUDA.MESH.DATA`, one process
 per card, `parallel/mesh.resolve_training_mesh`) each rank collects its own
@@ -132,8 +136,33 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
         self.update_history: List[Dict[str, float]] = []
         self.rollout_stats: Dict[str, float] = {}
         self.collector = None  # the rollout on the card, with CUDA.ON_DEVICE_ROLLOUT
+        # the on-card path's episode statistics, made by start_device_rollout
+        self.current_episode_reward: Optional[np.ndarray] = None
+        self.running_episode_stats: Dict[str, np.ndarray] = {}
 
     # ----------------------------------------------------------------- spaces
+    def _get_spaces(self, config, envs=None):
+        """The observation space (the transformed pano sensors and the
+        history frames) and the action space, of `envs` or of one probe env. `config` is the trainer's own: its pano sensors
+        were added by the constructor."""
+        if envs is not None:
+            env_space, action_space = envs.observation_spaces[0], envs.action_spaces[0]
+        else:
+            probe = get_env_class(config.ENV_NAME)(config.clone())
+            try:
+                env_space, action_space = probe.observation_space, probe.action_space
+            finally:
+                probe.close()
+        self._set_observation_space(env_space)
+        return self.observation_space, action_space
+
+    def _initialize_policy(self, config, load_from_ckpt: bool, observation_space, action_space) -> None:
+        """The waypoint policy and WDDPPO over `observation_space`
+        (`_get_spaces`'), from the trainer's config; with `load_from_ckpt`,
+        the weights of `config.IL.ckpt_to_load`."""
+        self.observation_space = observation_space
+        self._initialize_policy_rl(load_from_ckpt, config.IL.ckpt_to_load if load_from_ckpt else "")
+
     def _set_observation_space(self, env_space) -> None:
         """Transformed obs space + per-frame history spaces from one env's
         observation space (reference:73-100)."""
@@ -211,21 +240,15 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
         config = self.config
         if bool(config.CUDA.ON_DEVICE_ROLLOUT):
             # no env pool: the grid world steps on the card
-            # (rl/device_rollout.py); one probe env gives the spaces
-            probe = get_env_class(config.ENV_NAME)(config.clone())
-            try:
-                env_space = probe.observation_space
-            finally:
-                probe.close()
+            # (rl/device_rollout.py); `_get_spaces` probes one env
             self.envs = None
         else:
             # the workers fork before the handlers are installed: they keep
             # the default handlers, so close() can still end them
             self.envs = construct_envs(config, get_env_class(config.ENV_NAME))
-            env_space = self.envs.observation_spaces[0]
         previous_handlers = add_signal_handlers()
         try:
-            self._train(config, env_space)
+            self._train(config)
         finally:
             for sig, handler in previous_handlers.items():
                 signal.signal(sig, handler)
@@ -234,21 +257,17 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
             # join any in-flight async checkpoint write before returning
             wait_for_pending()
 
-    def _train(self, config, env_space) -> None:
+    def _train(self, config) -> None:
         on_device = self.envs is None
         N = int(config.NUM_ENVIRONMENTS) if on_device else self.envs.num_envs
-        self._set_observation_space(env_space)
-        self._initialize_policy_rl(load_from_ckpt=False)
+        observation_space, action_space = self._get_spaces(config, self.envs)
+        self._initialize_policy(config, False, observation_space, action_space)
         self.step_clock = StepClock(self.policy.device) if self.time_train_steps else None
         ppo_cfg = config.RL.PPO
         rollouts = None
         if on_device:
-            from vlnce_torch.rl.device_rollout import DeviceRolloutCollector
-
-            self.collector = DeviceRolloutCollector(self.policy, self.obs_transforms, config, N)
-            self.collector.initial_carry_and_obs()
-            scan = bool(config.CUDA.PPO_UPDATE_SCAN) and world_size() == 1
-            update_device = self.agent.update_device_scan if scan else self.agent.update_device
+            self.start_device_rollout()
+            current_episode_reward, running_episode_stats = self.current_episode_reward, self.running_episode_stats
         else:
             rollouts = ActionDictRolloutStorage(
                 ppo_cfg.num_steps, N, self.observation_space, config.MODEL.STATE_ENCODER.hidden_size,
@@ -273,8 +292,8 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
             for k in host_parts[0]:
                 rollouts.observations[k][0] = np.concatenate([p[k] for p in host_parts], axis=0)
 
-        current_episode_reward = np.zeros((N, 1), np.float32)
-        running_episode_stats = {"count": np.zeros((N, 1), np.float32), "reward": np.zeros((N, 1), np.float32)}
+            current_episode_reward = np.zeros((N, 1), np.float32)
+            running_episode_stats = {"count": np.zeros((N, 1), np.float32), "reward": np.zeros((N, 1), np.float32)}
         window_episode_stats = defaultdict(lambda: deque(maxlen=ppo_cfg.reward_window_size))
 
         start_update = count_steps = 0
@@ -299,38 +318,33 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
             for update in range(start_update, config.RL.NUM_UPDATES):
                 if EXIT["flag"]:
                     break
-                t0 = time.time()
                 if on_device:
-                    with annotate("rollout"):
-                        device_batch, n_steps = self.collector.collect_device(
-                            current_episode_reward, running_episode_stats, self.generator)
-                    count_steps += n_steps
-                    timing["env_steps"] += n_steps
-                    if update == start_update:  # holds the kernels' build and the graphs' capture
-                        timing["first_rollout_time"] = time.time() - t0
+                    stats, spent = self.train_update_on_device(update, rng_np)
+                    count_steps += spent["env_steps"]
+                    timing["env_steps"] += spent["env_steps"]
+                    rollout_s, update_s = spent["rollout_s"], spent["update_s"]
                 else:
-                    for _step in range(ppo_cfg.num_steps):
-                        with annotate("rollout_step"):
+                    t0 = time.time()
+                    with annotate("ppo.rollout"):
+                        for _step in range(ppo_cfg.num_steps):
                             self._collect_rollout_step(rollouts, current_episode_reward, running_episode_stats, timing)
-                        count_steps += N
-                timing["rollout_time"] += time.time() - t0
+                            count_steps += N
+                    rollout_s = time.time() - t0
+                    t0 = time.time()
+                    stats = self._update_from_storage(rollouts, rng_np, update)
+                    update_s = time.time() - t0
+                timing["rollout_time"] += rollout_s
+                timing["update_time"] += update_s
+                if update == start_update:  # the kernels' build, the graphs' capture, the libraries' warm-up
+                    timing["first_update_time"] = update_s
+                    if on_device:
+                        timing["first_rollout_time"] = rollout_s
 
                 # one cumulative snapshot per update; logging takes the delta
                 # between the newest and oldest snapshots in the window
                 for k, v in running_episode_stats.items():
                     window_episode_stats[k].append(v.copy())
 
-                t0 = time.time()
-                with annotate("ppo_update"):
-                    if on_device:
-                        # the bootstrap value and GAE ran in the rollout's
-                        # second graph; the minibatches gather on the card
-                        stats = update_device(device_batch, rng_np, update_idx=update, clock=self.step_clock)
-                    else:
-                        stats = self._update_from_storage(rollouts, rng_np, update)
-                timing["update_time"] += time.time() - t0
-                if update == start_update:  # holds the libraries' warm-up
-                    timing["first_update_time"] = time.time() - t0
                 self.update_history.append({"update": update, "count_steps": count_steps, **stats})
 
                 if update % config.RL.LOG_INTERVAL == 0:
@@ -354,6 +368,39 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
             if REQUEUE["flag"]:
                 self._save_interrupted_state(update, count_steps)
         self.rollout_stats = timing
+
+    def start_device_rollout(self, episodes=None) -> None:
+        """The rollout on the card (`rl/device_rollout.DeviceRolloutCollector`)
+        for NUM_ENVIRONMENTS slots over the train split (the configured
+        dataset's, or `episodes`): its episode bank built, its slots at their
+        first episodes, the episode statistics at zero."""
+        from vlnce_torch.rl.device_rollout import DeviceRolloutCollector
+
+        N = int(self.config.NUM_ENVIRONMENTS)
+        self.collector = DeviceRolloutCollector(self.policy, self.obs_transforms, self.config, N, episodes=episodes)
+        self.collector.initial_carry_and_obs()
+        self.current_episode_reward = np.zeros((N, 1), np.float32)
+        self.running_episode_stats = {"count": np.zeros((N, 1), np.float32), "reward": np.zeros((N, 1), np.float32)}
+
+    def train_update_on_device(self, update_idx: int, rng: np.random.RandomState):
+        """One update of the on-card path: a rollout of T steps
+        (`collect_device`; its episode statistics added into
+        `current_episode_reward` and `running_episode_stats`), then the PPO
+        update of the batch it left on the card: `update_device_scan` with
+        CUDA.PPO_UPDATE_SCAN on one process, else `update_device` (which
+        joins the ranks). The bootstrap value and GAE ran in the rollout's
+        second graph. Returns (the six PPO stats, {"env_steps", "rollout_s",
+        "update_s"})."""
+        if self.collector is None:
+            self.start_device_rollout()
+        scan = bool(self.config.CUDA.PPO_UPDATE_SCAN) and world_size() == 1
+        t0 = time.time()
+        batch, n_steps = self.collector.collect_device(self.current_episode_reward, self.running_episode_stats,
+                                                       self.generator)
+        t1 = time.time()
+        update = self.agent.update_device_scan if scan else self.agent.update_device
+        stats = update(batch, rng, update_idx=update_idx, clock=self.step_clock)
+        return stats, {"env_steps": n_steps, "rollout_s": t1 - t0, "update_s": time.time() - t1}
 
     def _update_from_storage(self, rollouts, rng_np, update: int) -> Dict[str, float]:
         """The bootstrap value of the last observations, the returns on the

@@ -29,8 +29,13 @@ span does nothing. They sit where the work happens:
   step (`train.gather`, then the IL step's `il.forward`, `il.backward`,
   `il.optimizer`) and `train.readback`; the per-batch IL step
   (trainers/base_trainer._il_update) opens `train.upload` and `train.step`;
-- DAgger's host collection (`collect_step`), DD-PPO's `rollout`,
-  `rollout_step` and `ppo_update`.
+- DD-PPO (rl/device_rollout, rl/ppo): `ppo.bank` around the episode
+  bank's build, holding `ppo.field_build` (its goal fields on the device);
+  per rollout on the card `ppo.rollout` holding `ppo.load`, `ppo.replays`
+  and `ppo.readback` (the host rollout: `ppo.rollout` alone); per update
+  `ppo.update`, holding on the card `ppo.plan`, `ppo.minibatches` and
+  `ppo.update_readback`;
+- DAgger's host collection (`collect_step`).
 """
 
 from __future__ import annotations
