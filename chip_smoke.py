@@ -134,10 +134,12 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
 19. `phase_device_waypoint` (after phase 13): phase 13's training with
    CUDA.ON_DEVICE_ROLLOUT (no worker; each env step one replay, B1 twice in
    it; the bootstrap value a second graph; one read-back per rollout; the
-   PPO minibatches gathered on the card), then with CUDA.PPO_UPDATE_SCAN;
-   the replays and the enqueued minibatch loop under
-   set_sync_debug_mode("error"); frozen weights bit-equal, the checkpoint's
-   eval; the rollout's and the update's times beside phase 13's;
+   PPO minibatches gathered on the card), then with CUDA.PPO_UPDATE_SCAN
+   (the first update eager, the second captures the minibatch step and
+   replays it; launches counted as the card ran them, the profiler's
+   launches a replayed step); the replays and the enqueued minibatch loop
+   under set_sync_debug_mode("error"); frozen weights bit-equal, the
+   checkpoint's eval; the rollout's and the update's times beside phase 13's;
 20. `phase_device_waypoint_against_plain`: the graphed rollout through B1's
    kernel against the eager one with its plain version (f32, N=4, T=8, the
    same uniforms): values and log-probs at phase 4's tolerance, positions
@@ -3395,9 +3397,14 @@ def phase_device_waypoint(dev, host):
     the captured step (B1 twice in it), the bootstrap value a second graph
     (B1 twice), one read-back per rollout, the PPO minibatches gathered on
     the card (per minibatch B1 2 forward, 2 backward on the cluster route, 2
-    weight gradients), B2 never; then again with CUDA.PPO_UPDATE_SCAN. The
-    rollout's replays (both runs) and update_device_scan's minibatch loop
-    run under set_sync_debug_mode("error"). Each train() builds its episode
+    weight gradients), B2 never; then again with CUDA.PPO_UPDATE_SCAN, whose
+    first update runs eagerly and whose second captures the minibatch step
+    (B1 2 + 2 + 2 recorded) and replays it: the launch counts add each
+    replay's recorded launches (the capture itself runs none), and one more
+    update under the profiler prints its kernel and graph launches per
+    replayed step. The rollout's replays (both runs) and
+    update_device_scan's minibatch loop run under
+    set_sync_debug_mode("error"). Each train() builds its episode
     bank's goal fields in one launch of goal_field.cu, counted in the
     goal-field kernel's launch line; one more update under the profiler
     holds each of the rollout's and the update's `ppo.*` spans. Then the
@@ -3441,8 +3448,12 @@ def phase_device_waypoint(dev, host):
             launches = _read_launches()
             builds = _field_launches()
             assert builds["goal_distance_fields"] == 1, f"{builds}: the episode bank's goal fields, one launch"
-            ppo, c, r = trainer.config.RL.PPO, trainer.collector, trainer.rollout_stats
+            ppo, c, r, agent = trainer.config.RL.PPO, trainer.collector, trainer.rollout_stats, trainer.agent
             minibatches = WP_UPDATES * ppo.ppo_epoch * ppo.num_mini_batch
+            # the wrappers count a captured step's launches once, at its capture, which runs nothing: what
+            # the card ran is those of the eager steps and of every replay
+            replayed = {k: v * (agent.replayed_steps - agent.captures) for k, v in agent.capture_launches.items()}
+            launches = {k: v + replayed.get(k, 0) for k, v in launches.items()}
             print(f"{name}: run_exp took {wall:.1f} s, no env pool ({trainer.envs}); launches {json.dumps(launches)}: the "
                   f"probe step, the warm-ups and captures of the step and the bootstrap graphs {json.dumps(c.build_launches)}, "
                   f"then {minibatches} PPO minibatches; both graphs captured in {c.capture_seconds:.3f} s (warm-ups "
@@ -3454,7 +3465,8 @@ def phase_device_waypoint(dev, host):
             assert c.build_launches == {"gru_sequence": 10, "fused_resize_normalize": 0}, c.build_launches
             assert launches == {"gru_sequence": 10 + 2 * minibatches, "gru_sequence_backward": 2 * minibatches,
                                 "gru_weight_gradient": 2 * minibatches, "fused_resize_normalize": 0}, launches
-            assert _cluster_launches() == 2 * minibatches, "B1's backward left the cluster route"
+            assert _cluster_launches() + replayed.get("gru_sequence_backward", 0) == 2 * minibatches, \
+                "B1's backward left the cluster route"
             launches.update(builds)
             history = trainer.update_history
             assert len(history) == WP_UPDATES and all(math.isfinite(v) for h in history for v in h.values()), history
@@ -3512,23 +3524,38 @@ def phase_device_waypoint(dev, host):
                 top = sorted(((v, k) for k, v in counts.items()), reverse=True)[:3]
                 print(f"{name}: the rollout's most launched kernels: " + "; ".join(f"{v} x {k[:70]}" for v, k in top))
             else:
-                print(f"{name}: update_device_scan {r['update_time'] / WP_UPDATES:.3f} s per update, {minibatches // WP_UPDATES} "
-                      f"minibatch steps enqueued after one index upload, one read-back")
+                # the first update eager (Adam held no state), the second captured at its first step
+                per_update = minibatches // WP_UPDATES
+                assert agent.captures == 1 and agent.replayed_steps == per_update, (agent.captures, agent.replayed_steps)
+                assert agent.capture_launches == {"gru_sequence": 2, "gru_sequence_backward": 2, "gru_weight_gradient": 2,
+                                                  "fused_resize_normalize": 0}, agent.capture_launches
+                print(f"{name}: update_device_scan {r['update_time'] / WP_UPDATES:.3f} s per update, {per_update} "
+                      f"minibatch steps after one index upload, one read-back; {agent.captures} capture of the step "
+                      f"({agent.capture_seconds:.3f} s, recorded {json.dumps(agent.capture_launches)}), "
+                      f"{agent.replayed_steps} replayed steps")
                 from torch.profiler import ProfilerActivity, profile
 
-                steps = trainer.agent.minibatch_steps
-                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                steps, replays = agent.minibatch_steps, agent.replayed_steps
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     trainer.train_update_on_device(WP_UPDATES, np.random.RandomState(0))
+                host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]  # not the spans' mirrors
                 spans = {}
-                for e in prof.events():
+                for e in host:
                     if e.name.startswith("ppo."):
                         spans[e.name] = spans.get(e.name, 0) + 1
+                update = next(e for e in host if e.name == "ppo.update").time_range
+                launch = re.compile(r"^(cuda|cu)(LaunchKernel|LaunchKernelExC?|LaunchCooperativeKernel|GraphLaunch)(_v\d+)?$")
+                update_launches = sum(1 for e in host if launch.match(e.name)
+                                      and update.start <= e.time_range.start and e.time_range.end <= update.end)
                 want = ("ppo.rollout", "ppo.load", "ppo.replays", "ppo.readback", "ppo.update", "ppo.plan",
                         "ppo.minibatches", "ppo.update_readback")
                 print(f"{name}: one more update under the profiler: spans {json.dumps(spans)}, "
-                      f"{trainer.agent.minibatch_steps - steps} minibatch steps counted")
-                assert all(spans.get(k) == 1 for k in want), spans
-                assert trainer.agent.minibatch_steps - steps == minibatches // WP_UPDATES
+                      f"{agent.minibatch_steps - steps} minibatch steps counted, {agent.replayed_steps - replays} of them "
+                      f"replayed; {update_launches} kernel and graph launches inside ppo.update, "
+                      f"{update_launches / per_update:.2f} a minibatch step (1,652 eager)")
+                assert all(spans.get(k) == 1 for k in want) and "ppo.capture" not in spans, spans
+                assert agent.minibatch_steps - steps == agent.replayed_steps - replays == per_update
+                assert 0 < update_launches <= 5 * per_update, update_launches
             out[name] = launches
 
         evaluator, eval_launches, eval_wall = _run_loop("eval", common + [

@@ -357,6 +357,25 @@ def test_update_device_equals_update_device_scan(pair, greedy):
     assert moved and all(torch.equal(p1[k], p2[k]) for k in p1)
 
 
+def test_update_device_scan_never_captures_on_the_cpu(pair, greedy):
+    """On the CPU every update of update_device_scan runs its steps eagerly,
+    the second (Adam holding state, the shapes warmed up) too: no capture,
+    no replay, every step counted."""
+    batch = _device_batch(greedy[0]["port"][0][0])
+    policy = pair["policy"]
+    start = {k: v.clone() for k, v in policy.state_dict().items()}
+    _, agent = _agents(pair)
+    try:
+        for update in range(2):
+            stats = agent.update_device_scan(batch, np.random.RandomState(update), update_idx=update)
+            assert sorted(stats) == sorted(STAT_KEYS) and all(np.isfinite(v) for v in stats.values())
+        T_, rows, _ = agent._minibatch_plan(batch, np.random.RandomState(0), 0)
+        assert agent.optimizer.state and agent._step_graph(batch, T_, rows.shape[1]) is None
+        assert agent.captures == agent.replayed_steps == 0 and agent.minibatch_steps == agent.optimizer_steps == 8
+    finally:
+        policy.load_state_dict(start)
+
+
 def test_update_device_matches_jax(pair, greedy):
     """One device update of both packages from one batch (the port's greedy
     rollout, carried across as numpy): the mean stats within 1e-4; the

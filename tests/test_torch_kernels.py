@@ -873,6 +873,161 @@ def test_rollout_graph_matches_eager():
     assert bool(torch.isfinite(stats).all())
 
 
+def _wpn_update_case(dev, exp, decay):
+    """r2r_waypoint/<exp>.yaml at its widths (GN-ResNet50 depth, H=256, bf16
+    encoders) with 32x32 frames, untrained token embeddings, 2 slots, T=4,
+    2 x 2 minibatches of one env; `decay` switches linear LR and clip decay
+    on over 12 updates. Returns (config, policy, a second policy with the
+    same weights, the obs transforms)."""
+    from vlnce_torch.config import get_config
+    from vlnce_torch.config.default import add_pano_sensors_to_config
+    from vlnce_torch.envs import spaces
+    from vlnce_torch.models.waypoint_policy import WaypointPolicy
+    from vlnce_torch.ops.obs_transforms import get_active_obs_transforms
+
+    opts = ["CUDA.DEVICE", str(dev), "TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "TASK_CONFIG.DATASET.NUM_EPISODES", 6,
+            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 3, "NUM_ENVIRONMENTS", 2, "RL.PPO.num_steps", 4,
+            "RL.PPO.num_mini_batch", 2, "RL.PPO.ppo_epoch", 2, "RL.NUM_UPDATES", 12,
+            "RL.PPO.use_linear_lr_decay", decay, "RL.PPO.use_linear_clip_decay", decay,
+            "MODEL.INSTRUCTION_ENCODER.vocab_size", 64, "MODEL.INSTRUCTION_ENCODER.use_pretrained_embeddings", False,
+            *(x for sensor in ("RGB", "DEPTH") for side in ("HEIGHT", "WIDTH")
+              for x in (f"TASK_CONFIG.SIMULATOR.{sensor}_SENSOR.{side}", 32))]
+    cfg = add_pano_sensors_to_config(get_config(f"vlnce_torch/config/experiments/r2r_waypoint/{exp}.yaml", opts))
+    img = (32, 32)
+    space = spaces.Dict({
+        "rgb": spaces.Box(0, 255, (12,) + img + (3,), np.uint8), "depth": spaces.Box(0.0, 1.0, (12,) + img + (1,), np.float32),
+        "rgb_history": spaces.Box(0, 255, img + (3,), np.uint8), "depth_history": spaces.Box(0.0, 1.0, img + (1,), np.float32),
+        "instruction": spaces.Box(0, 2**31 - 1, (200,), np.int32), "angle_features": spaces.Box(-1.0, 1.0, (12, 4), np.float32),
+    })
+    policy, twin = WaypointPolicy.from_config(cfg, space), WaypointPolicy.from_config(cfg, space)
+    with torch.no_grad():
+        policy.net.stop_linear.weight.mul_(20.0)
+        policy.net.stop_linear.bias.fill_(-1.0)
+    twin.load_state_dict(policy.state_dict())
+    return cfg, policy, twin, get_active_obs_transforms(cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", [False, True], ids=["constant", "decay"])
+@pytest.mark.parametrize("exp", ["1-wpn-cc", "3-wpn-dd"])
+def test_ppo_step_graph_matches_eager(exp, decay, monkeypatch):
+    """update_device_scan's captured minibatch step against the same steps
+    run eagerly (`WDDPPO(..., eager=True)`), two agents on two copies of one
+    policy over one rollout batch and the same minibatch permutations, TF32
+    off: after every update each step's six stats, every parameter and
+    every Adam moment within 1e-6 and each step count equal, with linear LR
+    and clip decay off and on. They are equal bit for bit where cuDNN picks
+    the same engines: it picks the weight gradient's engine of the 1x1
+    convolution `net.inst_attn_k` by the tensors' alignment too, and the
+    graph's pool places them apart from the eager allocations (at 3-wpn-dd
+    with decay, its exp_avg differed by 4e-15 after the capture). The first update runs eagerly (no Adam state),
+    the second captures at its first step (B1 2 forward, 2 backward, 2
+    weight gradients in the graph) and replays, the third replays: one
+    capture. An update with a StepClock stays eager; a replayed update's
+    minibatch loop passes under set_sync_debug_mode("error"); after
+    `optimizer.state.clear()` the next update is eager and the one after
+    captures again, and after `optimizer.load_state_dict(...)` (a state
+    saved earlier) the next update captures again. cuDNN is held to its
+    deterministic algorithms here: its default weight gradient of the 1x1
+    convolution `net.inst_attn_k` differs between two eager passes of one
+    step (by 5e-13 at a scale of 6e-6), which no capture causes."""
+    import copy
+
+    from vlnce_torch.parallel.optim import trainable_parameters
+    from vlnce_torch.rl.device_rollout import DeviceRolloutCollector
+    from vlnce_torch.rl.ppo import WDDPPO
+    from vlnce_torch.utils.profiling import StepClock
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg, policy, twin, transforms = _wpn_update_case(dev, exp, decay)
+    collector = DeviceRolloutCollector(policy, transforms, cfg, 2)
+    collector.initial_carry_and_obs()
+    batch = collector.collect_device(np.zeros((2, 1), np.float32), {}, torch.Generator(device=dev).manual_seed(3))[0]
+    ppo = cfg.RL.PPO
+    coefs = dict(offset_regularize_coef=ppo.offset_regularize_coef, pano_entropy_coef=ppo.pano_entropy_coef,
+                 offset_entropy_coef=ppo.offset_entropy_coef, distance_entropy_coef=ppo.distance_entropy_coef,
+                 num_updates=int(cfg.RL.NUM_UPDATES))
+    graphed, eager = WDDPPO(policy, ppo, **coefs), WDDPPO(twin, ppo, eager=True, **coefs)
+    K = ppo.ppo_epoch * ppo.num_mini_batch
+    assert graphed.optimizer.param_groups[0]["capturable"] and torch.is_tensor(graphed.optimizer.param_groups[0]["lr"])
+    logs = {id(graphed): [], id(eager): []}
+    checked = []
+
+    def recording(agent):
+        loop = agent.minibatch_loop
+
+        def run(*args, **kwargs):
+            if checked:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = loop(*args, **kwargs)
+                logs[id(agent)].append(out.clone())
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            return out
+
+        agent.minibatch_loop = run
+
+    recording(graphed)
+    recording(eager)
+
+    def near(a, b):
+        return torch.equal(a, b) or float((a - b).abs().max()) <= 1e-6
+    updates = [0]
+
+    def update(clock=False, sync_checked=False):
+        u = updates[0]
+        checked[:] = [True] if sync_checked else []
+        for agent in (graphed, eager):
+            agent.update_device_scan(batch, np.random.RandomState(100 + u), update_idx=u,
+                                     clock=StepClock(dev) if clock else None)
+        checked.clear()
+        updates[0] += 1
+        assert near(logs[id(graphed)][-1], logs[id(eager)][-1]), f"update {u}: the steps' stats differ"
+        assert bool(torch.isfinite(logs[id(graphed)][-1]).all())
+        for (name, p), q in zip(policy.named_parameters(), twin.parameters()):
+            assert near(p, q), f"update {u}: {name} differs"
+        params = trainable_parameters(graphed.optimizer)
+        assert len(graphed.optimizer.state) == len(params) > 40
+        names = {p: name for name, p in policy.named_parameters()}
+        for p, q in zip(params, trainable_parameters(eager.optimizer)):
+            a, b = graphed.optimizer.state[p], eager.optimizer.state[q]
+            assert torch.equal(a["step"], b["step"]), f"update {u}: Adam's step count of {names[p]}"
+            for k in ("exp_avg", "exp_avg_sq"):
+                assert near(a[k], b[k]), f"update {u}: Adam's {k} of {names[p]}"
+
+    update()
+    assert graphed.captures == graphed.replayed_steps == 0
+    saved = copy.deepcopy(graphed.optimizer.state_dict()), copy.deepcopy(eager.optimizer.state_dict())
+    update()
+    assert graphed.captures == 1 and graphed.replayed_steps == K
+    assert graphed.capture_launches == {"gru_sequence": 2, "gru_sequence_backward": 2, "gru_weight_gradient": 2,
+                                        "fused_resize_normalize": 0}, graphed.capture_launches
+    update()
+    assert graphed.captures == 1 and graphed.replayed_steps == 2 * K
+    update(clock=True)
+    assert graphed.captures == 1 and graphed.replayed_steps == 2 * K
+    update(sync_checked=True)
+    assert graphed.captures == 1 and graphed.replayed_steps == 3 * K
+    for agent in (graphed, eager):
+        agent.optimizer.state.clear()
+    update()
+    assert graphed.captures == 1 and graphed.replayed_steps == 3 * K
+    update()
+    assert graphed.captures == 2 and graphed.replayed_steps == 4 * K
+    for agent, state in zip((graphed, eager), saved):
+        agent.optimizer.load_state_dict(state)
+    update()
+    assert graphed.captures == 3 and graphed.replayed_steps == 5 * K and len(graphed._graphs) == 2
+    assert eager.captures == eager.replayed_steps == 0
+    assert graphed.minibatch_steps == graphed.optimizer_steps == eager.optimizer_steps == updates[0] * K
+    rate = float(graphed.optimizer.param_groups[0]["lr"])
+    assert rate == float(eager.optimizer.param_groups[0]["lr"])
+    assert rate < 0.9 * ppo.lr if decay else rate == pytest.approx(ppo.lr, rel=1e-6)
+
+
 @pytest.mark.cuda
 def test_rollout_graphs_per_grid_size_match_eager(tmp_path, monkeypatch):
     """DD-PPO's rollout over the synthetic split's four scenes imported as

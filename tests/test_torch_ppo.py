@@ -5,6 +5,11 @@ in both packages (tests/torch_port_cases.build_waypoint_pair).
 - The rollout storage: inserts, GAE and plain returns, after_update, and the
   recurrent generator's env columns from the same `np.random.RandomState`,
   exactly (both are numpy).
+- The optimizer's and the loss's forms for a captured step on the card,
+  here on the CPU: WDDPPO's plain Adam, the clip range as a float64 scalar
+  tensor giving the float's numbers, the learning rate written into a
+  tensor following the float schedule and the JAX package's optax one, and
+  a capturable Adam keeping its form across `load_state_dict`.
 - One update over rollouts the port's own policy collected (sampled
   actions, their log-probs, values and states), with linear clip and LR
   decay on: the first minibatch's loss stats within 1e-5 and its gradients
@@ -24,10 +29,13 @@ from gymnasium import spaces as gym_spaces
 import jax
 import jax.numpy as jnp
 
+import optax
+
 from vlnce_tpu.rl.ppo import WDDPPO as JaxWDDPPO
 from vlnce_tpu.rl.rollout_storage import ActionDictRolloutStorage as JaxStorage
 from vlnce_torch.envs import spaces as port_spaces
 from vlnce_torch.models.convert import state_dict_from_jax_params
+from vlnce_torch.parallel.optim import masked_adam
 from vlnce_torch.rl.ppo import STAT_KEYS, WDDPPO
 from vlnce_torch.rl.rollout_storage import ActionDictRolloutStorage
 
@@ -218,3 +226,96 @@ def test_update_matches_jax(case, first_minibatch):
     # softmax over near-equal energies cancels), most of them exactly 0 in
     # both packages
     assert loose < 0.1 * count, (loose, count)
+
+
+def _coefs(cfg):
+    ppo = cfg.RL.PPO
+    return dict(offset_regularize_coef=ppo.offset_regularize_coef, pano_entropy_coef=ppo.pano_entropy_coef,
+                offset_entropy_coef=ppo.offset_entropy_coef, distance_entropy_coef=ppo.distance_entropy_coef,
+                num_updates=int(cfg.RL.NUM_UPDATES))
+
+
+def test_wddppo_builds_plain_adam_on_the_cpu(case):
+    """On the CPU WDDPPO's Adam is the one it built before the captured step
+    existed: not capturable, a float learning rate, torch's betas, the
+    config's eps, every trainable parameter in its one group; and its
+    counters of captures and replays start at 0."""
+    policy, cfg = case["policy"], case["cfg"]
+    agent = WDDPPO(policy, cfg.RL.PPO, **_coefs(cfg))
+    group, = agent.optimizer.param_groups
+    assert group["capturable"] is False and isinstance(group["lr"], float) and group["lr"] == cfg.RL.PPO.lr
+    assert group["betas"] == (0.9, 0.999) and group["eps"] == cfg.RL.PPO.eps and not group["fused"]
+    assert group["params"] == [p for p in policy.parameters() if p.requires_grad]
+    assert not agent.eager and agent.captures == agent.replayed_steps == 0 and not agent.optimizer.state
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5, 0.37, 0.0])
+def test_loss_takes_the_clip_range_as_a_device_scalar(case, first_minibatch, scale):
+    """The loss, its six stats and every gradient are the same bits with the
+    clip range as a float and as the 0-d float64 tensor a captured step
+    fills, at the configured range and decayed ones."""
+    agent, policy, mb = case["agent"], case["policy"], first_minibatch
+    clip = case["cfg"].RL.PPO.clip_param * scale
+    sample = agent.upload(mb["arrays"])
+    runs = []
+    for c in (clip, torch.tensor(clip, dtype=torch.float64)):
+        policy.zero_grad(set_to_none=True)
+        total, stats = agent.loss(sample, c, mb["T"])
+        total.backward()
+        runs.append((total.detach(), {k: v.detach() for k, v in stats.items()},
+                     {n: p.grad.clone() for n, p in policy.named_parameters() if p.grad is not None}))
+    policy.zero_grad(set_to_none=True)
+    (t0, s0, g0), (t1, s1, g1) = runs
+    assert torch.equal(t0, t1) and all(torch.equal(s0[k], s1[k]) for k in STAT_KEYS)
+    assert sorted(g0) == sorted(g1) and len(g0) > 40 and all(torch.equal(g0[n], g1[n]) for n in g0)
+
+
+def test_set_lr_into_a_tensor_follows_the_float_and_optax_schedules(case):
+    """Linear LR decay written by `_set_lr` into a capturable Adam's tensor
+    (built here on the CPU; only its step needs the card) reads, at every
+    optimizer step and past the last, the float schedule rounded to
+    float32, and the JAX package's optax.linear_schedule within 1e-6 of the
+    initial rate."""
+    policy, cfg = case["policy"], case["cfg"]
+    ppo = cfg.RL.PPO
+    floats = WDDPPO(policy, ppo, **_coefs(cfg))
+    tensors = WDDPPO(policy, ppo, **_coefs(cfg))
+    tensors.optimizer = masked_adam(ppo.lr, policy, policy.config.MODEL, eps=ppo.eps, max_grad_norm=ppo.max_grad_norm,
+                                    capturable=True)
+    rate = tensors.optimizer.param_groups[0]["lr"]
+    assert torch.is_tensor(rate) and rate.dim() == 0 and tensors.optimizer.param_groups[0]["capturable"]
+    steps = int(cfg.RL.NUM_UPDATES) * ppo.ppo_epoch * ppo.num_mini_batch
+    assert floats._lr_steps == tensors._lr_steps == steps
+    schedule = optax.linear_schedule(init_value=ppo.lr, end_value=0.0, transition_steps=steps)
+    for step in range(steps + 2):
+        floats.optimizer_steps = tensors.optimizer_steps = step
+        floats._set_lr()
+        tensors._set_lr()
+        assert tensors.optimizer.param_groups[0]["lr"] is rate  # written in place: a replay reads it
+        assert float(rate) == float(np.float32(floats.optimizer.param_groups[0]["lr"])), step
+        assert float(rate) == pytest.approx(float(schedule(step)), abs=1e-6 * ppo.lr), step
+
+
+def test_capturable_adam_keeps_its_form_across_load_state_dict():
+    """A capturable Adam loading a plain one's state keeps its own rate
+    tensor (the saved rate copied in), `capturable` and its step counts on
+    the parameters' device; a plain one loading a capturable one's state
+    keeps a float rate and stays plain; the moments load as they were."""
+    torch.manual_seed(0)
+    plain = masked_adam(1e-3, torch.nn.Linear(3, 2), None)
+    graphable = masked_adam(5e-4, torch.nn.Linear(3, 2), None, capturable=True)
+    rate = graphable.param_groups[0]["lr"]
+    for p in plain.param_groups[0]["params"]:
+        p.grad = torch.randn_like(p)
+    plain.step()
+    graphable.load_state_dict(plain.state_dict())
+    group, = graphable.param_groups
+    assert group["lr"] is rate and float(rate) == pytest.approx(1e-3) and group["capturable"] is True
+    for p, q in zip(group["params"], plain.param_groups[0]["params"]):
+        st = graphable.state[p]
+        assert st["step"].dtype == torch.float32 and st["step"].device == p.device and float(st["step"]) == 1.0
+        assert torch.equal(st["exp_avg"], plain.state[q]["exp_avg"])
+    rate.fill_(2e-4)
+    plain.load_state_dict(graphable.state_dict())
+    group, = plain.param_groups
+    assert isinstance(group["lr"], float) and group["lr"] == pytest.approx(2e-4) and group["capturable"] is False

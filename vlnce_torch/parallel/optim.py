@@ -118,7 +118,7 @@ def check_replicas_agree(module: torch.nn.Module, mesh, tag: str) -> None:
 
 
 def masked_adam(lr: float, policy, model_config, eps: float = 1e-8,
-                max_grad_norm: Optional[float] = None, mesh=None) -> torch.optim.Adam:
+                max_grad_norm: Optional[float] = None, mesh=None, capturable: bool = False) -> torch.optim.Adam:
     """Adam over the policy's trainable parameters only. The frozen ones get
     `requires_grad_(False)`, so backward computes no gradient for them and
     they hold no optimizer state. With max_grad_norm, every `step()` first
@@ -126,14 +126,40 @@ def masked_adam(lr: float, policy, model_config, eps: float = 1e-8,
     none, so the norm is the trainable-only norm). With `mesh`, rank 0's
     parameters and buffers are broadcast now, and the first `step()` checks
     afterwards that the ranks agree; the caller sums the gradients over the
-    ranks before each `step()`."""
+    ranks before each `step()`.
+
+    `capturable` (parameters on CUDA) builds Adam with `capturable=True` and
+    the learning rate a 0-d tensor on the parameters' device, so that a CUDA
+    graph can capture `step()` and replay it with the rate written into
+    that tensor since. `load_state_dict` keeps that form (and a
+    non-capturable optimizer its float rate), whichever optimizer saved the
+    state."""
     mask = trainable_mask(policy, model_config)
     trainable = []
     for name, p in policy.named_parameters():
         p.requires_grad_(mask[name])
         if mask[name]:
             trainable.append(p)
-    optimizer = torch.optim.Adam(trainable, lr=lr, eps=eps)
+    rate = torch.tensor(float(lr), device=trainable[0].device) if capturable else lr
+    optimizer = torch.optim.Adam(trainable, lr=rate, eps=eps, capturable=capturable)
+    if capturable:  # the steps before a capture run eagerly by design: no misuse to warn of
+        optimizer._warned_capturable_if_run_uncaptured = True
+
+    def keep_form(opt) -> None:
+        for group in opt.param_groups:
+            group["capturable"] = capturable
+            if capturable:
+                if group["lr"] is not rate:  # the saved rate, into this optimizer's tensor
+                    rate.copy_(torch.as_tensor(group["lr"]))
+                    group["lr"] = rate
+                for p in group["params"]:
+                    state = opt.state.get(p)
+                    if state and torch.is_tensor(state.get("step")):
+                        state["step"] = state["step"].to(device=p.device, dtype=torch.float32)
+            elif torch.is_tensor(group["lr"]):
+                group["lr"] = float(group["lr"])
+
+    optimizer.register_load_state_dict_post_hook(keep_form)
     if max_grad_norm is not None:
         def clip(opt, args, kwargs) -> None:
             # the norm stays on the device: testing its truth would read it back

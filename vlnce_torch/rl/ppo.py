@@ -15,8 +15,10 @@ schedule does.
 
 Spans (`utils/profiling.annotate`): `ppo.update` around each update;
 inside the device updates `ppo.plan` (the index matrix, and its upload in
-`update_device_scan`), `ppo.minibatches` (the K enqueued steps) and
-`ppo.update_readback`. `minibatch_steps` counts the minibatch steps taken.
+`update_device_scan`), `ppo.capture` (where `update_device_scan` captures
+its step), `ppo.minibatches` (the K enqueued steps) and
+`ppo.update_readback`. `minibatch_steps` counts the minibatch steps taken,
+`captures` and `replayed_steps` the captured step's captures and replays.
 
 `update_device` and `update_device_scan` take the PPO batch that
 `rl/device_rollout.DeviceRolloutCollector` leaves on the card ([T, B, ...]
@@ -28,8 +30,23 @@ meets the card: `update_device` uploads each minibatch's env indices as it
 comes, a pageable copy that waits for the card to finish the minibatches
 before it, while `update_device_scan` uploads the [K, n] index matrix once
 and enqueues all K minibatch steps with no synchronisation between them
-(the JAX package runs them as one `lax.scan` program; capturing the step in
-a CUDA graph is not done here).
+(the JAX package runs them as one `lax.scan` program).
+
+On the card `update_device_scan` captures the minibatch step (the gather,
+the forward, the backward with B1's kernels, the clip and Adam) in a CUDA
+graph once and replays it for every step: its index row copied in, one
+replay, its six stats copied out. Adam is built `capturable`, with the
+learning rate a tensor on the card that `_set_lr` fills before each
+replay, and the clip range is a float64 scalar on the card filled once an
+update, so linear LR and clip decay hold under replay. A training step has
+side effects, so its warm-up is a real update: the step runs eagerly on
+the CPU, with `eager` (for comparisons only), with a `clock` (host marks
+cannot sit inside a graph), while Adam holds no state (its first update),
+and at a (T, n) no eager update has run yet. The graph is keyed to the
+addresses of what it reads and writes (the batch, the policy's parameters
+and buffers, Adam's state and learning rate) and keeps those tensors alive;
+another batch or a new Adam state (`optimizer.state.clear()`,
+`load_state_dict`) captures anew, and at most `_GRAPHS_MAX` graphs are kept.
 
 Across ranks (`mesh`, a `parallel/mesh.DataMesh`; reference DD-PPO's
 ranks) each rank minibatches its own rollouts, as in the JAX package: every
@@ -46,6 +63,8 @@ one global array, where a rank of the port keeps its own.
 
 from __future__ import annotations
 
+import gc
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -59,6 +78,7 @@ from vlnce_torch.parallel.optim import masked_adam, trainable_parameters
 from vlnce_torch.utils.profiling import annotate
 
 STAT_KEYS = ("value_loss", "action_loss", "entropy_loss", "pano_entropy", "offset_entropy", "distance_entropy")
+_GRAPHS_MAX = 2  # captured minibatch steps kept per agent, oldest dropped first
 
 
 def _no_mark(name: str) -> None:
@@ -68,7 +88,7 @@ def _no_mark(name: str) -> None:
 class WDDPPO:
     def __init__(self, policy, ppo_cfg, offset_regularize_coef: float = 0.0, pano_entropy_coef: float = 1.0,
                  offset_entropy_coef: float = 1.0, distance_entropy_coef: float = 1.0,
-                 num_updates: Optional[int] = None, mesh=None):
+                 num_updates: Optional[int] = None, mesh=None, eager: bool = False):
         self.policy = policy
         self.cfg = ppo_cfg
         self.mesh = mesh
@@ -77,8 +97,11 @@ class WDDPPO:
         self.offset_entropy_coef = offset_entropy_coef
         self.distance_entropy_coef = distance_entropy_coef
         self.num_updates = num_updates
+        # capturable on the card: the learning rate and Adam's step counts live there, so that a captured
+        # step replays with the rate `_set_lr` wrote
         self.optimizer = masked_adam(
-            ppo_cfg.lr, policy, policy.config.MODEL, eps=ppo_cfg.eps, max_grad_norm=ppo_cfg.max_grad_norm, mesh=mesh
+            ppo_cfg.lr, policy, policy.config.MODEL, eps=ppo_cfg.eps, max_grad_norm=ppo_cfg.max_grad_norm, mesh=mesh,
+            capturable=policy.device.type == "cuda",
         )
         self._minibatch_step = self._step if mesh is None else align_collective_step(self._step, "wddppo_step")
         # linear LR decay over optimizer steps to 0 at the last update (the
@@ -89,6 +112,14 @@ class WDDPPO:
         )
         self.optimizer_steps = 0
         self.minibatch_steps = 0  # the minibatch steps this process has taken (optimizer_steps resumes a count)
+        # update_device_scan's captured step: `eager` keeps every step eager (for comparisons only)
+        self.eager = eager
+        self._graphs: Dict[tuple, MinibatchGraph] = {}
+        self._warm_shapes = set()  # the (T, n) of the eager minibatch steps taken
+        self.captures = 0
+        self.replayed_steps = 0  # minibatch steps taken as a replay (counted in minibatch_steps too)
+        self.capture_launches: Dict[str, int] = {}  # each kernel wrapper's launches in the last capture
+        self.capture_seconds = 0.0
 
     # ------------------------------------------------------------- advantages
     def get_advantages(self, rollouts) -> np.ndarray:
@@ -120,11 +151,14 @@ class WDDPPO:
 
         return (group("obs/"), dev["hidden0"], group("act/"), group("prev/"), *(dev[k] for k in names))
 
-    def loss(self, sample, clip_param: float, T: int):
+    def loss(self, sample, clip_param, T: int):
         """(total loss, stats) of one minibatch on the device: tensors [T, n,
         ...] as `upload` returns them. Every mean is over the T * n rows; with
         a mesh it is this rank's sum over the global count of rows
-        (all_reduce'd), so the ranks' losses sum to the whole batch's."""
+        (all_reduce'd), so the ranks' losses sum to the whole batch's.
+        `clip_param` is a float or a 0-d float64 tensor on the device (the
+        captured step's), which give the same numbers: the bounds 1 -+ clip
+        are formed in float64 either way and rounded to float32 by the clamp."""
         obs, hidden0, actions, prev_actions, value_preds, returns, masks, old_log_probs, adv_targ = sample
         if self.mesh is None:
             def mmean(x):
@@ -177,10 +211,16 @@ class WDDPPO:
         return total, stats
 
     def _set_lr(self) -> None:
+        """The decayed learning rate for the next step: written into a
+        capturable Adam's tensor (a fill on the card, read by a replay), else
+        set as a float."""
         if self._lr_steps:
-            frac = min(self.optimizer_steps / self._lr_steps, 1.0)
+            lr = self.cfg.lr * (1.0 - min(self.optimizer_steps / self._lr_steps, 1.0))
             for group in self.optimizer.param_groups:
-                group["lr"] = self.cfg.lr * (1.0 - frac)
+                if torch.is_tensor(group["lr"]):
+                    group["lr"].fill_(lr)
+                else:
+                    group["lr"] = lr
 
     def _grads_and_stats(self, sample, clip_param: float, T: int,
                          mark: Callable[[str], None] = _no_mark) -> torch.Tensor:
@@ -252,6 +292,19 @@ class WDDPPO:
                 rows.append(perm[start : start + envs_per_batch])
         return T, np.asarray(rows, np.int64), self.clip_param(update_idx)
 
+    @staticmethod
+    def _gather(batch: Dict, idx: torch.Tensor) -> tuple:
+        """The minibatch of env columns `idx` of the device batch, as `loss`
+        takes it."""
+        def take(v):
+            return v.index_select(1, idx)
+
+        return (
+            {k: take(v) for k, v in batch["obs"].items()}, batch["hidden0"].index_select(0, idx),
+            {k: take(v) for k, v in batch["actions"].items()}, {k: take(v) for k, v in batch["prev_actions"].items()},
+            *(take(batch[k]) for k in ("value_preds", "returns", "masks", "old_log_probs", "advantages")),
+        )
+
     def _gather_step(self, batch: Dict, idx: torch.Tensor, clip_param: float, T: int, clock=None) -> torch.Tensor:
         """The minibatch of env columns `idx` gathered from the device batch,
         then one optimizer step; with a `clock`, split into "gather",
@@ -259,17 +312,17 @@ class WDDPPO:
         mark: Callable[[str], None] = clock.mark if clock else _no_mark
         if clock:
             clock.start()
-
-        def take(v):
-            return v.index_select(1, idx)
-
-        sample = (
-            {k: take(v) for k, v in batch["obs"].items()}, batch["hidden0"].index_select(0, idx),
-            {k: take(v) for k, v in batch["actions"].items()}, {k: take(v) for k, v in batch["prev_actions"].items()},
-            *(take(batch[k]) for k in ("value_preds", "returns", "masks", "old_log_probs", "advantages")),
-        )
+        sample = self._gather(batch, idx)
         mark("gather")
+        self._warm_shapes.add((T, int(idx.shape[0])))
         return self._minibatch_step(sample, clip_param, T, mark)
+
+    def _captured_step(self, batch: Dict, idx: torch.Tensor, clip: torch.Tensor, T: int) -> torch.Tensor:
+        """What a MinibatchGraph holds: `_gather_step` without its host part
+        (the learning rate, the counters, the clock). Returns the stats [6]."""
+        stats = self._grads_and_stats(self._gather(batch, idx), clip, T)
+        self.optimizer.step()
+        return stats
 
     def update_device(self, batch: Dict, rng: np.random.RandomState, update_idx: int = 0,
                       clock=None) -> Dict[str, float]:
@@ -286,28 +339,130 @@ class WDDPPO:
             with annotate("ppo.update_readback"):
                 return _means(all_stats)
 
-    def minibatch_loop(self, batch: Dict, idx: torch.Tensor, clip_param: float, T: int, clock=None) -> torch.Tensor:
+    def _step_graph(self, batch: Dict, T: int, n: int, clock=None) -> Optional["MinibatchGraph"]:
+        """The captured minibatch step for this batch, (T, n) and Adam
+        state, captured now (span `ppo.capture`) where none holds them; None
+        where the update runs eagerly (the module docstring's cases)."""
+        from vlnce_torch.trainers.scan_eval import cached_in
+
+        if (self.eager or clock is not None or batch["value_preds"].device.type != "cuda" or not self.optimizer.state
+                or (T, n) not in self._warm_shapes):
+            return None
+        held = self._held_tensors(batch)
+
+        def capture() -> MinibatchGraph:
+            with annotate("ppo.capture"):
+                graph = MinibatchGraph(self, batch, T, n, held)
+            self.captures += 1
+            self.capture_launches = dict(graph.capture_launches)
+            self.capture_seconds += graph.capture_seconds
+            return graph
+
+        return cached_in(self._graphs, (T, n) + tuple(t.data_ptr() for t in held), capture, _GRAPHS_MAX)
+
+    def _held_tensors(self, batch: Dict) -> tuple:
+        """What a captured step reads and writes outside its graph's pool:
+        the batch, the policy's parameters and buffers, Adam's state and
+        learning rates."""
+        leaves = [t for v in batch.values() for t in (v.values() if isinstance(v, dict) else (v,))]
+        state = [t for p in trainable_parameters(self.optimizer) for t in self.optimizer.state.get(p, {}).values()
+                 if torch.is_tensor(t)]
+        lrs = [g["lr"] for g in self.optimizer.param_groups if torch.is_tensor(g["lr"])]
+        return (*leaves, *self.policy.parameters(), *self.policy.buffers(), *state, *lrs)
+
+    def minibatch_loop(self, batch: Dict, idx: torch.Tensor, clip_param: float, T: int, clock=None,
+                       graph: Optional["MinibatchGraph"] = None) -> torch.Tensor:
         """The K minibatch steps of the index matrix idx [K, n] on the card,
-        enqueued without a read-back; returns their stats [K, 6] there."""
-        return torch.stack([self._gather_step(batch, idx[k], clip_param, T, clock) for k in range(idx.shape[0])])
+        enqueued without a read-back; returns their stats [K, 6] there. With
+        `graph` (`_step_graph`'s) the clip range is filled once and each step
+        is one replay."""
+        if graph is None:
+            return torch.stack([self._gather_step(batch, idx[k], clip_param, T, clock) for k in range(idx.shape[0])])
+        graph.clip.fill_(clip_param)
+        stats = torch.empty((idx.shape[0], len(STAT_KEYS)), device=idx.device)
+        for k in range(idx.shape[0]):
+            self._set_lr()
+            graph.replay(idx[k], stats[k])
+            self.optimizer_steps += 1
+            self.minibatch_steps += 1
+            self.replayed_steps += 1
+        return stats
 
     def update_device_scan(self, batch: Dict, rng: np.random.RandomState, update_idx: int = 0,
                            clock=None) -> Dict[str, float]:
         """The PPO update over a batch on the card with the [K, n] index
         matrix uploaded once and all K minibatch steps enqueued together; the
         minibatches are update_device's, and so are the stats (one
-        read-back). Single-process only, as in the JAX package. Spans as
-        update_device's; the plan holds the index upload."""
+        read-back). Single-process only, as in the JAX package. On the card
+        each step is a replay of the captured step (the module docstring).
+        Spans as update_device's; the plan holds the index upload, and
+        `ppo.capture` a capture."""
         if world_size() > 1:
             raise RuntimeError("CUDA.PPO_UPDATE_SCAN is single-process; under several ranks use update_device")
         with annotate("ppo.update"):
             with annotate("ppo.plan"):
                 T, rows, clip_param = self._minibatch_plan(batch, rng, update_idx)
                 idx = upload({"idx": rows}, batch["value_preds"].device)["idx"]
+            graph = self._step_graph(batch, T, rows.shape[1], clock)
             with annotate("ppo.minibatches"):
-                stats = self.minibatch_loop(batch, idx, clip_param, T, clock)
+                stats = self.minibatch_loop(batch, idx, clip_param, T, clock, graph)
             with annotate("ppo.update_readback"):
                 return _means(stats)
+
+
+def _launch_counts() -> Dict[str, int]:
+    """Each kernel wrapper's launches so far (a replay counts none)."""
+    from vlnce_torch.ops import preprocess, rnn
+
+    return {"gru_sequence": rnn.gru_sequence.launches, "gru_sequence_backward": rnn.gru_sequence_backward.launches,
+            "gru_weight_gradient": rnn.gru_weight_gradient.launches,
+            "fused_resize_normalize": preprocess.fused_resize_normalize.launches}
+
+
+class MinibatchGraph:
+    """One minibatch step of `update_device_scan` captured in a CUDA graph
+    (`WDDPPO._captured_step`): the gather of the env columns in `idx` from
+    the batch, the loss at the clip range in `clip`, the backward, the clip
+    by global norm and Adam, its stats [6] left in `stats`. The captured
+    step runs nothing: each `replay` runs it. `held` are the tensors the
+    step reads and writes outside the graph's pool, kept alive so that the
+    addresses that key the graph stay theirs. `capture_launches` holds each
+    kernel wrapper's launches recorded by the capture: each replay runs
+    them again."""
+
+    def __init__(self, agent: WDDPPO, batch: Dict, T: int, n: int, held: tuple):
+        t0 = time.perf_counter()
+        device = batch["value_preds"].device
+        self.held = held
+        self.idx = torch.zeros(n, dtype=torch.long, device=device)
+        self.clip = torch.zeros((), dtype=torch.float64, device=device)
+        agent.optimizer.zero_grad(set_to_none=True)  # so the gradients are allocated in the graph's pool
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        # the collector stays off during the capture, as in trainers/scan_eval.StepGraph: a collection
+        # inside one invalidated it on the card
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                self.stats = agent._captured_step(batch, self.idx, self.clip, T)
+        finally:
+            if collecting:
+                gc.enable()
+        main.wait_stream(side)
+        self.capture_launches = {k: v - before[k] for k, v in _launch_counts().items()}
+        self.graph = graph
+        self.capture_seconds = time.perf_counter() - t0
+
+    def replay(self, row: torch.Tensor, out: torch.Tensor) -> None:
+        """One step on the env columns `row` [n]: the row copied in, one
+        replay, its stats copied into `out` [6]; device copies only."""
+        self.idx.copy_(row)
+        self.graph.replay()
+        out.copy_(self.stats)
 
 
 def _means(stats: torch.Tensor) -> Dict[str, float]:
