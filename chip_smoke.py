@@ -134,11 +134,12 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
 19. `phase_device_waypoint` (after phase 13): phase 13's training with
    CUDA.ON_DEVICE_ROLLOUT (no worker; each env step one replay, B1 twice in
    it; the bootstrap value a second graph; one read-back per rollout; the
-   PPO minibatches gathered on the card), then with CUDA.PPO_UPDATE_SCAN
-   (the first update eager, the second captures the minibatch step and
-   replays it; launches counted as the card ran them, the profiler's
-   launches a replayed step); the replays and the enqueued minibatch loop
-   under set_sync_debug_mode("error"); frozen weights bit-equal, the
+   PPO minibatches gathered on the card by update_device_scan), first with
+   the step clock (every minibatch step eager), then without it (the first
+   update eager, the second captures the minibatch step and replays it;
+   launches counted as the card ran them, the profiler's launches a
+   replayed step); the replays and the enqueued minibatch loop under
+   set_sync_debug_mode("error"); frozen weights bit-equal, the
    checkpoint's eval; the rollout's and the update's times beside phase 13's;
 20. `phase_device_waypoint_against_plain`: the graphed rollout through B1's
    kernel against the eager one with its plain version (f32, N=4, T=8, the
@@ -901,6 +902,14 @@ def _read_launches():
     return {name: wrapper.launches for name, wrapper in _counted().items()}
 
 
+def _recorded(**launches):
+    """A graph capture's launch record: `launches`, and 0 for every other
+    kernel wrapper that vlnce_torch.ops.graphs.launch_counts reads."""
+    from vlnce_torch.ops.graphs import launch_counts
+
+    return {k: launches.get(k, 0) for k in launch_counts()}
+
+
 def phase_main_path(dev):
     from vlnce_torch.envs.batch import batch_obs
 
@@ -1402,7 +1411,7 @@ def _check_scan_run(trainer, launches, per_step, what):
     capture's, and every segment was read back once."""
     t = trainer.last_loop_timing
     b1, b2 = per_step
-    assert t["graph"] and t["capture_launches"] == {"gru_sequence": b1, "fused_resize_normalize": b2}, (what, t)
+    assert t["graph"] and t["capture_launches"] == _recorded(gru_sequence=b1, fused_resize_normalize=b2), (what, t)
     assert launches == {"gru_sequence": 2 * b1, "gru_sequence_backward": 0, "gru_weight_gradient": 0,
                         "fused_resize_normalize": 2 * b2}, (what, launches)
     assert t["readbacks"] == t["segments"] and t["replays"] == t["segments"] * t["seg_len"], (what, t)
@@ -1522,7 +1531,8 @@ def _scan_against_plain(dev, cfg, policy, task_cfg, episodes, steps: int, what: 
     logit gap exceeds it."""
     from vlnce_torch.envs import device_sim
     from vlnce_torch.ops.obs_transforms import get_active_obs_transforms
-    from vlnce_torch.trainers.scan_eval import ScanSegment, chunk_tensors
+    from vlnce_torch.envs.device_sim import chunk_tensors
+    from vlnce_torch.trainers.scan_eval import ScanSegment
 
     n = len(episodes)
     scenes, arrays = chunk_tensors(episodes, "rxr_instruction", task_cfg, dev)
@@ -1652,7 +1662,7 @@ def phase_device_dagger(dev, host_rounds):
         print(f"device DAgger launches over {train_steps} train steps and one collection graph (probe, warm-up, capture): "
               f"{json.dumps(launches)}; run_exp {wall:.1f} s")
         assert train_steps > 0 and all(r["graph"] for r in rounds)
-        assert all(r["capture_launches"] == {"gru_sequence": 2, "fused_resize_normalize": 0} for r in rounds), rounds
+        assert all(r["capture_launches"] == _recorded(gru_sequence=2) for r in rounds), rounds
         assert launches == {"gru_sequence": 3 * 2 + 2 * train_steps, "gru_sequence_backward": 2 * train_steps,
                             "gru_weight_gradient": 2 * train_steps, "fused_resize_normalize": 0}, launches
         assert [r["beta"] for r in rounds] == [1.0, 0.5] and all(r["episodes"] == TRAIN_EPISODES for r in rounds), rounds
@@ -2126,7 +2136,7 @@ def phase_imported_scenes(dev):
         t = trainer.last_loop_timing
         captures = t["captures"]
         assert captures == len(IMPORTED_SCENES) and t["graph"], t  # one graph per grid size
-        assert t["capture_launches"] == {"gru_sequence": 2, "fused_resize_normalize": 2}, t
+        assert t["capture_launches"] == _recorded(gru_sequence=2, fused_resize_normalize=2), t
         assert launches == {"gru_sequence": 4 * captures, "gru_sequence_backward": 0, "gru_weight_gradient": 0,
                             "fused_resize_normalize": 4 * captures}, launches
         assert t["readbacks"] == t["segments"] and t["replays"] == t["segments"] * t["seg_len"], t
@@ -2206,8 +2216,8 @@ def phase_imported_scenes(dev):
             scan_eval.run_scan_rollouts = real_rollouts
         out["imported_bank_scan_eval"] = launches = _read_launches()
         t = evaluator.last_loop_timing
-        assert t["graph"] and t["captures"] == len(IMPORTED_SCENES) and t["capture_launches"] == {
-            "gru_sequence": 2, "fused_resize_normalize": 0}, t
+        assert t["graph"] and t["captures"] == len(IMPORTED_SCENES) and t["capture_launches"] == _recorded(
+            gru_sequence=2), t
         assert launches == {"gru_sequence": 4 * t["captures"], "gru_sequence_backward": 0, "gru_weight_gradient": 0,
                             "fused_resize_normalize": 0}, launches
         args, graphed = recorded[-1]
@@ -2372,7 +2382,8 @@ def _run_parity(argv, what, per_act_step, plain: bool = False):
             if plain:
                 assert not t["graph"] and t["captures"] == 0 and not any(launches.values()), (what, t, launches)
             else:
-                assert t["graph"] and t["capture_launches"] == {"gru_sequence": b1, "fused_resize_normalize": b2}, (what, t)
+                assert t["graph"] and t["capture_launches"] == _recorded(gru_sequence=b1, fused_resize_normalize=b2), \
+                    (what, t)
                 assert launches == {"gru_sequence": 2 * b1 * t["captures"], "gru_sequence_backward": 0,
                                     "gru_weight_gradient": 0, "fused_resize_normalize": 2 * b2 * t["captures"]}, (what, launches)
             assert t["readbacks"] == t["segments"] and t["replays"] == t["segments"] * t["seg_len"], (what, t)
@@ -3397,13 +3408,14 @@ def phase_device_waypoint(dev, host):
     the captured step (B1 twice in it), the bootstrap value a second graph
     (B1 twice), one read-back per rollout, the PPO minibatches gathered on
     the card (per minibatch B1 2 forward, 2 backward on the cluster route, 2
-    weight gradients), B2 never; then again with CUDA.PPO_UPDATE_SCAN, whose
-    first update runs eagerly and whose second captures the minibatch step
+    weight gradients), B2 never, every step eager under the trainer's step
+    clock; then again without the clock, where update_device_scan's
+    first update runs eagerly and its second captures the minibatch step
     (B1 2 + 2 + 2 recorded) and replays it: the launch counts add each
     replay's recorded launches (the capture itself runs none), and one more
     update under the profiler prints its kernel and graph launches per
-    replayed step. The rollout's replays (both runs) and
-    update_device_scan's minibatch loop run under
+    replayed step. The rollout's replays (both runs) and the second run's
+    minibatch loop run under
     set_sync_debug_mode("error"). Each train() builds its episode
     bank's goal fields in one launch of goal_field.cu, counted in the
     goal-field kernel's launch line; one more update under the profiler
@@ -3430,17 +3442,16 @@ def phase_device_waypoint(dev, host):
         cfg = get_config(WP_EXP, train_opts)
         start = {k: v.cpu() for k, v in WaypointPolicy.from_config(cfg, waypoint_space(cfg)).state_dict().items()}
         out = {}
-        for name, extra in (("device_waypoint", []), ("device_waypoint_scan", ["CUDA.PPO_UPDATE_SCAN", True])):
+        for name, clocked in (("device_waypoint_clocked", True), ("device_waypoint_graph", False)):
             ckpts = os.path.join(tmp, name)
-            scan = bool(extra)
-            checked = [(DeviceRolloutCollector, "run_rollout")] + ([(WDDPPO, "minibatch_loop")] if scan else [])
+            checked = [(DeviceRolloutCollector, "run_rollout")] + ([] if clocked else [(WDDPPO, "minibatch_loop")])
             torch.cuda.reset_peak_memory_stats()
-            DDPPOWaypointTrainer.time_train_steps = not scan
+            DDPPOWaypointTrainer.time_train_steps = clocked
             _reset_launches()
             t0 = time.perf_counter()
             try:
                 with sync_checked(*checked):
-                    trainer = run_exp(WP_EXP, "train", train_opts + extra + ["CHECKPOINT_FOLDER", ckpts])
+                    trainer = run_exp(WP_EXP, "train", train_opts + ["CHECKPOINT_FOLDER", ckpts])
             finally:
                 DDPPOWaypointTrainer.time_train_steps = False
             torch.cuda.synchronize()
@@ -3458,11 +3469,11 @@ def phase_device_waypoint(dev, host):
                   f"probe step, the warm-ups and captures of the step and the bootstrap graphs {json.dumps(c.build_launches)}, "
                   f"then {minibatches} PPO minibatches; both graphs captured in {c.capture_seconds:.3f} s (warm-ups "
                   f"included); {c.replays} step replays, {c.rollouts} rollouts, {c.readbacks} read-backs; captured per step {c.capture_launches['step']}, per bootstrap {c.capture_launches['bootstrap']}; "
-                  f"run_rollout{' and minibatch_loop' if scan else ''} under set_sync_debug_mode('error')")
+                  f"run_rollout{'' if clocked else ' and minibatch_loop'} under set_sync_debug_mode('error')")
             assert trainer.envs is None and c.rollouts == c.readbacks == WP_UPDATES and c.replays == WP_UPDATES * ppo.num_steps
-            no_b2 = {"gru_sequence": 2, "fused_resize_normalize": 0}
+            no_b2 = _recorded(gru_sequence=2)
             assert c.capture_launches == {"step": no_b2, "bootstrap": no_b2}, c.capture_launches
-            assert c.build_launches == {"gru_sequence": 10, "fused_resize_normalize": 0}, c.build_launches
+            assert c.build_launches == _recorded(gru_sequence=10), c.build_launches
             assert launches == {"gru_sequence": 10 + 2 * minibatches, "gru_sequence_backward": 2 * minibatches,
                                 "gru_weight_gradient": 2 * minibatches, "fused_resize_normalize": 0}, launches
             assert _cluster_launches() + replayed.get("gru_sequence_backward", 0) == 2 * minibatches, \
@@ -3491,7 +3502,7 @@ def phase_device_waypoint(dev, host):
                   f"{host['update_s']:.3f}); training {r['env_steps'] / (r['rollout_time'] + r['update_time']):.1f} "
                   f"env-steps/s of rollout and update, {steps / (steady + steady_update):.1f} in the second update (host "
                   f"{host['train']:.1f} over both); peak card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-            if not scan:
+            if clocked:
                 clock, first = trainer.step_clock.totals(), dict(trainer.step_clock.first)
                 order = ("gather", "forward", "backward", "optimizer")
                 assert sorted(clock) == sorted(order) and trainer.step_clock.steps == minibatches
@@ -3527,8 +3538,8 @@ def phase_device_waypoint(dev, host):
                 # the first update eager (Adam held no state), the second captured at its first step
                 per_update = minibatches // WP_UPDATES
                 assert agent.captures == 1 and agent.replayed_steps == per_update, (agent.captures, agent.replayed_steps)
-                assert agent.capture_launches == {"gru_sequence": 2, "gru_sequence_backward": 2, "gru_weight_gradient": 2,
-                                                  "fused_resize_normalize": 0}, agent.capture_launches
+                assert agent.capture_launches == _recorded(gru_sequence=2, gru_sequence_backward=2,
+                                                           gru_weight_gradient=2), agent.capture_launches
                 print(f"{name}: update_device_scan {r['update_time'] / WP_UPDATES:.3f} s per update, {per_update} "
                       f"minibatch steps after one index upload, one read-back; {agent.captures} capture of the step "
                       f"({agent.capture_seconds:.3f} s, recorded {json.dumps(agent.capture_launches)}), "
@@ -3569,7 +3580,7 @@ def phase_device_waypoint(dev, host):
         assert "waypoint_reward_measure" in stats and all(math.isfinite(v) for v in stats.values()), stats
         print(f"device waypoint eval of {os.path.basename(last)}: {len(evaluator._last_eval_episode_stats)} episodes in "
               f"{eval_wall:.1f} s, stats {json.dumps({k: round(v, 4) for k, v in stats.items()})}")
-    return out["device_waypoint"], out["device_waypoint_scan"], eval_launches
+    return out["device_waypoint_clocked"], out["device_waypoint_graph"], eval_launches
 
 
 def phase_device_waypoint_against_plain(dev, n: int = WP_N, T: int = 8, rollouts: int = 2):
@@ -3661,7 +3672,7 @@ def phase_device_recollect(dev, host_rate):
     from vlnce_torch.envs.gridworld import GridWorldSim
     from vlnce_torch.ops.obs_transforms import get_active_obs_transforms
     from vlnce_torch.tasks.datasets import make_dataset
-    from vlnce_torch.trainers.device_recollect import render_gt_batch_resident, render_gt_episodes_on_device
+    from vlnce_torch.data.device_recollect import render_gt_batch_resident, render_gt_episodes_on_device
 
     out = {}
     with tempfile.TemporaryDirectory(prefix="vlnce_torch_smoke_") as tmp:
@@ -3673,7 +3684,7 @@ def phase_device_recollect(dev, host_rate):
             trainer, launches, wall = _run_recollect(EXP, opts, per_step, render_b2=bool(extra))
             sim = trainer.resimulation
             graphs = sim["capture_launches"]
-            want = {"gru_sequence": 0, "fused_resize_normalize": 2 if extra else 0}
+            want = _recorded(fused_resize_normalize=2 if extra else 0)
             assert graphs and all(g == want for g in graphs), graphs
             assert os.path.exists(os.path.join(tmp, name, "ckpt.0.ckpt"))
             print(f"{name}: {len(graphs)} render graphs (one per T_pad), each captured with {json.dumps(want)} per step; "
@@ -4265,7 +4276,7 @@ def main() -> int:
     paths["seq2seq"], paths["seq2seq_eval"] = timed(phase_seq2seq, dev)
     wp_shapes = timed(phase_waypoint_shapes, dev)
     paths["waypoint"], paths["waypoint_eval"], wp_host = timed(phase_waypoint, dev)
-    (paths["device_waypoint"], paths["device_waypoint_scan"],
+    (paths["device_waypoint_clocked"], paths["device_waypoint_graph"],
      paths["device_waypoint_eval"]) = timed(phase_device_waypoint, dev, wp_host)
     timed(phase_waypoint_against_plain, dev)
     timed(phase_device_waypoint_against_plain, dev)

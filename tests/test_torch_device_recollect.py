@@ -1,4 +1,4 @@
-"""The port's recollection rendered on the device (trainers/device_recollect.py
+"""The port's recollection rendered on the device (data/device_recollect.py
 and the dataset's and trainer's device modes) against the JAX package's, at
 the small RxR CMA size on the CPU (tests/test_torch_recollection.py's cases:
 48x64 frames resized to 32 and cropped to 32x32, 16 x 32-d instruction
@@ -37,11 +37,10 @@ from vlnce_tpu.data.recollection import TeacherRecollectionDataset as JaxDataset
 from vlnce_tpu.ops.obs_transforms import get_active_obs_transforms as jax_get_transforms
 from vlnce_tpu.tasks.datasets import make_dataset as jax_make_dataset
 from vlnce_tpu.trainers import device_recollect as jax_recollect
-from vlnce_torch.data import recollection
+from vlnce_torch.data import device_recollect, recollection
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms
 from vlnce_torch.registry import registry
 from vlnce_torch.tasks.datasets import make_dataset
-from vlnce_torch.trainers import device_recollect
 from vlnce_torch.utils.checkpoints import load_checkpoint
 
 from tests.test_torch_recollection import EPISODES, _collector, _config, _jax_config

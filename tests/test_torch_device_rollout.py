@@ -1,5 +1,5 @@
 """The port's DD-PPO rollout on the device (rl/device_rollout.py) and its
-device PPO updates (WDDPPO.update_device / update_device_scan) against the
+device PPO update (WDDPPO.update_device_scan) against the
 JAX package's, at the smallest size on the CPU, where the port's captured
 step runs eagerly and B1's wrapper runs its plain version.
 
@@ -337,26 +337,6 @@ def _device_batch(batch):
             for k, v in batch.items()}
 
 
-def test_update_device_equals_update_device_scan(pair, greedy):
-    """The same batch and RandomState: the same minibatches and Adam steps,
-    so equal stats and parameters."""
-    batch = greedy[0]["port"][0][0]
-    policy = pair["policy"]
-    start = {k: v.clone() for k, v in policy.state_dict().items()}
-    results = {}
-    for name in ("update_device", "update_device_scan"):
-        policy.load_state_dict(start)
-        _, agent = _agents(pair)
-        stats = getattr(agent, name)(_device_batch(batch), np.random.RandomState(7), update_idx=1)
-        results[name] = (stats, {k: v.clone() for k, v in policy.state_dict().items()}, agent.optimizer_steps)
-    policy.load_state_dict(start)
-    (s1, p1, n1), (s2, p2, n2) = results.values()
-    assert n1 == n2 == 4 and sorted(s1) == sorted(s2) == sorted(STAT_KEYS)
-    assert s1 == s2
-    moved = [k for k in p1 if not torch.equal(p1[k], start[k])]
-    assert moved and all(torch.equal(p1[k], p2[k]) for k in p1)
-
-
 def test_update_device_scan_never_captures_on_the_cpu(pair, greedy):
     """On the CPU every update of update_device_scan runs its steps eagerly,
     the second (Adam holding state, the shapes warmed up) too: no capture,
@@ -376,9 +356,11 @@ def test_update_device_scan_never_captures_on_the_cpu(pair, greedy):
         policy.load_state_dict(start)
 
 
-def test_update_device_matches_jax(pair, greedy):
+def test_update_device_scan_matches_jax(pair, greedy):
     """One device update of both packages from one batch (the port's greedy
-    rollout, carried across as numpy): the mean stats within 1e-4; the
+    rollout, carried across as numpy; the JAX package's per-minibatch
+    update_device, whose minibatches and Adam steps the port's one update
+    takes): the mean stats within 1e-4; the
     parameters within 1e-5 where the first minibatch's JAX gradient exceeds
     1e-6 and within 2 x lr x steps elsewhere, frozen ones bit-equal."""
     batch = greedy[0]["port"][0][0]
@@ -399,7 +381,7 @@ def test_update_device_matches_jax(pair, greedy):
         grads = state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, grads), "WaypointPolicy")
         jax_stats = jax_agent.update_device(jax.tree_util.tree_map(jnp.asarray, batch), np.random.RandomState(11),
                                             update_idx=1)
-        stats = agent.update_device(_device_batch(batch), np.random.RandomState(11), update_idx=1)
+        stats = agent.update_device_scan(_device_batch(batch), np.random.RandomState(11), update_idx=1)
         np.testing.assert_allclose([stats[k] for k in STAT_KEYS], [jax_stats[k] for k in STAT_KEYS], atol=1e-4)
         ppo = pair["cfg"].RL.PPO
         steps = ppo.ppo_epoch * ppo.num_mini_batch
@@ -459,16 +441,16 @@ def smoke_config(tmp_path):
 
 @pytest.mark.parametrize("scan", [False, True])
 def test_trainer_trains_on_device_without_an_env_pool(smoke_config, tmp_path, monkeypatch, scan):
-    """`train()` with CUDA.ON_DEVICE_ROLLOUT (and PPO_UPDATE_SCAN): no
-    worker is forked, one update moves the trainable weights and writes a
-    checkpoint."""
+    """`train()` with CUDA.ON_DEVICE_ROLLOUT: no worker is forked, the
+    update is update_device_scan whatever CUDA.PPO_UPDATE_SCAN says, and one
+    update moves the trainable weights and writes a checkpoint."""
     def no_pool(*args, **kwargs):
         raise AssertionError("the env pool was constructed")
 
     monkeypatch.setattr(ddppo_waypoint_trainer, "construct_envs", no_pool)
     trainer = registry.get_trainer("ddppo-waypoint")(smoke_config("CUDA.PPO_UPDATE_SCAN", scan))
     used = []
-    for name in ("update_device", "update_device_scan", "update"):
+    for name in ("update_device_scan", "update"):
         method = getattr(WDDPPO, name)
         monkeypatch.setattr(WDDPPO, name, lambda self, *a, _m=method, _n=name, **k: used.append(_n) or _m(self, *a, **k))
     start = {}
@@ -481,7 +463,7 @@ def test_trainer_trains_on_device_without_an_env_pool(smoke_config, tmp_path, mo
     trainer._initialize_policy_rl = record
     trainer.train()
     assert trainer.envs is None and trainer.collector is not None
-    assert used == ["update_device_scan" if scan else "update_device"]
+    assert used == ["update_device_scan"]
     assert trainer.collector.rollouts == trainer.collector.readbacks == 1 and trainer.collector.replays == 2
     saved = load_checkpoint(str(tmp_path / "ckpts" / "ckpt.0.ckpt"))
     assert saved["extra_state"] == {"update": 0, "count_steps": 2 * trainer.config.NUM_ENVIRONMENTS}

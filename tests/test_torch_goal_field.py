@@ -31,11 +31,11 @@ from tests.test_torch_kernels import GOAL_FIELD_CARD_CASES, _field_batch
 from tests.torch_port_cases import SceneRegistrySnapshot
 from vlnce_tpu.envs import gridworld as jax_gridworld, scene_import as jax_scene_import
 from vlnce_torch.envs import device_sim as ds
+from vlnce_torch.envs.device_sim import chunk_tensors
 from vlnce_torch.envs.gridworld import _RES, GridWorldScene, get_scene, register_scene
 from vlnce_torch.envs.scene_import import ImportedScene, scene_from_graph
 from vlnce_torch.ops.goal_field import goal_distance_fields, goal_distance_fields_plain, shared_bytes
 from vlnce_torch.trainers import device_dagger
-from vlnce_torch.trainers.scan_eval import chunk_tensors
 from vlnce_torch.utils.nav_graph import synthetic_lattice_graph
 
 SCENES = [f"goal_field_scene_{k}" for k in range(24)]

@@ -144,9 +144,9 @@ def test_resident_train_of_two_ranks_takes_disjoint_slices_with_equal_losses(run
 
 def test_ddppo_train_of_two_ranks_ends_with_equal_weights(runs):
     """The DD-PPO waypoint trainer's train(), one update with the rollout on
-    the card and PPO_UPDATE_SCAN asked for (single-process: the ranks take
-    update_device): the summed stats and the final weights equal on both
-    ranks, each rank counting its own env steps."""
+    the card (update_device_scan, its steps eager under the ranks' mesh):
+    the summed stats and the final weights equal on both ranks, each rank
+    counting its own env steps."""
     r0, r1 = runs["results"]["ddppo"]
     assert r0["ranks"] == r1["ranks"] == 2
     assert len(r0["updates"]) == 1 and r0["updates"] == r1["updates"]

@@ -56,6 +56,7 @@ NEW_MODULES = [
     "vlnce_torch.rl.ppo", "vlnce_torch.trainers.ddppo_waypoint_trainer", "vlnce_torch.tasks.discrete_planner",
     # the device-resident grid world, scan eval and on-device DAgger
     "vlnce_torch.envs.device_sim", "vlnce_torch.trainers.scan_eval", "vlnce_torch.trainers.device_dagger",
+    "vlnce_torch.ops.graphs", "vlnce_torch.data.device_recollect",
     # the trajectory bank on the card and the feature-bank route
     "vlnce_torch.data.device_bank", "vlnce_torch.data.feature_bank",
     # the JAX package's checkpoints, the nonlearning agents, scene import and the command-line tools
@@ -85,13 +86,13 @@ def test_import_pulls_in_no_jax_and_builds_no_kernel():
     assert report["ring_loaded"] is False  # importing builds and loads no native library either
 
 
-def test_no_module_imports_tqdm_or_cv2():
-    """The card's machine has neither tqdm nor cv2: no module of the port
-    names them in an import, guarded or not (the import check above only
-    sees the imports that run)."""
+def _port_imports():
+    """(path relative to the repo, line, module) of every import in the
+    port's modules, at module level or inside a function, guarded or not:
+    `from a import b` gives a.b, and import_module / __import__ of a
+    constant name count too."""
     import ast
 
-    found = []
     root = os.path.join(REPO, "vlnce_torch")
     for dirpath, _, files in os.walk(root):
         for name in files:
@@ -104,14 +105,34 @@ def test_no_module_imports_tqdm_or_cv2():
                 if isinstance(node, ast.Import):
                     mods = [alias.name for alias in node.names]
                 elif isinstance(node, ast.ImportFrom):
-                    mods = [node.module or ""]
+                    mods = [f"{node.module or ''}.{alias.name}" for alias in node.names]
                 elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
                         "import_module", "__import__") and node.args and isinstance(node.args[0], ast.Constant):
                     mods = [str(node.args[0].value)]
                 else:
                     continue
-                found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {m}" for m in mods
-                          if m.split(".")[0] in ("tqdm", "cv2")]
+                yield from ((os.path.relpath(path, REPO), node.lineno, m) for m in mods)
+
+
+def test_no_module_imports_tqdm_or_cv2():
+    """The card's machine has neither tqdm nor cv2: no module of the port
+    names them in an import, guarded or not (the import check above only
+    sees the imports that run)."""
+    found = [f"{path}:{line} {m}" for path, line, m in _port_imports() if m.split(".")[0] in ("tqdm", "cv2")]
+    assert found == []
+
+
+def test_only_the_entry_points_import_the_trainers():
+    """The layers below the trainers (ops, envs, data, rl, parallel, ...)
+    never import vlnce_torch.trainers, at module level or inside a
+    function: what several loops share lives below them (ops/graphs,
+    envs/device_sim). The trainers, run.py and the command-line tools of
+    scripts/ sit above; parallel/mp_smoke.py, the rank tests' harness, is
+    the one exception."""
+    above = ("vlnce_torch/trainers/", "vlnce_torch/scripts/", "vlnce_torch/run.py", "vlnce_torch/parallel/mp_smoke.py")
+    found = [f"{path}:{line} {m}" for path, line, m in _port_imports()
+             if (m == "vlnce_torch.trainers" or m.startswith("vlnce_torch.trainers."))
+             and not path.replace(os.sep, "/").startswith(above)]
     assert found == []
 
 

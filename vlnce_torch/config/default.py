@@ -128,7 +128,7 @@ _C.CUDA.FEATURE_BANK_DIR = ""
 # (data/feature_bank.py lookup_features / check_bank_coverage). Lattice
 # spacing s puts true poses up to s/sqrt(2) from a node: set this >= that.
 _C.CUDA.FEATURE_BANK_MAX_DIST = 0.0
-# recollection rendered on the card (trainers/device_recollect.py): the GT
+# recollection rendered on the card (data/device_recollect.py): the GT
 # trajectories re-rendered along their actions, one CUDA graph replay per
 # step, no env pool (requires GridWorldSim-v0); with RECOLLECT_RESIDENT the
 # obs transforms run inside the render step and the batch stays on the card
@@ -136,10 +136,11 @@ _C.CUDA.ON_DEVICE_RECOLLECT = False
 _C.CUDA.RECOLLECT_RESIDENT = False
 # DD-PPO rollouts collected on the card (rl/device_rollout.py): one CUDA
 # graph replay per env step, the PPO batch kept there for
-# WDDPPO.update_device; PPO_UPDATE_SCAN enqueues all ppo_epoch x
-# num_mini_batch minibatch steps with one index upload
-# (WDDPPO.update_device_scan; requires ON_DEVICE_ROLLOUT)
+# WDDPPO.update_device_scan
 _C.CUDA.ON_DEVICE_ROLLOUT = False
+# read by nothing: the on-card update is always WDDPPO.update_device_scan.
+# The key stays only so that benchmark/configs/r2r_wpn_cc.json, which sets
+# it, still loads; it leaves with the next change to the benchmark.
 _C.CUDA.PPO_UPDATE_SCAN = False
 # the on-device rollout uploads the whole train split once when it holds at
 # most this many episodes (then a rollout uploads only a [B, T+1] index

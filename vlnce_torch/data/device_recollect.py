@@ -1,7 +1,8 @@
 """Recollection rendered on the card: the GT trajectories re-rendered along
 their actions, with no env pool.
 
-Port of vlnce_tpu/trainers/device_recollect.py. The recollect trainer
+Port of vlnce_tpu/trainers/device_recollect.py; here it sits beside its one
+caller, data/recollection.py. The recollect trainer
 re-simulates the ground-truth action sequences every epoch to regenerate
 the observations (reference common/recollection_dataset.py:167-228). With
 the device-resident grid world the actions are known up front, so a chunk
@@ -10,11 +11,11 @@ every camera, reads the progress sensor, then applies the step's action
 (`envs/device_sim.py`). STOP-padded tails do not move the agent, so padded
 steps re-render the final pose; each episode is cut back to its GT length.
 
-- **One env step is one replay of a CUDA graph** (`trainers/scan_eval.
-  StepGraph`): the chunk's scenes, start poses and [T_pad, B] actions are
-  copied into the graph's input tensors (one upload per chunk), the pose,
-  tilt and step counter g live in fixed tensors, and step g writes row g
-  of the [T_pad, B, ...] outputs. Graphs are kept per (cameras, B, T_pad,
+- **One env step is one replay of a CUDA graph** (`ops/graphs.StepGraph`):
+  the chunk's scenes, start poses and [T_pad, B] actions are copied into
+  the graph's input tensors (one upload per chunk), the pose, tilt and step
+  counter g live in fixed tensors, and step g writes row g of the
+  [T_pad, B, ...] outputs. Graphs are kept per (cameras, B, T_pad,
   ...) in a FIFO of at most _RENDER_CACHE_MAX that the caller owns.
 - **The wire path** (`render_gt_episodes_on_device`, CUDA.ON_DEVICE_RECOLLECT)
   buckets T_pad to a multiple of 8 and reads the chunk back in one copy (its
@@ -45,6 +46,7 @@ from vlnce_torch.data.collate import _pad_to, inflection_weights
 from vlnce_torch.envs.device_sim import (
     SceneBatch,
     camera_specs_from_config,
+    episode_batch_arrays,
     progress_batch,
     render_batch,
     scene_batch,
@@ -54,8 +56,8 @@ from vlnce_torch.envs.device_sim import (
     upload,
 )
 from vlnce_torch.envs.scene_import import apply_scene_geometry
+from vlnce_torch.ops.graphs import StepGraph, cached_in
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch
-from vlnce_torch.trainers.scan_eval import StepGraph, _episode_batch_arrays, cached_in
 
 _RENDER_CACHE_MAX = 32
 
@@ -160,7 +162,7 @@ def _chunk(config, episodes: List, trajectories: Dict, instr_uuid: str, quantum:
     actions = np.zeros((T_pad, len(episodes)), np.int32)
     for b, traj in enumerate(trajs):
         actions[: len(traj), b] = [step[1] for step in traj]
-    arrays = _episode_batch_arrays(episodes, instr_uuid=instr_uuid, task_cfg=config.TASK_CONFIG)
+    arrays = episode_batch_arrays(episodes, instr_uuid=instr_uuid, task_cfg=config.TASK_CONFIG)
     wanted = ("pos", "heading") + (("instruction",) if instruction else ())
     scene = scene_inputs(episodes)
     on_dev = upload({**{f"scene.{k}": v for k, v in scene.items()}, **{k: arrays[k] for k in wanted},

@@ -19,7 +19,7 @@ instruction features) is 3.72 MB, so `preload_size` episodes of up to
 With `CUDA.ON_DEVICE_RECOLLECT` there is no env pool (`initialize_device`:
 one probe env gives the spaces and closes): chunks of NUM_ENVIRONMENTS
 episodes are rendered on the card along their GT actions
-(`trainers/device_recollect.render_gt_episodes_on_device`) and read back,
+(`data/device_recollect.render_gt_episodes_on_device`) and read back,
 and the episodes go through the same collate. With `CUDA.RECOLLECT_RESIDENT`
 as well, `batches` renders each training batch on the card with the obs
 transforms inside the render step and keeps it there
@@ -42,6 +42,7 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 
 from vlnce_torch.data.collate import collate_episodes, inflection_weights
+from vlnce_torch.data.device_recollect import render_gt_batch_resident, render_gt_episodes_on_device
 from vlnce_torch.envs.env_utils import construct_envs, get_env_class
 from vlnce_torch.envs.scene_import import apply_scene_geometry
 from vlnce_torch.envs.sim import SimulatorActions
@@ -200,8 +201,6 @@ class TeacherRecollectionDataset:
         self._instr_uuid = str(getattr(self.config.MODEL.INSTRUCTION_ENCODER, "sensor_uuid", "instruction"))
 
     def _device_episode_iter(self) -> Iterator[Tuple]:
-        from vlnce_torch.trainers.device_recollect import render_gt_episodes_on_device
-
         B = max(1, int(self.config.NUM_ENVIRONMENTS))
         order = list(self._device_episodes)
         while True:
@@ -305,8 +304,6 @@ class TeacherRecollectionDataset:
         corrected, weights [T, N]), the episodes in the dataset's order,
         wrapping, as the episode iterators take them."""
         if self.resident:
-            from vlnce_torch.trainers.device_recollect import render_gt_batch_resident
-
             def cycle():
                 while True:
                     yield from self._device_episodes

@@ -30,7 +30,10 @@ mixed grid sizes pad to their largest (`scene_inputs`).
 
 A batch's goal fields are built on its device (`scene_batch`, one launch of
 ops/goal_field's kernel on the card), not by the host's Dijkstra: the host
-uploads only the goals' cells.
+uploads only the goals' cells. `chunk_tensors` is a closed loop's chunk
+set-up: the episodes' start poses and instruction inputs
+(`episode_batch_arrays`) and the scenes' arrays in one upload, then the
+fields.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ import torch
 
 from vlnce_torch.envs.gridworld import _RES, get_scene
 from vlnce_torch.ops.goal_field import goal_distance_fields
+from vlnce_torch.tasks.geometry import heading_from_quaternion
+from vlnce_torch.tasks.sensors import MAX_INSTRUCTION_LEN, RxRInstructionSensor
 from vlnce_torch.utils.profiling import annotate
 
 _WALL_HEIGHT = 2.0
@@ -229,6 +234,49 @@ def build_scene_batch(episodes, device="cpu") -> SceneBatch:
 def scene_arrays(episodes) -> Dict[str, np.ndarray]:
     """`build_scene_batch` on the CPU as host arrays, by SceneBatch field."""
     return {k: v.numpy() for k, v in build_scene_batch(episodes)._asdict().items()}
+
+
+def episode_batch_arrays(episodes, instr_uuid: str = "instruction", task_cfg=None) -> Dict[str, np.ndarray]:
+    """Start poses and the policy's instruction input per episode: R2R
+    policies take zero-padded token ids, RxR policies (sensor_uuid
+    "rxr_instruction") the BERT features the host path's
+    RxRInstructionSensor loads."""
+    pos = np.zeros((len(episodes), 3), np.float32)
+    heading = np.zeros((len(episodes),), np.float32)
+    for i, ep in enumerate(episodes):
+        pos[i] = np.asarray(ep.start_position, np.float32)
+        heading[i] = heading_from_quaternion(np.asarray(ep.start_rotation, np.float64))
+    if instr_uuid == "instruction":
+        instr = np.zeros((len(episodes), MAX_INSTRUCTION_LEN), np.int32)
+        for i, ep in enumerate(episodes):
+            tokens = ep.instruction.instruction_tokens or []
+            n = min(len(tokens), MAX_INSTRUCTION_LEN)
+            instr[i, :n] = np.asarray(tokens[:n], np.int32)
+    else:
+        sensor = RxRInstructionSensor(config=task_cfg.TASK.RXR_INSTRUCTION_SENSOR)
+        instr = np.stack([sensor.get_observation(episode=ep) for ep in episodes])
+    return {"instruction": instr, "pos": pos, "heading": heading}
+
+
+def chunk_tensors(chunk, instr_uuid: str, task_cfg, device, extra: Optional[Dict[str, np.ndarray]] = None):
+    """A chunk's scenes, instruction and start poses (and `extra` arrays) on
+    `device` in one upload, then its goal fields built there. Returns
+    (SceneBatch, {instruction, pos, heading, goal_fields, goal_index,
+    *extra}), with `scene_batch`'s per-goal fields and the episodes' rows of
+    them. Its parts are the spans `scan.instructions`, `scan.scenes` (the
+    host's scene arrays, and after the upload the field build,
+    `scan.field_build`) and `scan.upload`."""
+    with annotate("scan.instructions"):
+        arrays = episode_batch_arrays(chunk, instr_uuid=instr_uuid, task_cfg=task_cfg)
+    with annotate("scan.scenes"):
+        scene = scene_inputs(chunk)
+    with annotate("scan.upload"):
+        on_dev = upload({**{f"scene.{k}": v for k, v in scene.items()}, **arrays, **(extra or {})}, device)
+    with annotate("scan.scenes"):
+        inputs = {k: on_dev.pop(f"scene.{k}") for k in scene}
+        scenes, on_dev["goal_fields"] = scene_batch(inputs)
+    on_dev["goal_index"] = inputs["goal_index"]
+    return scenes, on_dev
 
 
 # ---------------------------------------------------------------------------

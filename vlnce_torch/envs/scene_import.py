@@ -13,7 +13,7 @@ panorama connectivity graphs as data/connectivity_graphs.pkl — a pickled
 {scene_name: networkx.Graph} with per-node `position` attributes (reference
 habitat_extensions/measures.py:336-337, maps.py:277-343). The device-resident
 pipelines here (envs/device_sim.py, trainers/device_dagger.py,
-trainers/device_recollect.py, rl/device_rollout.py, trainers/scan_eval.py)
+data/device_recollect.py, rl/device_rollout.py, trainers/scan_eval.py)
 step an occupancy-grid twin of that surface on the card; this module builds those grids from real
 scene data so the resident pipelines run real MP3D episodes:
 

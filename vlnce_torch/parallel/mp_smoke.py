@@ -12,7 +12,7 @@ the error) and runs, in every rank:
   slice [env_lo, env_hi) of one deterministic global IL batch, with the
   all_reduce'd gradients it applies saved beside the losses;
 - `run_ppo_update`: `WDDPPO._grads_and_stats` (the summed gradients and
-  stats) and then `WDDPPO.update_device` on the env slice of one
+  stats) and then `WDDPPO.update_device_scan` on the env slice of one
   deterministic PPO batch;
 - the resident DAgger and the resident recollect `train()` (each rank
   collects or renders its `rank_slice` and trains data-parallel);
@@ -225,8 +225,8 @@ def ppo_agent(size: str = "small", device: str = "cpu", ckpt: Optional[str] = No
 
 
 def ppo_global_batch(agent, T: int = PPO_T, N: int = PPO_N_GLOBAL) -> Dict:
-    """The whole deterministic PPO batch [T, N] in the update_device layout,
-    numpy (the same in every process)."""
+    """The whole deterministic PPO batch [T, N] in the layout of
+    update_device_scan, numpy (the same in every process)."""
     rng = np.random.RandomState(11)
     space = agent.policy.observation_space
     obs = {}
@@ -258,7 +258,7 @@ def run_ppo_update(env_lo: int, env_hi: int, size: str = "small", device: str = 
     """On the env slice [env_lo, env_hi) of `ppo_global_batch`: the
     minibatch gradients and stats summed over the ranks
     (`WDDPPO._grads_and_stats`; to `grads_out` as npz by parameter name),
-    then the production `update_device`. Returns both stats."""
+    then the production `update_device_scan`. Returns both stats."""
     from vlnce_torch.parallel.distributed import world_size
     from vlnce_torch.parallel.mesh import resolve_training_mesh
     from vlnce_torch.rl.ppo import STAT_KEYS
@@ -282,7 +282,7 @@ def run_ppo_update(env_lo: int, env_hi: int, size: str = "small", device: str = 
         np.savez(grads_out, **{name: p.grad.detach().cpu().numpy() for name, p in agent.policy.named_parameters()
                                if p.grad is not None})
     agent.optimizer.zero_grad(set_to_none=True)
-    update = agent.update_device(batch, np.random.RandomState(3))
+    update = agent.update_device_scan(batch, np.random.RandomState(3))
     return {"grads_stats": dict(zip(STAT_KEYS, stats.tolist())), "update_stats": update, "ranks": world_size()}
 
 
@@ -375,14 +375,13 @@ DDPPO_SMALL_CONFIG = "vlnce_torch/config/experiments/synthetic/smoke_waypoint.ya
 
 def ddppo_opts(tmp: str, device: str, size: str = "small") -> list:
     """One update of the DD-PPO waypoint trainer with the rollout on the
-    card and CUDA.PPO_UPDATE_SCAN (single-process, so the ranks take
-    update_device): "small" is the synthetic smoke config (32x32 frames,
-    ResNet18s, 2 envs, T=2); "full" is `PPO_CONFIG` at its widths (12 pano
-    frames of 224² RGB and 256² depth, H=256) with its 4 envs per rank and
-    T=16. Depth is cut to one update and the synthetic dataset."""
+    card (under a mesh `update_device_scan` takes its steps eagerly):
+    "small" is the synthetic smoke config (32x32 frames, ResNet18s, 2 envs,
+    T=2); "full" is `PPO_CONFIG` at its widths (12 pano frames of 224² RGB
+    and 256² depth, H=256) with its 4 envs per rank and T=16. Depth is cut to one update and the synthetic dataset."""
     opts = ["TASK_CONFIG.DATASET.TYPE", "Synthetic-VLN-v0", "RL.NUM_UPDATES", 1, "RL.CHECKPOINT_INTERVAL", 1,
             "RL.LOG_INTERVAL", 1, "CHECKPOINT_FOLDER", f"{tmp}/ckpts", "TENSORBOARD_DIR", "", "LOG_FILE", "",
-            "CUDA.ON_DEVICE_ROLLOUT", True, "CUDA.PPO_UPDATE_SCAN", True, *_device_opts(device)]
+            "CUDA.ON_DEVICE_ROLLOUT", True, *_device_opts(device)]
     if size == "small":
         return opts + ["RL.PPO.num_steps", 2, "TASK_CONFIG.DATASET.NUM_EPISODES", 4]
     return opts + ["TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", 40]

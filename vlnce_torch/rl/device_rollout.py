@@ -8,13 +8,13 @@ download of the actions). Here the whole collection loop (pano render, obs
 transforms, the policy's act, GO_TOWARD_POINT dynamics, the shaped reward,
 the auto-reset from a preloaded episode queue, the history frames) runs on
 the card for PPO.num_steps steps, and the PPO batch stays there for
-`WDDPPO.update_device` / `update_device_scan`:
+`WDDPPO.update_device_scan`:
 
-- **One env step is one replay of a CUDA graph** (`trainers/scan_eval.
-  StepGraph`): the carry (poses, recurrent state, previous actions, mask,
-  distance to the goal, the slots' episode indices, step counts, episode
-  rewards, history frames) and the step counter `g` live in fixed tensors;
-  each step writes row g of the [T, B, ...] output buffers by `index_copy_`.
+- **One env step is one replay of a CUDA graph** (`ops/graphs.StepGraph`):
+  the carry (poses, recurrent state, previous actions, mask, distance to
+  the goal, the slots' episode indices, step counts, episode rewards,
+  history frames) and the step counter `g` live in fixed tensors; each
+  step writes row g of the [T, B, ...] output buffers by `index_copy_`.
   The bootstrap value, the returns and the normalized advantages are a
   second graph, replayed once after the T steps. On the CPU, or with
   `eager` (comparisons only), the same steps run eagerly.
@@ -78,6 +78,7 @@ from vlnce_torch.envs.device_sim import (
 )
 from vlnce_torch.envs.gridworld import _RES, get_scene
 from vlnce_torch.envs.scene_import import apply_scene_geometry
+from vlnce_torch.ops.graphs import StepGraph, cached_in, launch_counts
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch
 from vlnce_torch.tasks.datasets import make_dataset
 from vlnce_torch.tasks.geometry import heading_from_quaternion
@@ -442,9 +443,7 @@ class DeviceRolloutCollector:
     def _build(self) -> None:
         """Both graphs on the loaded queue; at the first build also the output
         buffers, shaped by one probe step."""
-        from vlnce_torch.trainers.scan_eval import StepGraph, _launch_counts
-
-        before = _launch_counts()
+        before = launch_counts()
         if self._buffers is None:
             self._build_buffers()
         self._step = StepGraph(self._compute, self._commit, self.device, eager=self.eager)
@@ -453,7 +452,7 @@ class DeviceRolloutCollector:
         self.capture_seconds += self._step.capture_seconds + self._bootstrap.capture_seconds
         self.capture_launches = {"step": dict(self._step.capture_launches),
                                  "bootstrap": dict(self._bootstrap.capture_launches)}
-        self.build_launches = {k: self.build_launches.get(k, 0) + v - before[k] for k, v in _launch_counts().items()}
+        self.build_launches = {k: self.build_launches.get(k, 0) + v - before[k] for k, v in launch_counts().items()}
 
     def _build_buffers(self) -> None:
         T, B, dev = self.T, self.B, self.device
@@ -524,8 +523,6 @@ class DeviceRolloutCollector:
             self._load_rollout()
 
     def _load_rollout(self) -> None:
-        from vlnce_torch.trainers.scan_eval import cached_in
-
         bank, slot_map = self._rollout_inputs()
         B, Q, dev = self.B, self.Q, self.device
         if self._buffers is None:
@@ -560,10 +557,10 @@ class DeviceRolloutCollector:
 
     def collect_device(self, current_episode_reward, running_episode_stats, generator=None):
         """One rollout of T steps on the card. Returns (the PPO batch, T x B):
-        the batch's tensors stay on the card (for WDDPPO.update_device) and
-        are the collector's buffers, valid until the next rollout. Only the
-        slots' episode stats, indices and rewards are read back, in one
-        copy. Spans: `ppo.rollout` around `ppo.load`, `ppo.replays` and
+        the batch's tensors stay on the card (for
+        WDDPPO.update_device_scan) and are the collector's buffers, valid
+        until the next rollout. Only the slots' episode stats, indices and
+        rewards are read back, in one copy. Spans: `ppo.rollout` around `ppo.load`, `ppo.replays` and
         `ppo.readback`."""
         with annotate("ppo.rollout"):
             self.load_rollout()

@@ -14,23 +14,20 @@ clip `max_grad_norm`). Linear clip decay and linear LR decay follow
 schedule does.
 
 Spans (`utils/profiling.annotate`): `ppo.update` around each update;
-inside the device updates `ppo.plan` (the index matrix, and its upload in
-`update_device_scan`), `ppo.capture` (where `update_device_scan` captures
-its step), `ppo.minibatches` (the K enqueued steps) and
-`ppo.update_readback`. `minibatch_steps` counts the minibatch steps taken,
-`captures` and `replayed_steps` the captured step's captures and replays.
+inside the device update `ppo.plan` (the index matrix and its upload),
+`ppo.capture` (where it captures its step), `ppo.minibatches` (the K
+enqueued steps) and `ppo.update_readback`. `minibatch_steps` counts the
+minibatch steps taken, `captures` and `replayed_steps` the captured step's
+captures and replays.
 
-`update_device` and `update_device_scan` take the PPO batch that
+`update_device_scan` takes the PPO batch that
 `rl/device_rollout.DeviceRolloutCollector` leaves on the card ([T, B, ...]
 tensors in their natural shapes): a minibatch is `index_select(1, idx)` of
 it (and of hidden0 on axis 0), fed to the same `loss`, masked Adam and LR
-decay. Both draw the same `rng.permutation` stream as `update` (one
-`_minibatch_plan`) and read the stats back once. They differ in how the host
-meets the card: `update_device` uploads each minibatch's env indices as it
-comes, a pageable copy that waits for the card to finish the minibatches
-before it, while `update_device_scan` uploads the [K, n] index matrix once
-and enqueues all K minibatch steps with no synchronisation between them
-(the JAX package runs them as one `lax.scan` program).
+decay. It draws the same `rng.permutation` stream as `update`
+(`_minibatch_plan`), uploads the [K, n] index matrix once, enqueues all K
+minibatch steps with no synchronisation between them (the JAX package runs
+them as one `lax.scan` program) and reads the stats back once.
 
 On the card `update_device_scan` captures the minibatch step (the gather,
 the forward, the backward with B1's kernels, the clip and Adam) in a CUDA
@@ -41,12 +38,14 @@ replay, and the clip range is a float64 scalar on the card filled once an
 update, so linear LR and clip decay hold under replay. A training step has
 side effects, so its warm-up is a real update: the step runs eagerly on
 the CPU, with `eager` (for comparisons only), with a `clock` (host marks
-cannot sit inside a graph), while Adam holds no state (its first update),
-and at a (T, n) no eager update has run yet. The graph is keyed to the
-addresses of what it reads and writes (the batch, the policy's parameters
-and buffers, Adam's state and learning rate) and keeps those tensors alive;
-another batch or a new Adam state (`optimizer.state.clear()`,
-`load_state_dict`) captures anew, and at most `_GRAPHS_MAX` graphs are kept.
+cannot sit inside a graph), under a mesh (the all_reduce sits inside the
+step, which `align_collective_step` runs), while Adam holds no state (its
+first update), and at a (T, n) no eager update has run yet. The capture
+itself is ops/graphs.capture. The graph is keyed to the addresses of what
+it reads and writes (the batch, the policy's parameters and buffers, Adam's
+state and learning rate) and keeps those tensors alive; another batch or a
+new Adam state (`optimizer.state.clear()`, `load_state_dict`) captures
+anew, and at most `_GRAPHS_MAX` graphs are kept.
 
 Across ranks (`mesh`, a `parallel/mesh.DataMesh`; reference DD-PPO's
 ranks) each rank minibatches its own rollouts, as in the JAX package: every
@@ -57,14 +56,13 @@ takes alike. Advantages are normalized per rank (`get_advantages`), as in
 JAX. The JAX module's `_pad_sample` and `_globalize_sample` have no job
 here: they pad a minibatch to a per-rank shard multiple, which is 1 for a
 rank of the port, so every row is valid, and stitch the ranks' shards into
-one global array, where a rank of the port keeps its own.
-`update_device_scan` stays single-process, as the JAX one does.
+one global array, where a rank of the port keeps its own. The JAX
+package's `update_device_scan` is single-process; across ranks the port's
+takes every step eagerly, as the JAX package's `update_device` does.
 """
 
 from __future__ import annotations
 
-import gc
-import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -73,7 +71,8 @@ import torch
 from vlnce_torch.envs.batch import to_device
 from vlnce_torch.envs.device_sim import upload
 from vlnce_torch.models.waypoint_predictors import offset_to_continuous
-from vlnce_torch.parallel.distributed import align_collective_step, world_size
+from vlnce_torch.ops.graphs import cached_in, capture
+from vlnce_torch.parallel.distributed import align_collective_step
 from vlnce_torch.parallel.optim import masked_adam, trainable_parameters
 from vlnce_torch.utils.profiling import annotate
 
@@ -275,11 +274,11 @@ class WDDPPO:
 
     # --------------------------------------------------- update (device batch)
     def _minibatch_plan(self, batch: Dict, rng: np.random.RandomState, update_idx: int):
-        """What update_device and update_device_scan share: the env count's
-        check, the [K, n] minibatch index matrix (ppo_epoch permutations of
-        the envs, each cut into num_mini_batch slices, from the same
-        `rng.permutation` stream as the host generator) and the clip range.
-        Returns (T, rows, clip_param)."""
+        """The device update's plan: the env count's check, the [K, n]
+        minibatch index matrix (ppo_epoch permutations of the envs, each cut
+        into num_mini_batch slices, from the same `rng.permutation` stream as
+        the host generator) and the clip range. Returns (T, rows,
+        clip_param)."""
         T, N = batch["value_preds"].shape[:2]
         if N < self.cfg.num_mini_batch:
             raise ValueError(f"num_envs ({N}) must be >= RL.PPO.num_mini_batch ({self.cfg.num_mini_batch}), the "
@@ -324,33 +323,16 @@ class WDDPPO:
         self.optimizer.step()
         return stats
 
-    def update_device(self, batch: Dict, rng: np.random.RandomState, update_idx: int = 0,
-                      clock=None) -> Dict[str, float]:
-        """The PPO update over a batch on the card, one minibatch's indices
-        uploaded at a time; the stats read back once. Spans: `ppo.update`
-        around `ppo.plan`, `ppo.minibatches` and `ppo.update_readback`."""
-        with annotate("ppo.update"):
-            with annotate("ppo.plan"):
-                T, rows, clip_param = self._minibatch_plan(batch, rng, update_idx)
-            device = batch["value_preds"].device
-            with annotate("ppo.minibatches"):
-                all_stats = torch.stack([self._gather_step(batch, torch.from_numpy(row).to(device), clip_param, T, clock)
-                                         for row in rows])
-            with annotate("ppo.update_readback"):
-                return _means(all_stats)
-
     def _step_graph(self, batch: Dict, T: int, n: int, clock=None) -> Optional["MinibatchGraph"]:
         """The captured minibatch step for this batch, (T, n) and Adam
         state, captured now (span `ppo.capture`) where none holds them; None
         where the update runs eagerly (the module docstring's cases)."""
-        from vlnce_torch.trainers.scan_eval import cached_in
-
-        if (self.eager or clock is not None or batch["value_preds"].device.type != "cuda" or not self.optimizer.state
-                or (T, n) not in self._warm_shapes):
+        if (self.eager or clock is not None or self.mesh is not None or batch["value_preds"].device.type != "cuda"
+                or not self.optimizer.state or (T, n) not in self._warm_shapes):
             return None
         held = self._held_tensors(batch)
 
-        def capture() -> MinibatchGraph:
+        def build() -> MinibatchGraph:
             with annotate("ppo.capture"):
                 graph = MinibatchGraph(self, batch, T, n, held)
             self.captures += 1
@@ -358,7 +340,7 @@ class WDDPPO:
             self.capture_seconds += graph.capture_seconds
             return graph
 
-        return cached_in(self._graphs, (T, n) + tuple(t.data_ptr() for t in held), capture, _GRAPHS_MAX)
+        return cached_in(self._graphs, (T, n) + tuple(t.data_ptr() for t in held), build, _GRAPHS_MAX)
 
     def _held_tensors(self, batch: Dict) -> tuple:
         """What a captured step reads and writes outside its graph's pool:
@@ -390,15 +372,12 @@ class WDDPPO:
 
     def update_device_scan(self, batch: Dict, rng: np.random.RandomState, update_idx: int = 0,
                            clock=None) -> Dict[str, float]:
-        """The PPO update over a batch on the card with the [K, n] index
-        matrix uploaded once and all K minibatch steps enqueued together; the
-        minibatches are update_device's, and so are the stats (one
-        read-back). Single-process only, as in the JAX package. On the card
-        each step is a replay of the captured step (the module docstring).
-        Spans as update_device's; the plan holds the index upload, and
-        `ppo.capture` a capture."""
-        if world_size() > 1:
-            raise RuntimeError("CUDA.PPO_UPDATE_SCAN is single-process; under several ranks use update_device")
+        """The PPO update over a batch on the card: the [K, n] index matrix
+        uploaded once, all K minibatch steps enqueued together, the stats'
+        means read back once. On the card each step is a replay of the
+        captured step, except in the module docstring's eager cases. Spans:
+        `ppo.update` around `ppo.plan` (with the index upload), `ppo.capture`
+        (a capture), `ppo.minibatches` and `ppo.update_readback`."""
         with annotate("ppo.update"):
             with annotate("ppo.plan"):
                 T, rows, clip_param = self._minibatch_plan(batch, rng, update_idx)
@@ -408,15 +387,6 @@ class WDDPPO:
                 stats = self.minibatch_loop(batch, idx, clip_param, T, clock, graph)
             with annotate("ppo.update_readback"):
                 return _means(stats)
-
-
-def _launch_counts() -> Dict[str, int]:
-    """Each kernel wrapper's launches so far (a replay counts none)."""
-    from vlnce_torch.ops import preprocess, rnn
-
-    return {"gru_sequence": rnn.gru_sequence.launches, "gru_sequence_backward": rnn.gru_sequence_backward.launches,
-            "gru_weight_gradient": rnn.gru_weight_gradient.launches,
-            "fused_resize_normalize": preprocess.fused_resize_normalize.launches}
 
 
 class MinibatchGraph:
@@ -431,7 +401,6 @@ class MinibatchGraph:
     them again."""
 
     def __init__(self, agent: WDDPPO, batch: Dict, T: int, n: int, held: tuple):
-        t0 = time.perf_counter()
         device = batch["value_preds"].device
         self.held = held
         self.idx = torch.zeros(n, dtype=torch.long, device=device)
@@ -440,22 +409,9 @@ class MinibatchGraph:
         main = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(main)
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        # the collector stays off during the capture, as in trainers/scan_eval.StepGraph: a collection
-        # inside one invalidated it on the card
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                self.stats = agent._captured_step(batch, self.idx, self.clip, T)
-        finally:
-            if collecting:
-                gc.enable()
+        self.graph, self.stats, self.capture_launches, self.capture_seconds = capture(
+            lambda: agent._captured_step(batch, self.idx, self.clip, T), stream=side)
         main.wait_stream(side)
-        self.capture_launches = {k: v - before[k] for k, v in _launch_counts().items()}
-        self.graph = graph
-        self.capture_seconds = time.perf_counter() - t0
 
     def replay(self, row: torch.Tensor, out: torch.Tensor) -> None:
         """One step on the env columns `row` [n]: the row copied in, one

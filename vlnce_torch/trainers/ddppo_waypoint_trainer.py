@@ -25,9 +25,8 @@ spaces and closes, and `rl/device_rollout.DeviceRolloutCollector` runs each
 rollout on the card (the grid world, the act step, the reward and the
 auto-reset; one CUDA graph replay per env step, the bootstrap value and GAE
 in a second graph, one read-back of the episode stats). The PPO batch stays
-on the card for `WDDPPO.update_device`, or `update_device_scan` with
-`CUDA.PPO_UPDATE_SCAN` (which, as in the JAX package, takes effect only
-with the rollout on the card, and on one process). One such update is
+on the card for `WDDPPO.update_device_scan` (its minibatch step captured in
+a CUDA graph on one process, eager across ranks). One such update is
 `train_update_on_device`, which `train` calls once per update after
 `start_device_rollout` (the benchmark drives the same two methods).
 `train` builds the spaces, the policy and WDDPPO by `_get_spaces` and
@@ -65,7 +64,6 @@ from vlnce_torch.ops.obs_transforms import (
     apply_obs_transforms_obs_space,
     get_active_obs_transforms,
 )
-from vlnce_torch.parallel.distributed import world_size
 from vlnce_torch.parallel.mesh import resolve_training_mesh
 from vlnce_torch.parallel.optim import load_optim_state
 from vlnce_torch.registry import registry
@@ -386,20 +384,17 @@ class DDPPOWaypointTrainer(BaseVLNCETrainer):
         """One update of the on-card path: a rollout of T steps
         (`collect_device`; its episode statistics added into
         `current_episode_reward` and `running_episode_stats`), then the PPO
-        update of the batch it left on the card: `update_device_scan` with
-        CUDA.PPO_UPDATE_SCAN on one process, else `update_device` (which
+        update of the batch it left on the card, `update_device_scan` (which
         joins the ranks). The bootstrap value and GAE ran in the rollout's
         second graph. Returns (the six PPO stats, {"env_steps", "rollout_s",
         "update_s"})."""
         if self.collector is None:
             self.start_device_rollout()
-        scan = bool(self.config.CUDA.PPO_UPDATE_SCAN) and world_size() == 1
         t0 = time.time()
         batch, n_steps = self.collector.collect_device(self.current_episode_reward, self.running_episode_stats,
                                                        self.generator)
         t1 = time.time()
-        update = self.agent.update_device_scan if scan else self.agent.update_device
-        stats = update(batch, rng, update_idx=update_idx, clock=self.step_clock)
+        stats = self.agent.update_device_scan(batch, rng, update_idx=update_idx, clock=self.step_clock)
         return stats, {"env_steps": n_steps, "rollout_s": t1 - t0, "update_s": time.time() - t1}
 
     def _update_from_storage(self, rollouts, rng_np, update: int) -> Dict[str, float]:

@@ -8,11 +8,12 @@ and crosses to the card at every env step. Here the device-resident grid
 world (envs/device_sim.py) and its expert (`expert_action`, the host
 ShortestPathSensor's rule) run the loop for a chunk of NUM_ENVIRONMENTS
 episodes on the card, CUDA.DAGGER_SEGMENT steps per segment, with the
-segment machinery of trainers/scan_eval.py (`StepGraph`: one step captured,
-replayed; eager on the CPU). Each step writes its row of the store payload
-(progress, prev_action, oracle, done_before and the frozen encoders'
-features, flattened) into output tensors; after a segment the done flags
-come back in one read-back and the rows are kept on the card.
+segment machinery of trainers/scan_eval.py (ops/graphs.StepGraph: one step
+captured, replayed; eager on the CPU) and its chunk set-up
+(envs/device_sim.chunk_tensors). Each step writes its row of the store
+payload (progress, prev_action, oracle, done_before and the frozen
+encoders' features, flattened) into output tensors; after a segment the
+done flags come back in one read-back and the rows are kept on the card.
 
 Wire dtypes are JAX's: bf16 features leave the segment as f16 clamped to
 the f16 range (exact for bf16 values in range), f32 rows as f16 where
@@ -55,6 +56,7 @@ from vlnce_torch.data.feature_bank import lookup_features
 from vlnce_torch.envs.device_sim import (
     SceneBatch,
     camera_specs_from_config,
+    chunk_tensors,
     expert_action,
     progress_batch,
     render_batch,
@@ -63,16 +65,9 @@ from vlnce_torch.envs.device_sim import (
 )
 from vlnce_torch.envs.scene_import import apply_scene_geometry
 from vlnce_torch.models.distributions import Categorical
+from vlnce_torch.ops.graphs import StepGraph
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch
-from vlnce_torch.trainers.scan_eval import (
-    SegmentTally,
-    StepGraph,
-    bank_key,
-    bank_setup,
-    cached,
-    chunk_tensors,
-    load_chunk_bank,
-)
+from vlnce_torch.trainers.scan_eval import SegmentTally, bank_key, bank_setup, cached, load_chunk_bank
 from vlnce_torch.utils.logging import logger
 
 _F16_MAX = 65504.0

@@ -13,7 +13,7 @@ over `effective_batch_size / IL.batch_size` batches before each masked Adam
 step. Every epoch writes `ckpt.{epoch}.ckpt` with its optimizer state.
 
 With `CUDA.ON_DEVICE_RECOLLECT` the GT trajectories are rendered on the card
-(`trainers/device_recollect.py`, no env pool) and come back through the same
+(`data/device_recollect.py`, no env pool) and come back through the same
 collate and upload. With `CUDA.RECOLLECT_RESIDENT` as well, each batch is
 rendered on the card with its obs transforms (B2 inside the render step)
 and stays there: the accumulation step takes it as it is, time-major.

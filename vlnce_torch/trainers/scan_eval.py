@@ -10,9 +10,9 @@ at a time:
 
 - **One dispatch per segment.** The JAX package jits a `lax.scan` of the
   segment. Here one env step is captured once in a CUDA graph
-  (`StepGraph`), which is replayed SCAN_SEGMENT times: the step counter `g`
-  and the output row live in device tensors, so a replay needs nothing
-  from the host. Inside the step nothing synchronizes with the host (no
+  (ops/graphs.StepGraph), which is replayed SCAN_SEGMENT times: the step
+  counter `g` and the output row live in device tensors, so a replay needs
+  nothing from the host. Inside the step nothing synchronizes with the host (no
   read-back, no branch on a tensor). The graph is captured at the first
   chunk of a shape and kept on the policy; later chunks copy their scenes
   and start poses into its input buffers. A capture that fails raises: there
@@ -26,6 +26,10 @@ at a time:
   draws its [SCAN_SEGMENT, B] uniforms from the trainer's generator in one
   launch outside the graph, and step g reads row g. Graph and eager draw the
   same numbers.
+
+A chunk's set-up (its scenes, instructions and start poses in one upload,
+its goal fields built on the device) is envs/device_sim.chunk_tensors,
+which the on-card DAgger collection shares.
 
 The measures are the host loop's: the recorded actions are replayed through
 the port's host VLNTask with no cameras (`metrics_from_actions`), so every
@@ -51,7 +55,6 @@ graph's key, so chunks of a larger scene capture graphs of their own.
 
 from __future__ import annotations
 
-import gc
 import json
 import math
 import os
@@ -71,20 +74,18 @@ from vlnce_torch.data.feature_bank import (
 from vlnce_torch.envs.device_sim import (
     SceneBatch,
     camera_specs_from_config,
+    chunk_tensors,
     progress_batch,
     render_batch,
-    scene_batch,
-    scene_inputs,
     step_batch,
     step_tilt,
-    upload,
 )
 from vlnce_torch.envs.scene_import import apply_scene_geometry
 from vlnce_torch.models.distributions import Categorical
+from vlnce_torch.ops.graphs import StepGraph, cached_in
 from vlnce_torch.ops.obs_transforms import apply_obs_transforms_batch, get_active_obs_transforms
 from vlnce_torch.tasks.datasets import make_dataset
 from vlnce_torch.tasks.geometry import heading_from_quaternion
-from vlnce_torch.tasks.sensors import MAX_INSTRUCTION_LEN
 from vlnce_torch.utils.logging import logger
 from vlnce_torch.utils.profiling import annotate, maybe_profile
 from vlnce_torch.utils.progress import tqdm
@@ -142,119 +143,6 @@ def _check_supported(config) -> None:
     apply_scene_geometry(config.TASK_CONFIG.SIMULATOR)  # real-scene grids, if configured
 
 
-def _episode_batch_arrays(episodes, instr_uuid: str = "instruction", task_cfg=None) -> Dict[str, np.ndarray]:
-    """Start poses and the policy's instruction input per episode: R2R
-    policies take zero-padded token ids, RxR policies (sensor_uuid
-    "rxr_instruction") the BERT features the host path's
-    RxRInstructionSensor loads."""
-    pos = np.zeros((len(episodes), 3), np.float32)
-    heading = np.zeros((len(episodes),), np.float32)
-    for i, ep in enumerate(episodes):
-        pos[i] = np.asarray(ep.start_position, np.float32)
-        heading[i] = heading_from_quaternion(np.asarray(ep.start_rotation, np.float64))
-    if instr_uuid == "instruction":
-        instr = np.zeros((len(episodes), MAX_INSTRUCTION_LEN), np.int32)
-        for i, ep in enumerate(episodes):
-            tokens = ep.instruction.instruction_tokens or []
-            n = min(len(tokens), MAX_INSTRUCTION_LEN)
-            instr[i, :n] = np.asarray(tokens[:n], np.int32)
-    else:
-        from vlnce_torch.tasks.sensors import RxRInstructionSensor
-
-        sensor = RxRInstructionSensor(config=task_cfg.TASK.RXR_INSTRUCTION_SENSOR)
-        instr = np.stack([sensor.get_observation(episode=ep) for ep in episodes])
-    return {"instruction": instr, "pos": pos, "heading": heading}
-
-
-def chunk_tensors(chunk, instr_uuid: str, task_cfg, device, extra: Optional[Dict[str, np.ndarray]] = None):
-    """A chunk's scenes, instruction and start poses (and `extra` arrays) on
-    `device` in one upload, then its goal fields built there. Returns
-    (SceneBatch, {instruction, pos, heading, goal_fields, goal_index,
-    *extra}), with `scene_batch`'s per-goal fields and the episodes' rows of
-    them. Its parts are the spans `scan.instructions`, `scan.scenes` (the
-    host's scene arrays, and after the upload the field build,
-    `scan.field_build`) and `scan.upload`."""
-    with annotate("scan.instructions"):
-        arrays = _episode_batch_arrays(chunk, instr_uuid=instr_uuid, task_cfg=task_cfg)
-    with annotate("scan.scenes"):
-        scene = scene_inputs(chunk)
-    with annotate("scan.upload"):
-        on_dev = upload({**{f"scene.{k}": v for k, v in scene.items()}, **arrays, **(extra or {})}, device)
-    with annotate("scan.scenes"):
-        inputs = {k: on_dev.pop(f"scene.{k}") for k in scene}
-        scenes, on_dev["goal_fields"] = scene_batch(inputs)
-    on_dev["goal_index"] = inputs["goal_index"]
-    return scenes, on_dev
-
-
-def _launch_counts() -> Dict[str, int]:
-    from vlnce_torch.ops import preprocess, rnn
-
-    return {"gru_sequence": rnn.gru_sequence.launches, "fused_resize_normalize": preprocess.fused_resize_normalize.launches}
-
-
-class StepGraph:
-    """One env step of a closed loop, run n times per segment.
-
-    `compute()` reads the loop's state from fixed tensors and returns the
-    step's results; `commit(results)` writes them back in place. On a CUDA
-    device (unless `eager`) the step is warmed up once on a side stream (the
-    kernels' builds, their tables' uploads and the libraries' plans happen
-    there), then `commit(compute())` is captured in a CUDA graph and each
-    step is one replay; a failed capture raises. Elsewhere, or with `eager`
-    (for comparisons only), each step runs the ops eagerly.
-    `capture_launches` holds each kernel wrapper's launches recorded by the
-    capture: each replay runs them again."""
-
-    def __init__(self, compute: Callable, commit: Callable, device: torch.device, eager: bool = False):
-        self.compute, self.commit = compute, commit
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.replays = 0
-        self.capture_launches: Dict[str, int] = {}
-        self.capture_seconds = 0.0
-        if device.type == "cuda" and not eager:
-            with annotate("scan.capture"):
-                self._capture(device)
-
-    @torch.no_grad()
-    def _capture(self, device) -> None:
-        t0 = time.perf_counter()
-        main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self.compute()  # warm-up: its results are dropped, the state is unchanged
-        main.wait_stream(side)
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        # the collector stays off during the capture: on the card a collection
-        # inside it invalidated the capture (cudaErrorStreamCaptureInvalidated,
-        # first reported by cuDNN as CUDNN_STATUS_INTERNAL_ERROR), in some runs
-        # of tests/test_torch_kernels.py::test_rollout_graph_matches_eager
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            # thread_local: another thread may launch work meanwhile (recollection
-            # captures its render step on the trainer's prefetch thread)
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.commit(self.compute())
-        finally:
-            if collecting:
-                gc.enable()
-        self.capture_launches = {k: v - before[k] for k, v in _launch_counts().items()}
-        self.graph = graph
-        self.capture_seconds = time.perf_counter() - t0
-
-    @torch.no_grad()
-    def run(self, n: int) -> None:
-        for _ in range(n):
-            if self.graph is not None:
-                self.graph.replay()
-            else:
-                self.commit(self.compute())
-        self.replays += n
-
-
 def policy_cache(policy) -> Dict[tuple, object]:
     """Built segments, kept on the policy they captured (not in a module
     dict keyed by id(policy), which a new policy could reuse)."""
@@ -267,15 +155,6 @@ def policy_cache(policy) -> Dict[tuple, object]:
 
 def cached(policy, key: tuple, build: Callable):
     return cached_in(policy_cache(policy), key, build, _CACHE_MAX)
-
-
-def cached_in(cache: Dict, key: tuple, build: Callable, limit: int):
-    """cache[key], built on a miss; a FIFO of at most `limit` entries."""
-    if key not in cache:
-        while len(cache) >= limit:
-            cache.pop(next(iter(cache)))
-        cache[key] = build()
-    return cache[key]
 
 
 class SegmentTally:

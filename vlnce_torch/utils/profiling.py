@@ -16,14 +16,17 @@ span does nothing. They sit where the work happens:
   the host's scene arrays, `scan.upload`, then `scan.scenes` again holding
   `scan.field_build`, the goal fields' build on the device, and
   `scan.bank`), `scan.load`, and per segment `scan.replays` and
-  `scan.readback`; `scan.capture` around a step graph's capture. The
-  set-up's spans open in shared code, so they fire wherever it runs:
-  `scan.instructions`, `scan.scenes`, `scan.upload` and `scan.field_build`
-  in the on-card DAgger collection too (trainers/device_dagger,
-  `chunk_tensors`), `scan.field_build` in device_recollect
-  (envs/device_sim.scene_batch), and `scan.goal_field` at every miss of a
-  scene's distance-field cache (envs/gridworld): the host simulators'
-  Dijkstra, which the loops on the card no longer run;
+  `scan.readback`; `scan.capture` around a step graph's capture
+  (ops/graphs.StepGraph, so also around the captures of the DD-PPO
+  rollout's, the on-card DAgger collection's and the recollection render's
+  graphs). The set-up's spans open in shared code, so they fire wherever
+  it runs: `scan.instructions`, `scan.scenes`, `scan.upload` and
+  `scan.field_build` in the on-card DAgger collection too
+  (envs/device_sim.chunk_tensors), `scan.field_build` in
+  data/device_recollect (envs/device_sim.scene_batch), and
+  `scan.goal_field` at every miss of a scene's distance-field cache
+  (envs/gridworld): the host simulators' Dijkstra, which the loops on the
+  card no longer run;
 - the fused DAgger epoch (data/device_bank.run_fused_epoch): `train.plan`,
   then per run `train.run` holding `train.run_upload`, a `train.step` per
   step (`train.gather`, then the IL step's `il.forward`, `il.backward`,
@@ -33,8 +36,8 @@ span does nothing. They sit where the work happens:
   bank's build, holding `ppo.field_build` (its goal fields on the device);
   per rollout on the card `ppo.rollout` holding `ppo.load`, `ppo.replays`
   and `ppo.readback` (the host rollout: `ppo.rollout` alone); per update
-  `ppo.update`, holding on the card `ppo.plan`, `ppo.minibatches` and
-  `ppo.update_readback`;
+  `ppo.update`, holding on the card `ppo.plan`, `ppo.capture` (the
+  minibatch step's capture), `ppo.minibatches` and `ppo.update_readback`;
 - DAgger's host collection (`collect_step`).
 """
 
