@@ -139,8 +139,10 @@ Needs one CUDA card (it exits non-zero without one) and nvcc. Phases:
    update eager, the second captures the minibatch step and replays it;
    launches counted as the card ran them, the profiler's launches a
    replayed step); the replays and the enqueued minibatch loop under
-   set_sync_debug_mode("error"); frozen weights bit-equal, the
-   checkpoint's eval; the rollout's and the update's times beside phase 13's;
+   set_sync_debug_mode("error"); every minibatch step on the rollout's
+   stored backbone features, no frame recomputed; frozen weights
+   bit-equal, the checkpoint's eval; the rollout's and the update's times
+   beside phase 13's;
 20. `phase_device_waypoint_against_plain`: the graphed rollout through B1's
    kernel against the eager one with its plain version (f32, N=4, T=8, the
    same uniforms): values and log-probs at phase 4's tolerance, positions
@@ -3414,9 +3416,10 @@ def phase_device_waypoint(dev, host):
     (B1 2 + 2 + 2 recorded) and replays it: the launch counts add each
     replay's recorded launches (the capture itself runs none), and one more
     update under the profiler prints its kernel and graph launches per
-    replayed step. The rollout's replays (both runs) and the second run's
-    minibatch loop run under
-    set_sync_debug_mode("error"). Each train() builds its episode
+    replayed step. Every minibatch step of both runs reads the rollout's
+    stored backbone features: no frame recomputed (`WDDPPO`'s counters).
+    The rollout's replays (both runs) and the second run's minibatch loop
+    run under set_sync_debug_mode("error"). Each train() builds its episode
     bank's goal fields in one launch of goal_field.cu, counted in the
     goal-field kernel's launch line; one more update under the profiler
     holds each of the rollout's and the update's `ppo.*` spans. Then the
@@ -3492,6 +3495,11 @@ def phase_device_waypoint(dev, host):
             assert saved["extra_state"] == {"update": WP_UPDATES - 1, "count_steps": WP_UPDATES * ppo.num_steps * WP_N}
             print(f"{name}: PPO stats per update " + "; ".join(json.dumps({k: round(v, 4) for k, v in h.items()}) for h in history)
                   + f"; {len(frozen)} frozen tensors bit-equal, {len(moved)} trainable tensors moved")
+            # every minibatch step reads the rollout's stored backbone features: no frame recomputed
+            rows = minibatches * ppo.num_steps * (WP_N // ppo.num_mini_batch)
+            print(f"{name}: {agent.feature_rows_served} minibatch rows served from the rollout's stored backbone "
+                  f"features, {agent.backbone_frames_recomputed} backbone frames recomputed")
+            assert (agent.feature_rows_served, agent.backbone_frames_recomputed) == (rows, 0)
             steady = r["rollout_time"] - r["first_rollout_time"]
             steady_update = r["update_time"] - r["first_update_time"]
             steps = r["env_steps"] * (WP_UPDATES - 1) / WP_UPDATES
@@ -3546,7 +3554,7 @@ def phase_device_waypoint(dev, host):
                       f"{agent.replayed_steps} replayed steps")
                 from torch.profiler import ProfilerActivity, profile
 
-                steps, replays = agent.minibatch_steps, agent.replayed_steps
+                steps, replays, served = agent.minibatch_steps, agent.replayed_steps, agent.feature_rows_served
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     trainer.train_update_on_device(WP_UPDATES, np.random.RandomState(0))
                 host = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]  # not the spans' mirrors
@@ -3562,10 +3570,12 @@ def phase_device_waypoint(dev, host):
                         "ppo.minibatches", "ppo.update_readback")
                 print(f"{name}: one more update under the profiler: spans {json.dumps(spans)}, "
                       f"{agent.minibatch_steps - steps} minibatch steps counted, {agent.replayed_steps - replays} of them "
-                      f"replayed; {update_launches} kernel and graph launches inside ppo.update, "
-                      f"{update_launches / per_update:.2f} a minibatch step (1,652 eager)")
+                      f"replayed, {agent.feature_rows_served - served} rows served from stored features, "
+                      f"{agent.backbone_frames_recomputed} backbone frames recomputed; {update_launches} kernel and "
+                      f"graph launches inside ppo.update, {update_launches / per_update:.2f} a minibatch step (1,652 eager)")
                 assert all(spans.get(k) == 1 for k in want) and "ppo.capture" not in spans, spans
                 assert agent.minibatch_steps - steps == agent.replayed_steps - replays == per_update
+                assert agent.feature_rows_served - served == rows // WP_UPDATES and agent.backbone_frames_recomputed == 0
                 assert 0 < update_launches <= 5 * per_update, update_launches
             out[name] = launches
 

@@ -38,6 +38,7 @@ from vlnce_torch.envs import ensure_registered
 from vlnce_torch.envs import rl_envs  # noqa: F401  (registers the waypoint env)
 from vlnce_torch.envs import spaces as port_spaces
 from vlnce_torch.models.convert import state_dict_from_jax_params
+from vlnce_torch.models.waypoint_predictors import FRAME_KEYS
 from vlnce_torch.ops.obs_transforms import get_active_obs_transforms
 from vlnce_torch.registry import registry
 from vlnce_torch.rl.device_rollout import DeviceRolloutCollector, compute_returns_device
@@ -399,6 +400,100 @@ def test_update_device_scan_matches_jax(pair, greedy):
     finally:
         policy.load_state_dict(start)
         pair["jax_policy"].params = params
+
+
+def _frames_and_features(batch):
+    """The batch's observations [T, N, ...] as tensors, once with the frames
+    and once with the stored backbone features in their place (as
+    WDDPPO._gather hands them to the policy)."""
+    obs = {k: torch.from_numpy(v) for k, v in batch["obs"].items()}
+    served = {**{k: v for k, v in obs.items() if k not in FRAME_KEYS},
+              **{f"{k}_features": torch.from_numpy(v) for k, v in batch["features"].items()}}
+    return obs, served
+
+
+@pytest.mark.parametrize("seq_len", [None, T])
+def test_forward_on_stored_features_equals_the_forward_on_frames(pair, greedy, seq_len):
+    """The policy's forward over a collected batch, from the stored backbone
+    features and from the stored frames (rows whose mask is 0, their history
+    zeroed, among them): every output within 1e-5, one step at a time and
+    as the sequence the PPO update runs."""
+    batch = greedy[0]["port"][0][0]
+    policy = pair["policy"]
+    assert (batch["masks"] == 0).any() and (batch["masks"] == 1).any()
+    obs, served = _frames_and_features(batch)
+    hidden0 = torch.from_numpy(batch["hidden0"])
+    prev = {k: torch.from_numpy(v) for k, v in batch["prev_actions"].items()}
+    masks = torch.from_numpy(batch["masks"])
+    if seq_len is None:
+        calls = [({k: v[t] for k, v in o.items()}, hidden0, {k: v[t] for k, v in prev.items()}, masks[t])
+                 for t in range(T) for o in (obs, served)]
+    else:
+        def flat(tree):
+            return {k: v.flatten(0, 1) for k, v in tree.items()}
+
+        calls = [(flat(o), hidden0, flat(prev), masks.flatten(0, 1)) for o in (obs, served)]
+    with torch.no_grad():
+        outs = [policy(o, h, p, m, seq_len) for o, h, p, m in calls]
+    for on_frames, on_features in zip(outs[0::2], outs[1::2]):
+        assert sorted(on_frames) == sorted(on_features)
+        for k, v in on_frames.items():
+            if v is not None:
+                np.testing.assert_allclose(on_features[k].numpy(), v.numpy(), rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_collector_stores_the_backbones_of_its_own_frames(pair, greedy):
+    """Each row of the stored features is the frozen backbones run over the
+    same row's frames: the 12 views and the history frame masked by the
+    row's mask, [T, N, 13, C, h, w] in the compute dtype."""
+    batch = greedy[0]["port"][0][0]
+    net = pair["policy"].net
+    obs, _ = _frames_and_features(batch)
+    m = torch.from_numpy(batch["masks"]).reshape(T * N, 1, 1, 1)
+    rows = {k: v.flatten(0, 1) for k, v in obs.items()}
+    with torch.no_grad():
+        for kind, encoder in (("rgb", net.rgb_encoder), ("depth", net.depth_encoder)):
+            history = rows[f"{kind}_history"] * m.to(rows[f"{kind}_history"].dtype)
+            frames = torch.cat([rows[kind], history[:, None]], dim=1)
+            encoder({kind: frames.flatten(0, 1)})
+            want = encoder.cached_features.reshape((T, N, 13) + tuple(encoder.cached_features.shape[1:]))
+            got = batch["features"][kind]
+            assert got.shape == tuple(want.shape) and got.dtype == np.float32, (kind, got.shape, got.dtype)
+            np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5, err_msg=kind)
+
+
+def test_update_device_scan_on_stored_features_equals_the_recompute(pair, greedy):
+    """update_device_scan over one collected batch with its stored features
+    and with them stripped (the frames recomputed through the backbones),
+    from the same weights and Adam state: the six stats and every parameter's
+    change within 1e-5. The counters: K*T*n rows served and no frame
+    recomputed, then K*T*n*13 frames recomputed and no row served."""
+    batch = _device_batch(greedy[0]["port"][0][0])
+    policy = pair["policy"]
+    start = {k: v.clone() for k, v in policy.state_dict().items()}
+    ppo = pair["cfg"].RL.PPO
+    K, n = ppo.ppo_epoch * ppo.num_mini_batch, N // ppo.num_mini_batch
+    runs = []
+    try:
+        for served in (True, False):
+            policy.load_state_dict(start)
+            _, agent = _agents(pair)
+            b = batch if served else {k: v for k, v in batch.items() if k != "features"}
+            stats = agent.update_device_scan(b, np.random.RandomState(7), update_idx=1)
+            runs.append((stats, {k: v.clone() for k, v in policy.state_dict().items()}))
+            rows = K * T * n
+            assert agent.minibatch_steps == K
+            assert (agent.feature_rows_served, agent.backbone_frames_recomputed) == ((rows, 0) if served else (0, rows * 13))
+    finally:
+        policy.load_state_dict(start)
+    (stats_f, after_f), (stats_r, after_r) = runs
+    np.testing.assert_allclose([stats_f[k] for k in STAT_KEYS], [stats_r[k] for k in STAT_KEYS], rtol=0, atol=1e-5)
+    moved = 0
+    for name, value in after_f.items():
+        np.testing.assert_allclose((value - start[name]).numpy(), (after_r[name] - start[name]).numpy(), rtol=0,
+                                   atol=1e-5, err_msg=name)
+        moved += not torch.equal(value, start[name])
+    assert moved > 20
 
 
 def test_device_steps_never_test_a_tensor_for_truth(pair, monkeypatch):

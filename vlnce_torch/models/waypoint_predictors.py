@@ -9,10 +9,12 @@ attention, pano multi-head attention, the main GRU, pano-stop logits from
 dotted features plus a stop head, and distance/offset heads with bounded
 variances. All 13 frames x B go through each frozen CNN as one
 [13B, H, W, C] batch in the compute dtype; everything after the encoders
-runs in f32. Both GRUs are `RNNStateEncoder`s, so on the card each runs the
-`gru_sequence` kernel (B1), in the single step and in the sequence mode
-(`seq_len=T`, time-major flattened [T*n, ...] inputs, as PPO's minibatch
-update hands them over).
+runs in f32. The on-card PPO update hands over the rollout's stored
+backbone outputs in place of the frames (`backbone_features`), so there
+the frozen CNNs run once per frame. Both GRUs are `RNNStateEncoder`s, so
+on the card each runs the `gru_sequence` kernel (B1), in the single step
+and in the sequence mode (`seq_len=T`, time-major flattened [T*n, ...]
+inputs, as PPO's minibatch update hands them over).
 
 Module names are the reference's, so state_dict keys read
 `net.visual_rnn.rnn.*`, `net.rgb_hist_linear.2.*`, `net.pano_attn.*`, ...
@@ -37,6 +39,7 @@ from vlnce_torch.models.rnn_state_encoder import RNNStateEncoder
 PREV_ACTION_DIM = 4
 PANO_ATTN_KEY_DIM = 128
 ANGLE_FEATURE_SIZE = 4
+FRAME_KEYS = ("rgb", "depth", "rgb_history", "depth_history")  # what `rgb_features` and `depth_features` stand in for
 
 
 def distance_to_continuous(distance: torch.Tensor, wypt_cfg) -> torch.Tensor:
@@ -139,28 +142,45 @@ class WaypointPredictionNet(nn.Module):
         self.visual_rnn.rnn.reset_parameters(generator)
         self.main_state_encoder.rnn.reset_parameters(generator)
 
+    def backbone_features(self) -> Dict[str, torch.Tensor]:
+        """The frozen backbones' outputs of the last forward that ran them,
+        {"rgb", "depth"} each [B, 13, C, h, w] in the compute dtype (the 12
+        pano views, then the masked history frame): what `forward` takes as
+        `rgb_features` and `depth_features` in place of the frames."""
+        P1 = self.num_panos + 1
+        return {k: enc.cached_features.reshape((-1, P1) + tuple(enc.cached_features.shape[1:]))
+                for k, enc in (("rgb", self.rgb_encoder), ("depth", self.depth_encoder))}
+
     def forward(self, observations, rnn_states, prev_actions: Dict[str, torch.Tensor], masks,
                 seq_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Single-step mode (seq_len None): every tensor has leading dim B,
         rnn_states [B, L, H]. Sequence mode (seq_len = T): observations,
         prev_actions and masks are time-major flattened [T*n, ...],
-        rnn_states [n, L, H]. Returns the heads' outputs, the features `x`
-        the critic reads and the new [B, L, H] states."""
+        rnn_states [n, L, H]. With `rgb_features` and `depth_features` in
+        the observations (`backbone_features` of earlier forwards over the
+        same frames) the frozen backbones are not run and the frames are not
+        read. Returns the heads' outputs, the features `x` the critic reads
+        and the new [B, L, H] states."""
         mc = self.model_config
         wc = mc.WAYPOINT
         P = self.num_panos
-        B = observations["rgb"].shape[0]
+        B = observations["angle_features"].shape[0]
         masks = masks.reshape(B, 1).float()
 
         instruction_embedding = self.instruction_encoder(observations)  # [B, C_t, T_text]
 
-        # -- pano + history frames through the frozen CNNs ------------------
-        m = masks.reshape(B, 1, 1, 1)
-        rgb = torch.cat([observations["rgb"], (observations["rgb_history"] * m.to(observations["rgb_history"].dtype))[:, None]], dim=1)
-        rgb_embedding = self.rgb_encoder({"rgb": rgb.reshape((B * (P + 1),) + rgb.shape[2:])}).float()
+        # -- pano + history frames through the frozen CNNs, or their stored outputs
+        if "rgb_features" in observations:
+            rgb_in = {"rgb_features": observations["rgb_features"].flatten(0, 1)}
+            depth_in = {"depth_features": observations["depth_features"].flatten(0, 1)}
+        else:
+            m = masks.reshape(B, 1, 1, 1)
+            rgb = torch.cat([observations["rgb"], (observations["rgb_history"] * m.to(observations["rgb_history"].dtype))[:, None]], dim=1)
+            depth = torch.cat([observations["depth"], (observations["depth_history"] * m)[:, None]], dim=1)
+            rgb_in, depth_in = {"rgb": rgb.flatten(0, 1)}, {"depth": depth.flatten(0, 1)}
+        rgb_embedding = self.rgb_encoder(rgb_in).float()
         rgb_embedding = rgb_embedding.reshape(B, P + 1, rgb_embedding.shape[1], -1)  # [B, 13, C_r, 16]
-        depth = torch.cat([observations["depth"], (observations["depth_history"] * m)[:, None]], dim=1)
-        depth_embedding = self.depth_encoder({"depth": depth.reshape((B * (P + 1),) + depth.shape[2:])}).float()
+        depth_embedding = self.depth_encoder(depth_in).float()
         depth_embedding = depth_embedding.reshape(B, P + 1, depth_embedding.shape[1], -1)  # [B, 13, C_d, h*w]
 
         rgb_history, rgb_embedding = rgb_embedding[:, P], rgb_embedding[:, :P]

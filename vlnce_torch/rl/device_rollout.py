@@ -41,6 +41,12 @@ the card for PPO.num_steps steps, and the PPO batch stays there for
   `ppo.replays` (the T step replays and the bootstrap) and `ppo.readback`.
 - **One read-back per rollout**: the episode stats, the slots' episode
   indices and the running episode rewards, in one copy.
+- **Stored features.** Each step also keeps its act step's frozen-backbone
+  outputs (`WaypointPredictionNet.backbone_features`: the 12 views and the
+  masked history frame, [T, B, 13, C, h, w] in the compute dtype) under
+  the batch's `features`, beside the frames in `obs`; the PPO update reads
+  them in place of running the backbones again. The bootstrap's are not
+  kept: no update reads them.
 
 Parity: the dynamics are device_sim.waypoint_step, the reward
 device_sim.waypoint_reward (both held against the host env), and done is
@@ -381,8 +387,8 @@ class DeviceRolloutCollector:
         hist_rgb = torch.where(blank, torch.zeros_like(s["hist_rgb"]), _select_axis1(batch["rgb"], pano % num_p))
         hist_depth = torch.where(blank, torch.zeros_like(s["hist_depth"]), _select_axis1(batch["depth"], pano % num_p))
         return {
-            "obs": batch, "out": out, "reward": reward[:, None], "mask_next": (~done).to(torch.float32)[:, None],
-            "stats": stats,
+            "obs": batch, "features": self.policy.net.backbone_features(), "out": out, "reward": reward[:, None],
+            "mask_next": (~done).to(torch.float32)[:, None], "stats": stats,
             "carry": {
                 "pos": torch.where(done[:, None], nxt.start_pos, new_pos),
                 "heading": torch.where(done, nxt.start_heading, new_heading),
@@ -399,11 +405,13 @@ class DeviceRolloutCollector:
         }
 
     def _commit(self, res: Dict) -> None:
-        """Row g of the outputs (the step's INPUT observations, previous
-        actions and mask among them), then the carry, in place."""
+        """Row g of the outputs (the step's INPUT observations, their
+        frozen-backbone features, previous actions and mask among them),
+        then the carry, in place."""
         s, buf, row = self._state, self._buffers, self._state["g"]
-        for k, v in res["obs"].items():
-            buf["obs"][k].index_copy_(0, row, v[None])
+        for group in ("obs", "features"):
+            for k, v in res[group].items():
+                buf[group][k].index_copy_(0, row, v[None])
         out = res["out"]
         for k in _ACTION_KEYS:
             buf["actions"][k].index_copy_(0, row, out["action_elements"][k].to(torch.float32)[None])
@@ -467,6 +475,7 @@ class DeviceRolloutCollector:
 
         self._buffers = {
             "obs": {k: rows(v) for k, v in probe["obs"].items()},
+            "features": {k: rows(v) for k, v in probe["features"].items()},
             "actions": {k: col() for k in _ACTION_KEYS},
             "prev_actions": {k: col() for k in _ACTION_KEYS},
             **{k: col() for k in ("masks", "old_log_probs", "value_preds", "rewards", "masks_next", "returns",
@@ -590,6 +599,6 @@ class DeviceRolloutCollector:
                 running_episode_stats[k] = np.zeros((B, 1), np.float32)
             running_episode_stats[k] += v
         buf = self._buffers
-        batch = {k: buf[k] for k in ("obs", "hidden0", "actions", "prev_actions", "value_preds", "returns", "masks",
-                                     "old_log_probs", "advantages", "rewards", "masks_next")}
+        batch = {k: buf[k] for k in ("obs", "features", "hidden0", "actions", "prev_actions", "value_preds", "returns",
+                                     "masks", "old_log_probs", "advantages", "rewards", "masks_next")}
         return batch, self.T * B

@@ -18,7 +18,9 @@ inside the device update `ppo.plan` (the index matrix and its upload),
 `ppo.capture` (where it captures its step), `ppo.minibatches` (the K
 enqueued steps) and `ppo.update_readback`. `minibatch_steps` counts the
 minibatch steps taken, `captures` and `replayed_steps` the captured step's
-captures and replays.
+captures and replays, `feature_rows_served` the rows whose frozen-backbone
+features a step read from the batch and `backbone_frames_recomputed` the
+frames whose backbones a step ran again (13 a row).
 
 `update_device_scan` takes the PPO batch that
 `rl/device_rollout.DeviceRolloutCollector` leaves on the card ([T, B, ...]
@@ -28,6 +30,14 @@ decay. It draws the same `rng.permutation` stream as `update`
 (`_minibatch_plan`), uploads the [K, n] index matrix once, enqueues all K
 minibatch steps with no synchronisation between them (the JAX package runs
 them as one `lax.scan` program) and reads the stats back once.
+
+Where the batch holds the rollout's frozen-backbone outputs (`features`,
+the collector's), a minibatch gathers them in place of the frames and the
+policy runs only its trainable parts on them. The backbones are frozen and
+the history frame is masked alike in both passes, so these are the
+features a recompute would give (computed at the act step's batch size,
+not the minibatch's). A batch without them, as the host storage's,
+recomputes them.
 
 On the card `update_device_scan` captures the minibatch step (the gather,
 the forward, the backward with B1's kernels, the clip and Adam) in a CUDA
@@ -70,7 +80,7 @@ import torch
 
 from vlnce_torch.envs.batch import to_device
 from vlnce_torch.envs.device_sim import upload
-from vlnce_torch.models.waypoint_predictors import offset_to_continuous
+from vlnce_torch.models.waypoint_predictors import FRAME_KEYS, offset_to_continuous
 from vlnce_torch.ops.graphs import cached_in, capture
 from vlnce_torch.parallel.distributed import align_collective_step
 from vlnce_torch.parallel.optim import masked_adam, trainable_parameters
@@ -117,6 +127,8 @@ class WDDPPO:
         self._warm_shapes = set()  # the (T, n) of the eager minibatch steps taken
         self.captures = 0
         self.replayed_steps = 0  # minibatch steps taken as a replay (counted in minibatch_steps too)
+        self.feature_rows_served = 0  # minibatch rows whose stored backbone features a step read
+        self.backbone_frames_recomputed = 0  # frames whose frozen backbones a step ran again
         self.capture_launches: Dict[str, int] = {}  # each kernel wrapper's launches in the last capture
         self.capture_seconds = 0.0
 
@@ -247,8 +259,17 @@ class WDDPPO:
         self.optimizer.step()
         self.optimizer_steps += 1
         self.minibatch_steps += 1
+        self._count_rows("rgb_features" in sample[0], T * sample[1].shape[0])
         mark("optimizer")
         return stats
+
+    def _count_rows(self, served: bool, rows: int) -> None:
+        """A minibatch step's `rows`: served from stored backbone features,
+        or their 13 frames put through the backbones again."""
+        if served:
+            self.feature_rows_served += rows
+        else:
+            self.backbone_frames_recomputed += rows * (self.policy.num_panos + 1)
 
     # ------------------------------------------------------------------ update
     def update(self, rollouts, rng: np.random.RandomState, update_idx: int = 0,
@@ -294,12 +315,17 @@ class WDDPPO:
     @staticmethod
     def _gather(batch: Dict, idx: torch.Tensor) -> tuple:
         """The minibatch of env columns `idx` of the device batch, as `loss`
-        takes it."""
+        takes it: the stored backbone features (as `rgb_features` and
+        `depth_features`) in place of the frames where the batch has them."""
         def take(v):
             return v.index_select(1, idx)
 
+        obs = batch["obs"]
+        if "features" in batch:
+            obs = {**{k: v for k, v in obs.items() if k not in FRAME_KEYS},
+                   **{f"{k}_features": v for k, v in batch["features"].items()}}
         return (
-            {k: take(v) for k, v in batch["obs"].items()}, batch["hidden0"].index_select(0, idx),
+            {k: take(v) for k, v in obs.items()}, batch["hidden0"].index_select(0, idx),
             {k: take(v) for k, v in batch["actions"].items()}, {k: take(v) for k, v in batch["prev_actions"].items()},
             *(take(batch[k]) for k in ("value_preds", "returns", "masks", "old_log_probs", "advantages")),
         )
@@ -368,6 +394,7 @@ class WDDPPO:
             self.optimizer_steps += 1
             self.minibatch_steps += 1
             self.replayed_steps += 1
+            self._count_rows("features" in batch, T * idx.shape[1])
         return stats
 
     def update_device_scan(self, batch: Dict, rng: np.random.RandomState, update_idx: int = 0,
